@@ -1,0 +1,583 @@
+"""Taskizing L3 BLAS (paper §IV-A, Eq. 1a-1f).
+
+A *task* fully solves one output tile ``C_ij``.  It is represented as a
+sequence of k-*steps* — each step multiplies two input tile references
+and accumulates — plus an optional finalize op (TRSM's triangular
+solve).  Tile references carry the transpose flag (the paper's §III-C
+trick: never transpose the matrix, transpose the tile inside the
+kernel) and a *fill* modifier for triangular/symmetric storage.
+
+Task properties (paper §IV-A):
+  * reading inputs is data-dependency free (except TRSM's intra-column
+    chain, which we expose as explicit ``deps`` edges);
+  * concurrent writes are race free — each task owns its C_ij;
+  * workload varies per task (len(steps) depends on i/j/routine).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from .tiling import (TileGrid, TileKey, panel_parts, split_ranges,
+                     workcentric_parts)
+
+
+@dataclasses.dataclass
+class Ledger:
+    """Per-device communication/compute accounting (Tables IV/V, Fig. 8).
+
+    Lives beside the task model (not the runtime) because both the
+    scheduler (``core.runtime``) and the discrete-event timing engine
+    (``core.events``) charge it — time flows from scheduled *tasks*.
+    """
+
+    h2d_bytes: int = 0
+    d2h_bytes: int = 0
+    d2d_bytes: int = 0
+    # pod tier (device_class="mesh_shard"): bytes moved over the ICI
+    # fabric — ring hops scattering freshly-filled host panels across
+    # the shard ring plus neighbor-tier reads (capacity misses served
+    # by a peer's HBM instead of host DRAM).  Together with h2d/d2h/d2d
+    # this decomposes the comm volume exactly.
+    ici_bytes: int = 0
+    tasks: int = 0
+    steals: int = 0
+    flops: int = 0
+    compute_time: float = 0.0     # modeled seconds
+    comm_time: float = 0.0        # modeled seconds (total, incl. overlapped)
+    unoverlapped_comm: float = 0.0  # Fig. 8 "COMM"
+    busy_time: float = 0.0        # modeled wall contribution
+    # sim-mode seconds the device spent with no batch in flight:
+    # dependency waits (a batch delayed past the device clock) and
+    # scheduler stall nudges both land here, so per-device
+    # busy_time + idle_time always sums to the device clock
+    idle_time: float = 0.0
+    # per-link busy seconds this device put on the transfer lanes
+    # (event engine only; the lump model has no per-link timelines)
+    h2d_busy_s: float = 0.0
+    d2d_busy_s: float = 0.0
+    d2h_busy_s: float = 0.0
+    # every ICI transfer charges exactly nbytes/ici_bw seconds, so in
+    # the event engine ici_busy_s == ici_bytes/ici_bw by construction
+    # (the pod bench lane gates that equality)
+    ici_busy_s: float = 0.0
+    # P2P seconds this device spent *serving* peers' L2 hits from its
+    # own store (the egress side of d2d traffic; charged in both time
+    # models).  A skew here means one holder is being drained while
+    # its peers idle — the pathology the LRU peer rotation fixes.
+    d2d_served_s: float = 0.0
+    # batched-dispatch accounting (execute=True runs only): how many
+    # k-steps went through the backend, how many grouped dispatches
+    # they collapsed into, and what each engine actually executed —
+    # ``batched_steps - kernel_launches`` is the "launches saved" that
+    # the bench lane tracks across PRs.
+    batched_steps: int = 0
+    batched_groups: int = 0
+    kernel_launches: int = 0
+    engine_flops: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # work-centric (Stream-K) attribution: how much of this device's
+    # scheduled work was partial-k tasks vs. fix-up reductions.  Owner
+    # tasks are ``tasks - partial_tasks - fixup_tasks``; partial flops
+    # are the k-range MAC shares, fixup flops the join + epilogue cost.
+    partial_tasks: int = 0
+    fixup_tasks: int = 0
+    partial_flops: int = 0
+    fixup_flops: int = 0
+
+    @property
+    def overlap_efficiency(self) -> float:
+        """Fraction of modeled communication hidden under compute
+        (1.0 when there was nothing to hide)."""
+        if self.comm_time <= 0.0:
+            return 1.0
+        return max(0.0, 1.0 - self.unoverlapped_comm / self.comm_time)
+
+# fill modifiers applied to the *stored* tile before the optional transpose
+FILL_FULL = "full"
+FILL_SYM_U = "sym_u"   # symmetrize from upper storage
+FILL_SYM_L = "sym_l"
+FILL_TRI_U = "tri_u"   # keep upper triangle (non-unit diag)
+FILL_TRI_L = "tri_l"
+FILL_TRI_UU = "tri_uu"  # upper, unit diagonal
+FILL_TRI_LU = "tri_lu"
+
+
+@dataclasses.dataclass(frozen=True)
+class TileRef:
+    key: TileKey
+    trans: bool = False
+    fill: str = FILL_FULL
+
+
+@dataclasses.dataclass(frozen=True)
+class Step:
+    """One k-step: ``acc += op(a) @ op(b)``."""
+
+    a: TileRef
+    b: TileRef
+
+
+@dataclasses.dataclass(frozen=True)
+class Finalize:
+    """TRSM finalize: ``C_ij = solve(tri(A_ii), alpha * B_ij - acc)``."""
+
+    kind: str            # 'trsm'
+    diag_ref: TileRef    # A_ii with triangular fill
+    rhs_ref: TileRef     # B_ij
+    lower: bool
+    unit_diag: bool
+
+
+# work-centric (Stream-K) task kinds — see ``plan_work_centric``
+KIND_OWNER = "owner"      # Eq. 2 tile-owner task: full k-loop + epilogue
+KIND_PARTIAL = "partial"  # one k-range of a split tile: gather + modeled
+                          # compute only, never writes C_ij
+KIND_FIXUP = "fixup"      # deterministic join: re-dispatches the whole
+                          # k-loop (owner-identical numerics) and does
+                          # the only write of C_ij
+
+
+@dataclasses.dataclass
+class Task:
+    task_id: int
+    routine: str
+    out: TileKey                       # C_ij being solved
+    i: int
+    j: int
+    steps: Tuple[Step, ...]
+    alpha: float
+    beta: float
+    read_c: Optional[TileRef] = None   # C_ij input term (beta != 0)
+    finalize: Optional[Finalize] = None
+    deps: Tuple[int, ...] = ()         # task ids producing output tiles we read
+    flops: int = 0
+    # BLAS triangle semantics for diagonal tiles of SYRK/SYR2K: only this
+    # triangle of the output tile is written; the rest keeps original C.
+    out_mask: Optional[str] = None     # None | 'tri_u' | 'tri_l'
+    # work-centric decomposition (KIND_*): partials carry the owner's
+    # task id in ``parent`` and their steps slice in ``k_range``; the
+    # fix-up keeps the owner's own id so downstream deps stay wired.
+    kind: str = KIND_OWNER
+    parent: Optional[int] = None
+    k_range: Optional[Tuple[int, int]] = None
+
+    def input_refs(self) -> List[TileRef]:
+        """Every cacheable input tile (for Eq. 3 priority + transfers)."""
+        refs: List[TileRef] = []
+        for s in self.steps:
+            refs.append(s.a)
+            refs.append(s.b)
+        if self.finalize is not None:
+            refs.append(self.finalize.diag_ref)
+            refs.append(self.finalize.rhs_ref)
+        if self.read_c is not None:
+            refs.append(self.read_c)
+        return refs
+
+
+def _step_flops(grids, step: Step) -> int:
+    ga = grids[step.a.key.matrix_id]
+    gb = grids[step.b.key.matrix_id]
+    ha, wa = ga.tile_shape(step.a.key.i, step.a.key.j)
+    if step.a.trans:
+        ha, wa = wa, ha
+    hb, wb = gb.tile_shape(step.b.key.i, step.b.key.j)
+    if step.b.trans:
+        hb, wb = wb, hb
+    return 2 * ha * wa * wb
+
+
+class TaskBuilder:
+    """Shared machinery for the six routine taskizers."""
+
+    def __init__(self, grids: dict):
+        self.grids = {g.matrix_id: g for g in grids.values()} if isinstance(grids, dict) else {
+            g.matrix_id: g for g in grids
+        }
+        self._next_id = 0
+        self.tasks: List[Task] = []
+
+    def add(self, **kw) -> Task:
+        steps = kw.get("steps", ())
+        flops = sum(_step_flops(self.grids, s) for s in steps)
+        if kw.get("finalize") is not None:
+            fin = kw["finalize"]
+            g = self.grids[fin.diag_ref.key.matrix_id]
+            t, _ = g.tile_shape(fin.diag_ref.key.i, fin.diag_ref.key.j)
+            gc = self.grids[kw["out"].matrix_id]
+            _, n = gc.tile_shape(kw["i"], kw["j"])
+            flops += t * t * n  # triangular solve
+        task = Task(task_id=self._next_id, flops=flops, **kw)
+        self._next_id += 1
+        self.tasks.append(task)
+        return task
+
+
+# --------------------------------------------------------------------------
+# GEMM (Eq. 1a):  C_ij = alpha * sum_k op(A)_ik op(B)_kj + beta * C_ij
+# --------------------------------------------------------------------------
+def taskize_gemm(ga: TileGrid, gb: TileGrid, gc: TileGrid,
+                 transa: str, transb: str,
+                 alpha: float, beta: float) -> List[Task]:
+    transa, transb = transa.upper()[0], transb.upper()[0]
+    b = TaskBuilder({g.matrix_id: g for g in (ga, gb, gc)})
+    kz = (ga.n_tile_cols if transa == "N" else ga.n_tile_rows)
+    for i in range(gc.n_tile_rows):
+        for j in range(gc.n_tile_cols):
+            steps = []
+            for k in range(kz):
+                aref = (TileRef(ga.key(i, k)) if transa == "N"
+                        else TileRef(ga.key(k, i), trans=True))
+                bref = (TileRef(gb.key(k, j)) if transb == "N"
+                        else TileRef(gb.key(j, k), trans=True))
+                steps.append(Step(aref, bref))
+            read_c = TileRef(gc.key(i, j)) if beta != 0.0 else None
+            b.add(routine="gemm", out=gc.key(i, j), i=i, j=j,
+                  steps=tuple(steps), alpha=alpha, beta=beta, read_c=read_c)
+    return b.tasks
+
+
+# --------------------------------------------------------------------------
+# SYRK (Eq. 1b):  C_ij = alpha * sum_k A_ik A_jk^T + beta * C_ij   (trans=N)
+#                 C_ij = alpha * sum_k A_ki^T A_kj + beta * C_ij   (trans=T)
+# Only the ``uplo`` triangle of C is computed.
+# --------------------------------------------------------------------------
+def taskize_syrk(ga: TileGrid, gc: TileGrid, uplo: str, trans: str,
+                 alpha: float, beta: float) -> List[Task]:
+    uplo, trans = uplo.upper()[0], trans.upper()[0]
+    b = TaskBuilder({g.matrix_id: g for g in (ga, gc)})
+    kz = ga.n_tile_cols if trans == "N" else ga.n_tile_rows
+    for i in range(gc.n_tile_rows):
+        for j in range(gc.n_tile_cols):
+            if (uplo == "U" and j < i) or (uplo == "L" and j > i):
+                continue
+            steps = []
+            for k in range(kz):
+                if trans == "N":
+                    steps.append(Step(TileRef(ga.key(i, k)),
+                                      TileRef(ga.key(j, k), trans=True)))
+                else:
+                    steps.append(Step(TileRef(ga.key(k, i), trans=True),
+                                      TileRef(ga.key(k, j))))
+            read_c = TileRef(gc.key(i, j)) if beta != 0.0 else None
+            mask = ("tri_u" if uplo == "U" else "tri_l") if i == j else None
+            b.add(routine="syrk", out=gc.key(i, j), i=i, j=j,
+                  steps=tuple(steps), alpha=alpha, beta=beta, read_c=read_c,
+                  out_mask=mask)
+    return b.tasks
+
+
+# --------------------------------------------------------------------------
+# SYR2K (Eq. 1e): C_ij = alpha*sum_k A_ik B_jk^T + alpha*sum_k B_ik A_jk^T
+#                        + beta*C_ij                                (trans=N)
+# --------------------------------------------------------------------------
+def taskize_syr2k(ga: TileGrid, gb: TileGrid, gc: TileGrid,
+                  uplo: str, trans: str,
+                  alpha: float, beta: float) -> List[Task]:
+    uplo, trans = uplo.upper()[0], trans.upper()[0]
+    b = TaskBuilder({g.matrix_id: g for g in (ga, gb, gc)})
+    kz = ga.n_tile_cols if trans == "N" else ga.n_tile_rows
+    for i in range(gc.n_tile_rows):
+        for j in range(gc.n_tile_cols):
+            if (uplo == "U" and j < i) or (uplo == "L" and j > i):
+                continue
+            steps = []
+            for k in range(kz):
+                if trans == "N":
+                    steps.append(Step(TileRef(ga.key(i, k)),
+                                      TileRef(gb.key(j, k), trans=True)))
+                    steps.append(Step(TileRef(gb.key(i, k)),
+                                      TileRef(ga.key(j, k), trans=True)))
+                else:
+                    steps.append(Step(TileRef(ga.key(k, i), trans=True),
+                                      TileRef(gb.key(k, j))))
+                    steps.append(Step(TileRef(gb.key(k, i), trans=True),
+                                      TileRef(ga.key(k, j))))
+            read_c = TileRef(gc.key(i, j)) if beta != 0.0 else None
+            mask = ("tri_u" if uplo == "U" else "tri_l") if i == j else None
+            b.add(routine="syr2k", out=gc.key(i, j), i=i, j=j,
+                  steps=tuple(steps), alpha=alpha, beta=beta, read_c=read_c,
+                  out_mask=mask)
+    return b.tasks
+
+
+# --------------------------------------------------------------------------
+# SYMM (Eq. 1f, side=L): C_ij = alpha * sum_k sym(A)_ik B_kj + beta * C_ij
+# A is symmetric with only ``uplo`` triangle stored:
+#   upper storage: sym(A)_ik = A[i,k]        for k >= i
+#                            = A[k,i]^T      for k <  i
+# --------------------------------------------------------------------------
+def taskize_symm(ga: TileGrid, gb: TileGrid, gc: TileGrid,
+                 uplo: str, alpha: float, beta: float) -> List[Task]:
+    uplo = uplo.upper()[0]
+    b = TaskBuilder({g.matrix_id: g for g in (ga, gb, gc)})
+    kz = ga.n_tile_cols
+    sym_fill = FILL_SYM_U if uplo == "U" else FILL_SYM_L
+    for i in range(gc.n_tile_rows):
+        for j in range(gc.n_tile_cols):
+            steps = []
+            for k in range(kz):
+                if k == i:
+                    aref = TileRef(ga.key(i, i), fill=sym_fill)
+                elif (uplo == "U") == (k > i):
+                    # stored at [i,k] inside the stored triangle, no transpose
+                    aref = TileRef(ga.key(i, k))
+                else:
+                    # mirrored: stored at [k,i], use transpose trick
+                    aref = TileRef(ga.key(k, i), trans=True)
+                steps.append(Step(aref, TileRef(gb.key(k, j))))
+            read_c = TileRef(gc.key(i, j)) if beta != 0.0 else None
+            b.add(routine="symm", out=gc.key(i, j), i=i, j=j,
+                  steps=tuple(steps), alpha=alpha, beta=beta, read_c=read_c)
+    return b.tasks
+
+
+# --------------------------------------------------------------------------
+# TRMM (Eq. 1d, side=L): C_ij = alpha * (sum_{k in tri} A_ik Cin_kj)
+# where the diagonal step uses the triangular fill of A_ii.  The input
+# matrix is read under id ``Cin`` (a snapshot) so tasks stay race free.
+# --------------------------------------------------------------------------
+def taskize_trmm(ga: TileGrid, gcin: TileGrid, gc: TileGrid,
+                 uplo: str, transa: str, diag: str,
+                 alpha: float) -> List[Task]:
+    uplo, transa, diag = uplo.upper()[0], transa.upper()[0], diag.upper()[0]
+    b = TaskBuilder({g.matrix_id: g for g in (ga, gcin, gc)})
+    z = gc.n_tile_rows - 1
+    # effective triangle of op(A): transpose flips it
+    eff_upper = (uplo == "U") == (transa == "N")
+    tri_fill = _tri_fill(uplo, diag)
+    for i in range(gc.n_tile_rows):
+        for j in range(gc.n_tile_cols):
+            ks = range(i, z + 1) if eff_upper else range(0, i + 1)
+            steps = []
+            for k in ks:
+                if k == i:
+                    aref = _op_a(ga, transa, i, k, fill=tri_fill)
+                else:
+                    aref = _op_a(ga, transa, i, k)
+                steps.append(Step(aref, TileRef(gcin.key(k, j))))
+            b.add(routine="trmm", out=gc.key(i, j), i=i, j=j,
+                  steps=tuple(steps), alpha=alpha, beta=0.0)
+    return b.tasks
+
+
+# --------------------------------------------------------------------------
+# TRSM (Eq. 1c, side=L): solve op(A) X = alpha * B, X overwrites B.
+#   X_ij = tri(A_ii)^{-1} (alpha*B_ij - sum_{k after i} op(A)_ik X_kj)
+# Tasks within a column form a chain — expressed via ``deps``.
+# --------------------------------------------------------------------------
+def taskize_trsm(ga: TileGrid, gb: TileGrid, gc: TileGrid,
+                 uplo: str, transa: str, diag: str,
+                 alpha: float) -> List[Task]:
+    uplo, transa, diag = uplo.upper()[0], transa.upper()[0], diag.upper()[0]
+    b = TaskBuilder({g.matrix_id: g for g in (ga, gb, gc)})
+    z = gc.n_tile_rows - 1
+    eff_upper = (uplo == "U") == (transa == "N")
+    tri_fill = _tri_fill(uplo, diag)
+    order = range(z, -1, -1) if eff_upper else range(0, z + 1)
+    # map (i, j) -> task id for dependency wiring
+    tid = {}
+    for j in range(gc.n_tile_cols):
+        for i in order:
+            ks = range(i + 1, z + 1) if eff_upper else range(0, i)
+            steps = []
+            deps = []
+            for k in ks:
+                steps.append(Step(_op_a(ga, transa, i, k), TileRef(gc.key(k, j))))
+                deps.append(tid[(k, j)])
+            fin = Finalize(
+                kind="trsm",
+                diag_ref=_op_a(ga, transa, i, i, fill=tri_fill),
+                rhs_ref=TileRef(gb.key(i, j)),
+                lower=not eff_upper,
+                unit_diag=(diag == "U"),
+            )
+            t = b.add(routine="trsm", out=gc.key(i, j), i=i, j=j,
+                      steps=tuple(steps), alpha=alpha, beta=0.0,
+                      finalize=fin, deps=tuple(deps))
+            tid[(i, j)] = t.task_id
+    return b.tasks
+
+
+def _op_a(ga: TileGrid, transa: str, i: int, k: int, fill: str = FILL_FULL) -> TileRef:
+    """op(A)_ik: stored tile [i,k] if N, else [k,i] transposed (§III-C)."""
+    if transa == "N":
+        return TileRef(ga.key(i, k), fill=fill)
+    return TileRef(ga.key(k, i), trans=True, fill=fill)
+
+
+def _tri_fill(uplo: str, diag: str) -> str:
+    if uplo == "U":
+        return FILL_TRI_UU if diag == "U" else FILL_TRI_U
+    return FILL_TRI_LU if diag == "U" else FILL_TRI_L
+
+
+# --------------------------------------------------------------------------
+# Work-centric (Stream-K) split planner — arXiv 2301.03598, beyond the paper
+# --------------------------------------------------------------------------
+def plan_work_centric(tasks: Sequence[Task], grids: Dict[str, TileGrid],
+                      capacity: int) -> List[Task]:
+    """Re-taskize an owner-mode task list so task count tracks FLOPs
+    instead of output-tile count (Eq. 2's failure mode on small and
+    ragged problems).
+
+    Boundary/underfilled output tiles — and *every* tile of a problem
+    whose owner-task count is below the device x stream ``capacity`` —
+    get their k-loop cut into contiguous partial-k tasks
+    (:func:`~repro_torch.core.tiling.workcentric_parts` /
+    :func:`~repro_torch.core.tiling.split_ranges`), joined by one fix-up
+    reduction task per split tile.
+
+    Determinism rule (why numerics stay bitwise-identical to owner
+    mode): a partial task carries only the *modeled* cost of its
+    k-range — its gathers warm the caches and its flops share drives
+    the virtual clock — but it never produces bytes of C_ij.  The
+    fix-up keeps the owner task's id (downstream ``deps`` stay wired),
+    re-dispatches the **full original k-loop** through the identical
+    backend path, and performs the only write of C_ij.  The schedule
+    (and the time model, and the backend) can therefore never change
+    results; only modeled clocks move.  The fix-up's ``flops`` charge
+    the join (one tile-sized add per partial) plus any finalize solve,
+    not the MAC work already attributed to its partials.
+    """
+    tasks = list(tasks)
+    if not tasks or capacity <= 0:
+        return tasks
+    n_owner = len(tasks)
+    out_key_of = {t.task_id: t.out for t in tasks}
+    next_id = max(t.task_id for t in tasks) + 1
+    planned: List[Task] = []
+    for t in tasks:
+        if t.kind != KIND_OWNER:  # already split by an earlier planner
+            planned.append(t)
+            continue
+        grid = grids[t.out.matrix_id]
+        h, w = grid.tile_shape(t.i, t.j)
+        ragged = h != grid.tile or w != grid.tile
+        n_parts = workcentric_parts(len(t.steps), n_owner, capacity, ragged)
+        if n_parts <= 1:
+            planned.append(t)
+            continue
+        next_id = _split_task(t, n_parts, grids, out_key_of, next_id,
+                              planned)
+    return planned
+
+
+def _split_task(t: Task, n_parts: int, grids: Dict[str, TileGrid],
+                out_key_of: Dict[int, TileKey], next_id: int,
+                planned: List[Task]) -> int:
+    """Carve one owner task into ``n_parts`` contiguous partial-k tasks
+    plus the fix-up join, appending them to ``planned``; returns the
+    next free task id.  Shared by the work-centric (Stream-K) and the
+    pod-tier panel-staging planners — both obey the same determinism
+    rule (partials model cost only, the fix-up does the one write)."""
+    # map deps to the k-steps that read their produced tile, so a
+    # partial only waits on the producers of its own k-range; a dep
+    # matching no step (defensive) stays on every piece
+    step_keys = [{s.a.key, s.b.key} for s in t.steps]
+    dep_steps = {}
+    for d in t.deps:
+        okey = out_key_of.get(d)
+        idxs = {i for i, ks in enumerate(step_keys) if okey in ks}
+        if idxs:
+            dep_steps[d] = idxs
+    step_fl = [_step_flops(grids, s) for s in t.steps]
+    partial_ids = []
+    for start, stop in split_ranges(len(t.steps), n_parts):
+        span = set(range(start, stop))
+        pdeps = tuple(d for d in t.deps
+                      if d not in dep_steps or dep_steps[d] & span)
+        planned.append(Task(
+            task_id=next_id, routine=t.routine, out=t.out, i=t.i,
+            j=t.j, steps=t.steps[start:stop], alpha=t.alpha, beta=0.0,
+            deps=pdeps, flops=sum(step_fl[start:stop]),
+            kind=KIND_PARTIAL, parent=t.task_id,
+            k_range=(start, stop)))
+        partial_ids.append(next_id)
+        next_id += 1
+    grid = grids[t.out.matrix_id]
+    h, w = grid.tile_shape(t.i, t.j)
+    solve_fl = max(0, t.flops - sum(step_fl))
+    planned.append(dataclasses.replace(
+        t, deps=t.deps + tuple(partial_ids),
+        flops=n_parts * h * w + solve_fl,
+        kind=KIND_FIXUP, k_range=(0, len(t.steps))))
+    return next_id
+
+
+def plan_panel_staged(tasks: Sequence[Task], matrices: Dict[str, object],
+                      cache_bytes: int) -> List[Task]:
+    """Pod-tier staging planner: cut beyond-HBM tasks into panel-sized
+    partials joined by a fix-up, so host panels stream through the tile
+    cache instead of bypassing it.
+
+    A task whose k-loop input working set exceeds the per-device HBM
+    (``cache_bytes``) cannot keep its tiles resident: every gather past
+    capacity degrades to an uncached host read.  Splitting its k-loop
+    into half-HBM panels that *do* fit
+    (:func:`~repro_torch.core.tiling.panel_parts`) lets each partial
+    stage its panel through the ALRU/MESI-X machinery; the fix-up join
+    then re-reads those panels from the shard ring's HBM over ICI (the
+    hierarchy's third level) rather than from host DRAM.  Numerics are
+    bitwise-identical to the unstaged run for the same reason the
+    work-centric planner's are (see :func:`plan_work_centric` and
+    :func:`_split_task`): partials never write C, the fix-up
+    re-dispatches the full original k-loop.
+
+    ``matrices`` maps matrix id to any object with ``.grid`` and
+    ``.nbytes(i, j)`` (``TiledMatrix`` or ``ShadowMatrix``) so the
+    working set is measured in the matrices' true storage bytes.
+    """
+    tasks = list(tasks)
+    if not tasks or cache_bytes <= 0:
+        return tasks
+    grids = {mid: m.grid for mid, m in matrices.items()}
+    out_key_of = {t.task_id: t.out for t in tasks}
+    next_id = max(t.task_id for t in tasks) + 1
+    planned: List[Task] = []
+    for t in tasks:
+        if t.kind != KIND_OWNER or len(t.steps) < 2:
+            planned.append(t)
+            continue
+        seen = set()
+        total = 0
+        for ref in t.input_refs():
+            if ref.key in seen:
+                continue
+            seen.add(ref.key)
+            total += matrices[ref.key.matrix_id].nbytes(ref.key.i,
+                                                        ref.key.j)
+        n_parts = panel_parts(total, cache_bytes, len(t.steps))
+        if n_parts <= 1:
+            planned.append(t)
+            continue
+        next_id = _split_task(t, n_parts, grids, out_key_of, next_id,
+                              planned)
+    return planned
+
+
+def total_flops(tasks: Sequence[Task]) -> int:
+    return sum(t.flops for t in tasks)
+
+
+def gemm_fraction(tasks: Sequence[Task]) -> float:
+    """Table I: share of FLOPs spent in plain GEMM-shaped steps (full-fill
+    multiply-accumulate) vs. triangular/diagonal special handling."""
+    gemm_fl = 0
+    other_fl = 0
+    for t in tasks:
+        for s in t.steps:
+            fl = t.flops and _safe_step_flops(t, s)
+            if s.a.fill == FILL_FULL and s.b.fill == FILL_FULL:
+                gemm_fl += fl
+            else:
+                other_fl += fl
+        if t.finalize is not None:
+            other_fl += max(0, t.flops - sum(_safe_step_flops(t, s) for s in t.steps))
+    denom = gemm_fl + other_fl
+    return gemm_fl / denom if denom else 1.0
+
+
+def _safe_step_flops(task: Task, step: Step) -> int:
+    # steps within one task share tile size; apportion flops evenly
+    return task.flops // max(1, len(task.steps)) if task.steps else 0
