@@ -7,8 +7,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device — the card's name and power limit (nvidia-smi) and
    ``torch.cuda.get_device_name``; exits 1 without CUDA.
-2. build  — compiles ``src/repro_torch/kernels/csrc/blasx_gemm.cu`` with
-   nvcc and prints the build seconds and ptxas's register report.
+2. build  — compiles ``src/repro_torch/kernels/csrc/blasx_gemm.cu`` and
+   ``flash_attention.cu`` with nvcc, one process each, both at once, and
+   prints the build seconds and ptxas's register report.
 3. kernel — the hand-written batched long-K GEMM against its plain
    PyTorch version on the card, in f64/f32/bf16/f16, at the runtime's
    shape (G,S,M,K,N) = (4,16,1024,1024,1024), a ragged shape and small
@@ -22,8 +23,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    TRMM/TRSM at N=8192 in f32 and a 2-device threads-mode DGEMM at
    N=4096, each checked against an f64 oracle on the card, with the
    kernel's launch counter held against the ledger.
+5. epilogue — the same GEMM kernel with a bias row and each activation
+   (the reference's fused epilogue) against its plain version in f32
+   and bf16, at the MLP's shape (M,K,N) = (1024,1024,3072) and ragged
+   shapes; timed at the MLP shape beside its bound and ``torch.addmm``
+   plus the activation (a yardstick only).
+6. attention — the flash-attention kernel against its plain version on
+   the reference's test cases and the serving path's prefill shape
+   (B=1, S=1024, H=16, Hkv=8, D=128), in f32 (max abs) and bf16 (max
+   abs and normwise); timed at that shape beside its bound and
+   ``scaled_dot_product_attention`` (a yardstick only: the port never
+   calls it).
+7. serve — ``repro_torch.launch.serve.run`` at Qwen3-0.6B's full width in
+   bf16 (random weights from a seed): 16 requests of 1024-token prompts,
+   32 new tokens each, 8 slots.  Checks every request and token, every
+   logit finite, the flash kernel launched once per layer and prefill
+   (28 x 16), and one prompt's last logits through the kernel against
+   the plain "sdpa" attention backend on the card.
 
-The last two lines are a JSON object describing each kernel and then
+Phases 4 and 7 are the main paths: each kernel's launch count is set to
+0 just before each and read just after it.  The last two lines are a
+JSON object describing each kernel and then
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -33,6 +53,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -43,6 +64,13 @@ KERNEL_SOURCE = "src/repro_torch/kernels/csrc/blasx_gemm.cu"
 # pl.pallas_call (body _matmul_kernel at :37, wrapper ops.matmul at
 # ops.py:50, batched by pallas_backend._batched_pallas_contract at :47)
 REPLACES = "src/repro/kernels/matmul.py:74"
+# the epilogue variant replaces the bias body _matmul_bias_kernel
+EPILOGUE_REPLACES = "src/repro/kernels/matmul.py:56"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+# flash_attention_bhsd, which reaches pl.pallas_call (body _flash_kernel
+# at :29, layout wrapper flash_attention at :132)
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:78"
+SOURCES = ("blasx_gemm", "flash_attention")
 
 # least-time model (NVIDIA H100 SXM data sheet, dense): FP64 on the
 # tensor cores, FP32 outside them (TF32 is not the same arithmetic),
@@ -60,6 +88,31 @@ HBM_BYTES_PER_S = 3.35e12
 # f32 sums to 8/11 bits
 KERNEL_TOL = {"float64": 1e-12, "float32": 1e-4, "bfloat16": 2e-2,
               "float16": 2e-2}
+# epilogue vs plain version, normwise: the GEMM's tolerances
+EPI_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+EPI_MAIN = (1024, 1024, 3072)   # Qwen3-0.6B's MLP up/gate projection
+EPI_SHAPES = [EPI_MAIN, (100, 70, 130), (1, 200, 300), (513, 129, 257)]
+ACTIVATIONS = (None, "relu", "gelu", "silu", "tanh")
+# flash vs plain version, max abs: the reference's test tolerances
+# (f32 sums in another order; bf16 rounds the output to 8 bits)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+# bf16 also normwise: at the prefill shape a typical |o| is ~0.076, so
+# 5e-2 max abs is loose.  On an H100 the sound kernel read <= 4.5e-5 and
+# the subtlest fault planted by tools/flash_fault_margin.py (the output
+# rounded toward zero) 3.9e-3 (PERF.md)
+FLASH_NORMWISE_TOL = {"bfloat16": 1e-3}
+# (B, Sq, Sk, H, Hkv, D, causal): test_kernels.py's FLASH_CASES, then
+# the serving path's prefill shape
+FLASH_MAIN = (1, 1024, 1024, 16, 8, 128, True)
+FLASH_CASES = [(2, 256, 256, 4, 4, 64, True), (1, 200, 200, 4, 2, 32, True),
+               (2, 128, 384, 8, 2, 64, False), (1, 130, 130, 2, 1, 16, True),
+               (1, 64, 64, 1, 1, 128, True), FLASH_MAIN]
+# the serve phase: Qwen3-0.6B, 28 layers, bf16
+SERVE = dict(arch="qwen3_0_6b", smoke=False, batch_slots=8, prompt_len=1024,
+             max_len=1088, requests=16, max_new=32, seed=0, device="cuda")
+# the reference's bf16 flash tolerance; on an H100 the sound kernel read
+# 1.6e-2 and a planted 16-key drop on the last q-block 1.3e-1 (PERF.md)
+SERVE_LOGIT_TOL = 5e-2
 MAIN_SHAPE = (4, 16, 1024, 1024, 1024)
 SHAPES = [MAIN_SHAPE, (3, 2, 1000, 997, 1003), (1, 1, 1024, 1024, 1024),
           (1, 1, 1, 7, 5), (2, 3, 65, 33, 129), (5, 1, 17, 300, 31),
@@ -107,19 +160,23 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(shape, dtype: str):
+def least_time(flops: float, nbytes: float, dtype: str):
     """(bound_ms, bound_by): the larger of the flops over the dtype's
-    peak and the bytes (inputs read once, output written once) over
-    the memory rate."""
-    from repro_torch.core.dtypes import canonical_dtype
-    g, s, m, k, n = shape
-    itemsize = canonical_dtype(dtype).itemsize
-    flops = 2 * g * s * m * k * n
-    nbytes = (g * s * (m * k + k * n) + g * m * n) * itemsize
+    peak and the bytes (inputs read once, outputs written once) over the
+    memory rate."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
+
+
+def bound(shape, dtype: str):
+    """The batched GEMM's least time at (G, S, M, K, N)."""
+    from repro_torch.core.dtypes import canonical_dtype
+    g, s, m, k, n = shape
+    itemsize = canonical_dtype(dtype).itemsize
+    return least_time(2 * g * s * m * k * n,
+                      (g * s * (m * k + k * n) + g * m * n) * itemsize, dtype)
 
 
 # ------------------------------------------------------------------ phases
@@ -133,14 +190,24 @@ def phase_device():
     return card
 
 
-def phase_build():
+def _timed_build(name):
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    path = build.build("blasx_gemm")
+    path = build.build(name)
+    return path, time.perf_counter() - t0
+
+
+def phase_build():
+    """One nvcc per source, all started together."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(_timed_build, SOURCES))
     secs = time.perf_counter() - t0
-    print(f"[build] {path.name} in {secs:.1f} s", flush=True)
-    report = path.with_suffix(".ptxas.txt")
-    if report.is_file():
+    for path, one in built:
+        print(f"[build] {path.name} in {one:.1f} s", flush=True)
+        report = path.with_suffix(".ptxas.txt")
+        if not report.is_file():
+            continue
         fn = None
         for line in report.read_text().splitlines():
             m = re.search(r"entry function '([^']+)'", line)
@@ -148,12 +215,13 @@ def phase_build():
                 fn = m.group(1)
             m = re.search(r"Used (\d+) registers", line)
             if m and fn:
-                t = re.search(r"batched_gemm_kernelI(\w+?)Li(\d+)ELi(\d+)ELi(\d+)E",
-                              fn)
-                label = ("%s %sx%sx%s" % t.groups()) if t else fn[:40]
+                t = re.search(r"(batched_gemm|flash_fwd)_kernelI(\w+?)Li(\d+)"
+                              r"ELi(\d+)ELi(\d+)E", fn)
+                label = ("%s %s %sx%sx%s" % t.groups()) if t else fn[:40]
                 print(f"[build] ptxas {label}: {line.split(':', 1)[1].strip()}")
             if "spill" in line and not re.search(r"\b0 bytes spill stores", line):
                 print(f"[build] ptxas spill: {line.strip()}")
+    print(f"[build] both sources in {secs:.1f} s", flush=True)
     return secs
 
 
@@ -315,36 +383,317 @@ def phase_main_path(card: str, n_gemm: int):
     return launches_by_ledger
 
 
+def phase_epilogue(card: str):
+    """The GEMM kernel's fused epilogue (bias row + activation) against
+    its plain version; timed in bf16 with bias + silu at the MLP shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import matmul_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    out = {}
+    for name in ("float32", "bfloat16"):
+        dt = getattr(torch, name)
+        worst = 0.0
+        for m, k, n in EPI_SHAPES:
+            a = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+            b = torch.randn((k, n), generator=gen, device="cuda").to(dt)
+            bias = torch.randn((n,), generator=gen, device="cuda")
+            for act in ACTIVATIONS:
+                got = ops.matmul(a, b, bias, activation=act)
+                torch.cuda.synchronize()
+                want = matmul_ref(a, b, bias, act)
+                err = normwise(got, want)
+                check(err <= EPI_TOL[name],
+                      f"epilogue {name} {(m, k, n)} {act}: normwise "
+                      f"{err:.3e} > {EPI_TOL[name]:.0e}")
+                worst = max(worst, err)
+                if (m, k, n) == EPI_MAIN and act == "silu" and \
+                        name == "bfloat16":
+                    max_abs = float((got.float() - want.float()).abs().max())
+                    reps = 20
+                    ms = time_ms(lambda: ops.matmul(a, b, bias,
+                                                    activation="silu"), reps)
+                    plain_ms = time_ms(lambda: matmul_ref(a, b, bias, "silu"),
+                                       reps)
+                    bias_t = bias.to(dt)
+                    lib_ms = time_ms(lambda: F.silu(torch.addmm(bias_t, a, b)),
+                                     reps)
+                    flops = 2 * m * k * n
+                    # a, b and c in bf16, the bias row in f32
+                    bound_ms, bound_by = least_time(
+                        flops, (m * k + k * n + m * n) * 2 + n * 4, name)
+                    print(f"[epilogue] bf16 {(m, k, n)} bias+silu: kernel "
+                          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+                          f"plain {plain_ms:.4f} ms, torch.addmm+silu "
+                          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                          f"({bound_by}) | {card}", flush=True)
+                    out = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               max_abs_err=max_abs)
+        print(f"[epilogue] {name}: {len(EPI_SHAPES)} shapes x "
+              f"{len(ACTIVATIONS)} activations, bias, worst normwise "
+              f"{worst:.3e} (tol {EPI_TOL[name]:.0e})", flush=True)
+    return out
+
+
+def flash_bound(case, dtype: str):
+    """(bound_ms, bound_by, flops) for one flash call: 4*D flops for
+    every (q, k) pair the mask keeps (QK^T and PV), q, k, v read once and
+    o written once."""
+    b, sq, sk, h, hkv, d, causal = case
+    itemsize = 4 if dtype == "float32" else 2
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    flops = 4 * b * h * d * pairs
+    nbytes = (2 * b * sq * h * d + 2 * b * sk * hkv * d) * itemsize
+    return (*least_time(flops, nbytes, dtype), flops)
+
+
+def phase_attention(card: str):
+    """The flash kernel against its plain version; timed at the serving
+    path's prefill shape beside its bound and SDPA (a yardstick)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    results = {}
+    for name in ("float32", "bfloat16"):
+        dt = getattr(torch, name)
+        worst, worst_nw = 0.0, 0.0
+        for case in FLASH_CASES:
+            b, sq, sk, h, hkv, d, causal = case
+            q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dt)
+            k = torch.randn((b, sk, hkv, d), generator=gen,
+                            device="cuda").to(dt)
+            v = torch.randn((b, sk, hkv, d), generator=gen,
+                            device="cuda").to(dt)
+            want = flash_attention_ref(q, k, v, causal=causal)
+            got = kfa.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            max_abs = float((got.float() - want.float()).abs().max())
+            check(max_abs <= FLASH_TOL[name],
+                  f"flash {name} {case}: max abs {max_abs:.3e} > "
+                  f"{FLASH_TOL[name]:.0e}")
+            worst = max(worst, max_abs)
+            if name in FLASH_NORMWISE_TOL:
+                err = normwise(got, want)
+                check(err <= FLASH_NORMWISE_TOL[name],
+                      f"flash {name} {case}: normwise {err:.3e} > "
+                      f"{FLASH_NORMWISE_TOL[name]:.0e}")
+                worst_nw = max(worst_nw, err)
+            if case != FLASH_MAIN:
+                continue
+            reps = 20
+            ms = time_ms(lambda: kfa.flash_attention(q, k, v), reps)
+            plain_ms = time_ms(lambda: flash_attention_ref(q, k, v), 5)
+            # SDPA wants (B, H, S, D) and as many kv heads as q heads
+            g = h // hkv
+            qs = q.transpose(1, 2).contiguous()
+            ks = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+            vs = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True), reps)
+            bound_ms, bound_by, flops = flash_bound(case, name)
+            nw = (f", normwise {err:.3e}" if name in FLASH_NORMWISE_TOL
+                  else "")
+            print(f"[attention] {name} {case}: kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} "
+                  f"ms, SDPA {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}; {PEAK_NAME[name]}); max abs {max_abs:.3e}"
+                  f"{nw} | {card}", flush=True)
+            results[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by,
+                                 max_abs_err=max_abs)
+        nw = (f", worst normwise {worst_nw:.3e} (tol "
+              f"{FLASH_NORMWISE_TOL[name]:.0e})"
+              if name in FLASH_NORMWISE_TOL else "")
+        print(f"[attention] {name}: {len(FLASH_CASES)} cases, worst max abs "
+              f"{worst:.3e} (tol {FLASH_TOL[name]:.0e}){nw}", flush=True)
+    return results
+
+
+def phase_serve(card: str):
+    """The serving main path at Qwen3-0.6B's full width, bf16, on the
+    card; its flash launches counted from 0 around ``run``.  Returns the
+    kernels' launch counts by name."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeConfig, run
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(SERVE["arch"])
+    check(attn.ATTENTION_BACKEND == "flash", "the default backend is flash")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    out = run(ServeConfig(**SERVE))
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    n_tok = SERVE["requests"] * SERVE["max_new"]
+    print(f"[serve] {cfg.name} {cfg.dtype} x{cfg.n_layers} layers: "
+          f"{out['requests']} requests, {out['tokens']} tokens, "
+          f"{out['steps']} decode steps in {out['wall_s']:.3f} s wall "
+          f"(prefill {out['prefill_s']:.3f} s, decode {out['decode_s']:.3f}"
+          f" s, {out['tok_per_s']:.1f} tok/s), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, flash "
+          f"launches {launches['flash']} | {card}", flush=True)
+    check(out["device"].startswith("cuda"), f"served on {out['device']}")
+    check(out["requests"] == SERVE["requests"], "not every request finished")
+    check(out["tokens"] == n_tok and all(
+        len(t) == SERVE["max_new"] for t in out["outputs"].values()),
+        f"{out['tokens']} tokens, want {n_tok}")
+    check(out["nonfinite_logits"] == 0,
+          f"{out['nonfinite_logits']} prefills/steps had non-finite logits")
+    want = cfg.n_layers * SERVE["requests"]
+    check(launches["flash"].get("bfloat16", 0) == want
+          and sum(launches["flash"].values()) == want,
+          f"flash launches {launches['flash']}, want {want} bf16 "
+          f"(layers x prefills)")
+
+    # one prompt's last logits through the kernel against the plain
+    # "sdpa" backend, on the same weights (same seed) on the card
+    model = Model(cfg)
+    params = model.init(SERVE["seed"], device="cuda")
+    rng = np.random.default_rng(SERVE["seed"])
+    prompt = rng.integers(0, cfg.vocab_size, (SERVE["prompt_len"],))
+    tokens = torch.from_numpy(prompt[None]).to(params["embed"].device)
+    logits = {}
+    try:
+        for backend in ("flash", "sdpa"):
+            attn.ATTENTION_BACKEND = backend
+            logits[backend], _ = model.prefill(params, tokens=tokens)
+    finally:
+        attn.ATTENTION_BACKEND = "flash"
+    err = normwise(logits["flash"], logits["sdpa"])
+    same = int(torch.argmax(logits["flash"])) == int(
+        torch.argmax(logits["sdpa"]))
+    print(f"[serve] prefill logits, flash vs sdpa backend: normwise "
+          f"{err:.3e} (tol {SERVE_LOGIT_TOL:.0e}), same greedy token "
+          f"{same}; first request's greedy token {out['outputs'][0][0]}",
+          flush=True)
+    check(bool(torch.isfinite(logits["flash"]).all()), "non-finite logits")
+    check(err <= SERVE_LOGIT_TOL,
+          f"flash vs sdpa logits normwise {err:.3e} > {SERVE_LOGIT_TOL:.0e}")
+    profile_serving(card, model, params, tokens)
+    del model, params
+    return out, launches
+
+
+def _device_us(event) -> float:
+    return float(getattr(event, "self_device_time_total",
+                         getattr(event, "self_cuda_time_total", 0.0)))
+
+
+def profile_serving(card: str, model, params, tokens):
+    """Where one prefill and one 8-slot decode step spend the card's
+    time: ``torch.profiler`` over each, device time by kernel, and the
+    device's busy share of the host-clock wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _, cache = model.prefill(params, tokens=tokens)
+    cache = model.pad_cache(cache, SERVE["max_len"])
+    slots = SERVE["batch_slots"]
+    cache = {"blocks": {k: torch.repeat_interleave(a, slots, dim=1)
+                        for k, a in cache["blocks"].items()}}
+    tok = tokens[0, -slots:].clone()
+    pos = torch.full((slots,), SERVE["prompt_len"], dtype=torch.int64,
+                     device=tokens.device)
+    runs = {"prefill": lambda: model.prefill(params, tokens=tokens),
+            "decode step": lambda: model.decode(params, cache, tok, pos)}
+    for label, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = [e for e in prof.key_averages() if _device_us(e) > 0]
+        busy_us = sum(_device_us(e) for e in events)
+        if busy_us == 0:
+            print(f"[profile] {label}: the profiler saw no device time; "
+                  f"device busy share not measured | {card}", flush=True)
+            continue
+        top = sorted(events, key=_device_us, reverse=True)[:6]
+        print(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+              f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), "
+              f"{sum(e.count for e in events)} device ops | {card}",
+              flush=True)
+        for e in top:
+            print(f"[profile]   {_device_us(e) / 1e3:8.3f} ms "
+                  f"{100 * _device_us(e) / busy_us:5.1f}% x{e.count:<5d} "
+                  f"{e.key[:90]}", flush=True)
+
+
+def _reset_counts():
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import matmul as kmm
+    kmm.LAUNCHES = 0
+    kmm.LAUNCHES_BY_DTYPE.clear()
+    kmm.LAUNCHES_EPILOGUE = 0
+    kfa.LAUNCHES = 0
+    kfa.LAUNCHES_BY_DTYPE.clear()
+
+
+def _read_counts():
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import matmul as kmm
+    return {"gemm": dict(kmm.LAUNCHES_BY_DTYPE),
+            "epilogue": kmm.LAUNCHES_EPILOGUE,
+            "flash": dict(kfa.LAUNCHES_BY_DTYPE)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from repro_torch.kernels import matmul as kmm
-
+    t_start = time.perf_counter()
     card = phase_device()
     build_s = phase_build()
     kern = phase_kernel(card)
-    # the counts start at 0 for the main path; the kernel phase's
-    # comparison launches do not count
-    kmm.LAUNCHES = 0
-    kmm.LAUNCHES_BY_DTYPE.clear()
+    epi = phase_epilogue(card)
+    flash = phase_attention(card)
+    # main path 1, the BLAS library: the counts start at 0; the
+    # comparison phases' launches do not count
+    _reset_counts()
     phase_main_path(card, 16384)
-    launches = {name: kmm.LAUNCHES_BY_DTYPE.get(name, 0) for name in DTYPES}
+    blas = _read_counts()
     for name in DTYPES:
-        check(launches[name] > 0,
-              f"kernel for {name} never launched on the main path")
-    print(f"[done] build {build_s:.1f} s | {card}")
-    kernels = [{
-        "name": f"blasx_batched_gemm<{name}>", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": launches[name],
-        "max_abs_err": kern[name]["max_abs_err"],
-        "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"],
-        "bound_ms": kern[name]["bound_ms"],
-        "bound_by": kern[name]["bound_by"],
-        "library_ms": kern[name]["library_ms"],
-    } for name in DTYPES]
+        check(blas["gemm"].get(name, 0) > 0,
+              f"kernel for {name} never launched on the BLAS main path")
+    # main path 2, serving (counted from 0 inside)
+    _, serve = phase_serve(card)
+    gemm_launches = {name: blas["gemm"].get(name, 0)
+                     + serve["gemm"].get(name, 0) for name in DTYPES}
+    print(f"[done] build {build_s:.1f} s, total "
+          f"{time.perf_counter() - t_start:.1f} s | {card}")
+
+    def entry(name, source, replaces, launches, r):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+
+    kernels = [entry(f"blasx_batched_gemm<{name}>", KERNEL_SOURCE, REPLACES,
+                     gemm_launches[name], kern[name]) for name in DTYPES]
+    kernels.append(entry("blasx_gemm_epilogue<bfloat16>", KERNEL_SOURCE,
+                         EPILOGUE_REPLACES,
+                         blas["epilogue"] + serve["epilogue"], epi))
+    kernels += [entry(f"flash_attention<{name}>", FLASH_SOURCE,
+                      FLASH_REPLACES,
+                      blas["flash"].get(name, 0) + serve["flash"].get(name, 0),
+                      flash[name]) for name in ("bfloat16", "float32")]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

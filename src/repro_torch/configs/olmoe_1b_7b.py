@@ -1,0 +1,19 @@
+"""OLMoE-1B-7B [arXiv:2409.02060; hf] — 64 experts, top-8, qk-norm."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="olmoe-1b-7b",
+    family="moe",
+    n_layers=16,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=1024,             # (unused: all layers MoE)
+    vocab_size=50304,
+    n_experts=64,
+    top_k=8,
+    moe_d_ff=1024,
+    n_dense_layers=0,
+    qk_norm=True,
+    act="silu",
+)

@@ -24,6 +24,17 @@
 // TF32 — and f32 for f16/bf16), not on the tensor cores; wgmma/TMA and
 // a multi-stage pipeline are later work.
 //
+// The epilogue also replaces kernels/matmul.py::_matmul_bias_kernel and
+// the ACTIVATIONS table (matmul.py:27): an optional bias row (one value
+// per column, handed over in the accumulator type, as the reference's
+// bias.astype(f32), and added to the sums),
+// then the activation none/relu/gelu(tanh form)/silu/tanh, then the cast.
+// The activation is a runtime int, not a template parameter, and an
+// out-of-line call, so the instantiation count and the build time stay
+// what they were; it runs once per output element, after the K loop.  The wrapper passes an
+// epilogue only for G == 1, S == 1 (a plain matmul); the runtime's
+// batched groups call with none.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (see kernels/build.py); bound by ctypes.
 #include <cuda_runtime.h>
@@ -58,14 +69,46 @@ template <> struct Cvt<__nv_bfloat16> {
   static __device__ __forceinline__ __nv_bfloat16 store(float x) { return __float2bfloat16_rn(x); }
 };
 
+// activation codes (kernels/matmul.py ACTIVATION_CODES)
+enum Act { kActNone = 0, kActRelu = 1, kActGelu = 2, kActSilu = 3,
+           kActTanh = 4 };
+
+// gelu is the tanh approximation, jax.nn.gelu's default.  Not inlined:
+// tanh/exp inlined into each of a thread's TM x TN unrolled outputs, in
+// all 48 instantiations, made the library's build ~7x slower (218 s
+// against 20-37 s without the epilogue, nvcc on the H100 machine); one
+// call per output element is nothing next to the K loop.
+__device__ __noinline__ float activate(float x, int act) {
+  switch (act) {
+    case kActRelu: return fmaxf(x, 0.0f);
+    case kActGelu: return 0.5f * x * (1.0f + tanhf(0.7978845608028654f *
+                                                   (x + 0.044715f * x * x * x)));
+    case kActSilu: return x / (1.0f + expf(-x));
+    case kActTanh: return tanhf(x);
+    default: return x;
+  }
+}
+__device__ __noinline__ double activate(double x, int act) {
+  switch (act) {
+    case kActRelu: return fmax(x, 0.0);
+    case kActGelu: return 0.5 * x * (1.0 + tanh(0.7978845608028654 *
+                                                (x + 0.044715 * x * x * x)));
+    case kActSilu: return x / (1.0 + exp(-x));
+    case kActTanh: return tanh(x);
+    default: return x;
+  }
+}
+
 // One block: the BM x BN tile (blockIdx.y, blockIdx.x) of item blockIdx.z.
 // out_acc != 0 writes the accumulator type instead of T (a half-precision
-// matmul asked for an f32 result gets the unrounded sums).
+// matmul asked for an f32 result gets the unrounded sums).  bias (N
+// values of the accumulator type, may be null) and act form the epilogue.
 template <typename T, int BM, int BN, int BK>
 __global__ void __launch_bounds__(kThreads)
 batched_gemm_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                    void* __restrict__ c, int out_acc,
-                    int S, int M, int K, int N) {
+                    const typename Cvt<T>::Acc* __restrict__ bias,
+                    void* __restrict__ c,
+                    int out_acc, int act, int S, int M, int K, int N) {
   using Acc = typename Cvt<T>::Acc;
   constexpr int TM = BM / 16;
   constexpr int TN = BN / 16;
@@ -135,18 +178,22 @@ batched_gemm_kernel(const T* __restrict__ a, const T* __restrict__ b,
       const int gn = n0 + tc + 16 * j;
       if (gn >= N) continue;
       const int64_t o = c_off + (int64_t)gm * N + gn;
+      Acc r = acc[i][j];
+      if (bias != nullptr) r += bias[gn];
+      if (act != kActNone) r = activate(r, act);
       if (out_acc) {
-        reinterpret_cast<Acc*>(c)[o] = acc[i][j];
+        reinterpret_cast<Acc*>(c)[o] = r;
       } else {
-        reinterpret_cast<T*>(c)[o] = Cvt<T>::store(acc[i][j]);
+        reinterpret_cast<T*>(c)[o] = Cvt<T>::store(r);
       }
     }
   }
 }
 
 template <typename T, int BM, int BN, int BK>
-cudaError_t launch(const void* a, const void* b, void* c, int out_acc, int G,
-                   int S, int M, int K, int N, cudaStream_t stream) {
+cudaError_t launch(const void* a, const void* b, const void* bias, void* c,
+                   int out_acc, int act, int G, int S, int M, int K, int N,
+                   cudaStream_t stream) {
   using Acc = typename Cvt<T>::Acc;
   const size_t smem = (size_t)BK * (BM + kPad + BN) * sizeof(Acc);
   auto kern = batched_gemm_kernel<T, BM, BN, BK>;
@@ -156,20 +203,20 @@ cudaError_t launch(const void* a, const void* b, void* c, int out_acc, int G,
     if (e != cudaSuccess) return e;
   }
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, G);
-  kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(a),
-                                         static_cast<const T*>(b), c, out_acc,
-                                         S, M, K, N);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b),
+      static_cast<const Acc*>(bias), c, out_acc, act, S, M, K, N);
   return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(int bm, int bn, int bk, const void* a, const void* b, void* c,
-             int out_acc, int G, int S, int M, int K, int N,
-             cudaStream_t stream) {
-#define BLASX_CASE(BM_, BN_, BK_)                                        \
-  if (bm == BM_ && bn == BN_ && bk == BK_)                               \
-    return (int)launch<T, BM_, BN_, BK_>(a, b, c, out_acc, G, S, M, K, N, \
-                                         stream);
+int dispatch(int bm, int bn, int bk, const void* a, const void* b,
+             const void* bias, void* c, int out_acc, int act, int G, int S,
+             int M, int K, int N, cudaStream_t stream) {
+#define BLASX_CASE(BM_, BN_, BK_)                                         \
+  if (bm == BM_ && bn == BN_ && bk == BK_)                                \
+    return (int)launch<T, BM_, BN_, BK_>(a, b, bias, c, out_acc, act, G, S, \
+                                         M, K, N, stream);
 #define BLASX_CASES_K(BM_, BN_) \
   BLASX_CASE(BM_, BN_, 8) BLASX_CASE(BM_, BN_, 16) BLASX_CASE(BM_, BN_, 32)
   BLASX_CASES_K(64, 64)
@@ -183,19 +230,24 @@ int dispatch(int bm, int bn, int bk, const void* a, const void* b, void* c,
 
 }  // namespace
 
-// dtype: 0 float64, 1 float32, 2 float16, 3 bfloat16.  Returns the
-// launch's cudaGetLastError() (0 on success), or -1 for a block shape
-// or dtype the library was not built for.
+// dtype: 0 float64, 1 float32, 2 float16, 3 bfloat16.  bias: N values of
+// the accumulator type (f64 for f64, else f32), or null; act: an Act code.  Returns the launch's
+// cudaGetLastError() (0 on success), or -1 for a block shape, dtype or
+// activation the library was not built for.
 extern "C" int blasx_batched_gemm(int dtype, int out_acc, const void* a,
-                                  const void* b, void* c, int G, int S, int M,
-                                  int K, int N, int bm, int bn, int bk,
-                                  void* stream) {
+                                  const void* b, const void* bias, int act,
+                                  void* c, int G, int S, int M, int K, int N,
+                                  int bm, int bn, int bk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (act < kActNone || act > kActTanh) return -1;
+#define BLASX_DISPATCH(T_) \
+  dispatch<T_>(bm, bn, bk, a, b, bias, c, out_acc, act, G, S, M, K, N, st)
   switch (dtype) {
-    case 0: return dispatch<double>(bm, bn, bk, a, b, c, out_acc, G, S, M, K, N, st);
-    case 1: return dispatch<float>(bm, bn, bk, a, b, c, out_acc, G, S, M, K, N, st);
-    case 2: return dispatch<__half>(bm, bn, bk, a, b, c, out_acc, G, S, M, K, N, st);
-    case 3: return dispatch<__nv_bfloat16>(bm, bn, bk, a, b, c, out_acc, G, S, M, K, N, st);
+    case 0: return BLASX_DISPATCH(double);
+    case 1: return BLASX_DISPATCH(float);
+    case 2: return BLASX_DISPATCH(__half);
+    case 3: return BLASX_DISPATCH(__nv_bfloat16);
     default: return -1;
   }
+#undef BLASX_DISPATCH
 }

@@ -13,7 +13,11 @@ It replaces three pieces of the reference's TPU path:
   block multiples and slices the result back;
 * ``backends/pallas_backend.py::_batched_pallas_contract`` — the
   transpose/reshape of each item's k-chain into one
-  ``(m, s*k) @ (s*k, n)`` matmul, vmapped over the group.
+  ``(m, s*k) @ (s*k, n)`` matmul, vmapped over the group;
+* ``kernels/matmul.py::_matmul_bias_kernel`` and the ``ACTIVATIONS``
+  epilogue of both matmul bodies — an optional bias row and an
+  activation applied to the sums before the cast, for a plain matmul
+  (G = 1, S = 1) only.
 
 What bounds it on the card: at the runtime's shapes (G=4, S=16, 1024^3
 tiles) the work is hundreds of flops per byte moved, so it is
@@ -38,7 +42,7 @@ import torch
 
 from ..core.dtypes import TORCH_DTYPES, accumulator_dtype, dtype_name
 from . import build
-from .ref import batched_contract_ref
+from .ref import ACTIVATIONS, batched_contract_ref
 
 # block shapes compiled into the library (csrc/blasx_gemm.cu dispatch)
 BLOCK_MN: Tuple[int, ...] = (64, 128)
@@ -49,10 +53,15 @@ SMEM_BUDGET = 232448  # bytes of shared memory one block may use (227 KB)
 _DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.float16: 2,
                 torch.bfloat16: 3}
 
-# launches of the kernel in this process, in all and by storage dtype
-# (plain-version calls never count)
+# the epilogue's activation codes (csrc/blasx_gemm.cu ``enum Act``)
+ACTIVATION_CODES = {None: 0, "none": 0, "relu": 1, "gelu": 2, "silu": 3,
+                    "tanh": 4}
+
+# launches of the kernel in this process, in all and by storage dtype,
+# and those of them with an epilogue (plain-version calls never count)
 LAUNCHES = 0
 LAUNCHES_BY_DTYPE: Dict[str, int] = {}
+LAUNCHES_EPILOGUE = 0
 _count_lock = threading.Lock()
 
 
@@ -81,6 +90,17 @@ def check_blocks(bm: int, bn: int, bk: int) -> None:
         raise ValueError(
             f"blocks ({bm}, {bn}, {bk}) outside the compiled table: "
             f"block_m/block_n in {BLOCK_MN}, block_k in {BLOCK_K}")
+
+
+def check_epilogue(bias: Optional[torch.Tensor], activation: Optional[str],
+                   n: int) -> None:
+    """The reference's errors: a bias of another length than N, an
+    activation outside the table."""
+    if activation not in ACTIVATION_CODES:
+        raise ValueError(f"unknown activation {activation!r}; choose from "
+                         f"{sorted(k for k in ACTIVATION_CODES if k)}")
+    if bias is not None and bias.numel() != n:
+        raise ValueError(f"bias length {bias.numel()} != N {n}")
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -112,32 +132,49 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
 
 def _entry():
     fn = build.load("blasx_gemm").blasx_batched_gemm
+    # dtype, out_acc, a, b, bias, act, c, G, S, M, K, N, bm, bn, bk, stream
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def batched_contract(a: torch.Tensor, b: torch.Tensor,
                      out_dtype: Optional[torch.dtype] = None, *,
-                     blocks: Optional[Tuple[int, int, int]] = None
-                     ) -> torch.Tensor:
-    """``c[g] = sum_s a[g, s] @ b[g, s]`` -> ``(G, M, N)`` in
+                     blocks: Optional[Tuple[int, int, int]] = None,
+                     bias: Optional[torch.Tensor] = None,
+                     activation: Optional[str] = None) -> torch.Tensor:
+    """``c[g] = act(sum_s a[g, s] @ b[g, s] + bias)`` -> ``(G, M, N)`` in
     ``out_dtype`` (default: the operands' dtype).  ``blocks`` overrides
-    the ``(block_m, block_n, block_k)`` choice of :func:`default_blocks`."""
-    global LAUNCHES
+    the ``(block_m, block_n, block_k)`` choice of :func:`default_blocks`.
+    The epilogue (``bias`` of N values, ``activation`` from
+    ``ACTIVATIONS``) is taken for G = 1, S = 1 only."""
+    global LAUNCHES, LAUNCHES_EPILOGUE
     _check(a, b)
     if blocks is not None:
         check_blocks(*blocks)
-    out_dtype = out_dtype or a.dtype
-    if a.device.type == "cpu":
-        return batched_contract_ref(a, b, out_dtype)
-    if a.device.type != "cuda":
-        raise ValueError(f"no kernel for tensors on {a.device}")
     g, s, m, k = a.shape
     n = b.shape[3]
+    check_epilogue(bias, activation, n)
+    epilogue = bias is not None or ACTIVATION_CODES[activation] != 0
+    if epilogue and (g != 1 or s != 1):
+        raise ValueError(f"the epilogue is for a plain matmul (G = S = 1), "
+                         f"got G={g} S={s}")
+    if bias is not None:
+        if bias.device != a.device:
+            raise ValueError(f"bias on {bias.device}, operands on "
+                             f"{a.device}")
+        # the reference adds bias.astype(f32): the kernel reads the
+        # accumulator type
+        bias = bias.reshape(-1).to(accumulator_dtype(a.dtype)).contiguous()
+    out_dtype = out_dtype or a.dtype
+    if a.device.type == "cpu":
+        return batched_contract_ref(a, b, out_dtype, bias, activation)
+    if a.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {a.device}")
     bm, bn, bk = blocks or default_blocks(m, n, k, a.element_size())
     # the kernel writes the storage type or the accumulator type; any
     # other requested type is one cast of the result
@@ -150,14 +187,17 @@ def batched_contract(a: torch.Tensor, b: torch.Tensor,
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = _entry()(_DTYPE_CODES[a.dtype], int(out_acc), a.data_ptr(),
-                      b.data_ptr(), c.data_ptr(), g, s, m, k, n, bm, bn, bk,
-                      stream)
+                      b.data_ptr(), None if bias is None else bias.data_ptr(),
+                      ACTIVATION_CODES[activation], c.data_ptr(), g, s, m, k,
+                      n, bm, bn, bk, stream)
     if rc != 0:
         raise RuntimeError(f"blasx_batched_gemm launch failed: error {rc} "
                            f"(G={g} S={s} M={m} K={k} N={n} "
-                           f"blocks={bm}x{bn}x{bk} dtype={a.dtype})")
+                           f"blocks={bm}x{bn}x{bk} dtype={a.dtype} "
+                           f"activation={activation})")
     with _count_lock:
         LAUNCHES += 1
+        LAUNCHES_EPILOGUE += int(epilogue)
         name = dtype_name(a.dtype)
         LAUNCHES_BY_DTYPE[name] = LAUNCHES_BY_DTYPE.get(name, 0) + 1
     return c if c.dtype == out_dtype else c.to(out_dtype)

@@ -1,8 +1,9 @@
 """Public matmul wrapper around the hand-written kernel.
 
 The counterpart of the reference's ``kernels/ops.py::matmul``: any
-``(M, K) x (K, N)``, ``out_dtype`` defaulting to the promoted input
-type, the same ``ValueError``s.  It runs as the G=1, S=1 case of the
+``(M, K) x (K, N)``, an optional bias row and activation applied to the
+sums (the fused epilogue), ``out_dtype`` defaulting to the promoted
+input type, the same ``ValueError``s.  It runs as the G=1, S=1 case of the
 batched kernel in ``kernels.matmul``.  There is no padding step: the
 kernel masks ragged edges itself.  Block shapes come from a table
 bounded by the card's shared memory per block (see
@@ -15,16 +16,21 @@ from typing import Optional
 import torch
 
 from ..core.dtypes import canonical_dtype, promote_dtypes
-from .matmul import SMEM_BUDGET, batched_contract, default_blocks, smem_bytes
+from .matmul import (SMEM_BUDGET, batched_contract, check_epilogue,
+                     default_blocks, smem_bytes)
 
 __all__ = ["matmul", "default_blocks", "smem_bytes", "SMEM_BUDGET"]
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, *,
+           activation: Optional[str] = None, out_dtype=None,
            block_m: Optional[int] = None, block_n: Optional[int] = None,
            block_k: Optional[int] = None) -> torch.Tensor:
-    """``C = A @ B`` through the hand-written kernel (CUDA tensors) or
-    its plain version (CPU tensors)."""
+    """``C = activation(A @ B + bias)`` through the hand-written kernel
+    (CUDA tensors) or its plain version (CPU tensors).  ``bias`` holds N
+    values and is added in the accumulator type; ``activation`` is one of
+    none/relu/gelu (tanh form)/silu/tanh."""
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"matmul expects 2-D operands, got "
                          f"{tuple(a.shape)} {tuple(b.shape)}")
@@ -33,6 +39,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
     if k != k2:
         raise ValueError(f"inner dims mismatch: {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
+    check_epilogue(bias, activation, n)
     dt = promote_dtypes(a.dtype, b.dtype)
     out_dtype = canonical_dtype(out_dtype) if out_dtype is not None else dt
     dbm, dbn, dbk = default_blocks(m, n, k, dt.itemsize)
@@ -40,4 +47,5 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
     a = a.to(dt).contiguous()
     b = b.to(dt).contiguous()
     return batched_contract(a[None, None], b[None, None], out_dtype,
-                            blocks=blocks)[0]
+                            blocks=blocks, bias=bias,
+                            activation=activation)[0]

@@ -59,3 +59,67 @@ def test_context_gemm_launches_match_ledger(card):
         assert set(ls["engine_flops"]) <= {"cuda", "torch"}
         np.testing.assert_allclose(out.array(), A @ B, rtol=1e-12,
                                    atol=1e-12)
+
+
+# ------------------------------------------------ the GEMM's fused epilogue
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("activation", [None, "relu", "gelu", "silu",
+                                        "tanh"])
+def test_epilogue_matches_plain_version(card, dtype, activation):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import matmul_ref
+    gen = torch.Generator(device=card).manual_seed(1)
+    a = torch.randn((100, 70), generator=gen, device=card).to(dtype)
+    b = torch.randn((70, 130), generator=gen, device=card).to(dtype)
+    bias = torch.randn((130,), generator=gen, device=card)
+    before = kmm.LAUNCHES_EPILOGUE
+    got = ops.matmul(a, b, bias, activation=activation)
+    torch.cuda.synchronize()
+    assert kmm.LAUNCHES_EPILOGUE == before + 1
+    want = matmul_ref(a, b, bias, activation)
+    err = torch.linalg.norm((got - want).double()) / torch.linalg.norm(
+        want.double())
+    assert float(err) <= (1e-4 if dtype == torch.float32 else 2e-2)
+
+
+# ------------------------------------------------------- flash attention
+FLASH_CASES = [(2, 256, 256, 4, 4, 64, True), (1, 200, 200, 4, 2, 32, True),
+               (2, 128, 384, 8, 2, 64, False), (1, 130, 130, 2, 1, 16, True),
+               (1, 64, 64, 1, 1, 128, True), (2, 37, 37, 4, 2, 8, True),
+               (1, 300, 170, 4, 2, 128, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_kernel_matches_plain_version(card, dtype, case):
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.ref import flash_attention_ref
+    b, sq, sk, h, hkv, d, causal = case
+    gen = torch.Generator(device=card).manual_seed(sq + d)
+    q = torch.randn((b, sq, h, d), generator=gen, device=card).to(dtype)
+    k = torch.randn((b, sk, hkv, d), generator=gen, device=card).to(dtype)
+    v = torch.randn((b, sk, hkv, d), generator=gen, device=card).to(dtype)
+    want = flash_attention_ref(q, k, v, causal=causal).float()
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    before = kfa.LAUNCHES
+    got = kfa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kfa.LAUNCHES == before + 1
+    assert float((got.float() - want).abs().max()) <= tol
+    if dtype == torch.bfloat16:
+        # max abs 5e-2 is near a typical |o| at long rows; the normwise
+        # limit sits between the sound kernel's reading and a planted
+        # fault's (chip_smoke.FLASH_NORMWISE_TOL)
+        err = torch.linalg.norm((got.float() - want).double()) / \
+            torch.linalg.norm(want.double())
+        assert float(err) <= 1e-3
+
+
+def test_serve_run_launches_flash_once_per_layer_and_prefill(card):
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch.serve import ServeConfig, run
+    before = kfa.LAUNCHES
+    out = run(ServeConfig(smoke=True, device="cuda", requests=5,
+                          batch_slots=2, max_new=4))
+    assert out["requests"] == 5 and out["tokens"] == 20
+    assert kfa.LAUNCHES - before == 2 * 5  # 2 layers x 5 prefills

@@ -26,10 +26,13 @@ def _imported_roots(path: Path):
             yield node.lineno, (node.module or "").split(".")[0]
         elif isinstance(node, ast.Call) and getattr(
                 node.func, "attr", getattr(node.func, "id", "")) in (
-                    "import_module", "__import__") and node.args and \
-                isinstance(node.args[0], ast.Constant) and \
-                isinstance(node.args[0].value, str):
-            yield node.lineno, node.args[0].value.split(".")[0]
+                    "import_module", "__import__") and node.args:
+            arg = node.args[0]
+            # an f-string's leading constant names its package
+            if isinstance(arg, ast.JoinedStr) and arg.values:
+                arg = arg.values[0]
+            if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                yield node.lineno, arg.value.split(".")[0]
 
 
 def test_port_files_exist():
@@ -48,6 +51,20 @@ def test_port_module_imports_no_jax_and_no_reference(path):
 def test_hygiene_check_catches_a_reference_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import numpy\nfrom repro.core import tiling\n"
-                 "import importlib\nimportlib.import_module('jax.numpy')\n")
+                 "import importlib\nimportlib.import_module('jax.numpy')\n"
+                 "importlib.import_module(f'repro.configs.{arch}')\n")
     assert [m for _, m in _imported_roots(f) if m in FORBIDDEN] == [
-        "repro", "jax"]
+        "repro", "jax", "repro"]
+
+
+def test_registry_loads_the_ports_own_config_modules():
+    """The port's registry imports ``repro_torch.configs.<arch>`` by name
+    (the reference's imports ``repro.configs.<arch>``)."""
+    import sys
+
+    from repro_torch.configs import base, get_config
+    registry = ROOT / "src" / "repro_torch" / "configs" / "registry.py"
+    assert [m for _, m in _imported_roots(registry)].count("repro_torch") == 1
+    cfg = get_config("qwen3-0-6b")
+    assert isinstance(cfg, base.ModelConfig)
+    assert "repro_torch.configs.qwen3_0_6b" in sys.modules

@@ -9,6 +9,7 @@ same numpy inputs go to both.  The CUDA kernel itself is held against
 the plain version on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -108,6 +109,70 @@ def test_out_dtype_and_promotion(dtype):
     # mixed inputs promote like the reference (f32 x f64 -> f64)
     mixed = ops.matmul(torch.from_numpy(a), torch.from_numpy(b).double())
     assert mixed.dtype == torch.float64
+
+
+ACTS = [None, "relu", "gelu", "silu", "tanh"]
+
+
+@pytest.mark.parametrize("activation", ACTS)
+@pytest.mark.parametrize("use_bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_fused_epilogue(activation, use_bias, dtype):
+    """Twin of test_kernels.py::test_matmul_fused_epilogue: the bias row
+    (f32, as there) is added to the sums and the activation applied
+    before the cast, in f32 at 1e-4 and bf16 at 2e-2."""
+    a, b = _np_pair(96, 64, 160, seed=3)
+    bias = (np.random.default_rng(4).standard_normal(160).astype(np.float32)
+            if use_bias else None)
+    want = np.asarray(ref_ops.matmul(
+        _jax(a, dtype), _jax(b, dtype),
+        None if bias is None else jnp.asarray(bias),
+        activation=activation, interpret=True), np.float32)
+    got = ops.matmul(_torch(a, dtype), _torch(b, dtype),
+                     None if bias is None else torch.from_numpy(bias),
+                     activation=activation)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    plain = matmul_ref(_torch(a, dtype), _torch(b, dtype),
+                       None if bias is None else torch.from_numpy(bias),
+                       activation)
+    assert torch.equal(got, plain)
+
+
+def test_matmul_epilogue_errors():
+    """The reference's ValueError for a bias of another length than N;
+    an unknown activation raises ValueError too (the reference's table
+    lookup raises KeyError)."""
+    a, b = _np_pair(32, 16, 32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    with pytest.raises(ValueError):
+        ref_ops.matmul(jnp.asarray(a), jnp.asarray(b), bias=jnp.zeros((7,)),
+                       interpret=True)
+    with pytest.raises(ValueError, match="bias length 7 != N 32"):
+        ops.matmul(ta, tb, torch.zeros(7))
+    with pytest.raises(KeyError):
+        ref_ops.matmul(jnp.asarray(a), jnp.asarray(b), activation="swish",
+                       interpret=True)
+    with pytest.raises(ValueError, match="unknown activation"):
+        ops.matmul(ta, tb, activation="swish")
+    # the epilogue belongs to a plain matmul, not to a batched group
+    with pytest.raises(ValueError, match="G = S = 1"):
+        kmm.batched_contract(torch.zeros((2, 1, 4, 5)),
+                             torch.zeros((2, 1, 5, 6)), activation="relu")
+
+
+def test_gelu_is_the_tanh_form():
+    """jax.nn.gelu defaults to the tanh approximation; torch's F.gelu
+    defaults to the exact erf form, so the table must ask for tanh."""
+    x = np.linspace(-6, 6, 2001, dtype=np.float32)
+    want = np.asarray(jax.nn.gelu(jnp.asarray(x)))
+    from repro_torch.kernels.ref import ACTIVATIONS
+    got = ACTIVATIONS["gelu"](torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    exact = torch.nn.functional.gelu(torch.from_numpy(x)).numpy()
+    assert np.abs(exact - want).max() > 1e-4
+    assert set(kmm.ACTIVATION_CODES) == set(ACTIVATIONS)
 
 
 def test_matmul_explicit_blocks():
