@@ -12,22 +12,32 @@ Phases, each printing its own lines; any failure exits non-zero:
    prints the build seconds and ptxas's register report.
 3. kernel — the hand-written batched long-K GEMM against its plain
    PyTorch version on the card, in f64/f32/bf16/f16, at the runtime's
-   shape (G,S,M,K,N) = (4,16,1024,1024,1024), a ragged shape and small
-   odd shapes, by normwise relative error; at the runtime's shape it
-   times the kernel, the plain version and ``torch.matmul`` on the
-   folded shape (a yardstick only), beside the least time the card
-   could take (``bound_ms``).
+   shape (G,S,M,K,N) = (4,16,1024,1024,1024), ragged shapes and small
+   odd shapes, by normwise relative error.  Each call's path
+   (``kernel_path``: wgmma for aligned f16/bf16, dmma for f64, simt for
+   f32 and unaligned 16-bit shapes) is printed; the shapes cover each
+   tensor-core path's hazards (one 64-tile, ragged M/N across item
+   boundaries, M = 1, K = 8).  At the runtime's shape it times the
+   kernel on each compiled block of its path, the plain version and
+   ``torch.matmul`` on the folded shape (a yardstick only), beside the
+   least time the card could take (``bound_ms``); the 16-bit simt path
+   is timed at an unaligned shape of the same size.
 4. main path — ``BlasxContext(backend="cuda", device="cuda")`` runs the
    paper's Fig. 7/10 regime (N=16384, tile 1024, 2 simulated devices)
    for DGEMM, SGEMM and a bf16 GEMM, an f16 GEMM at N=8192, SYRK/SYMM/
    TRMM/TRSM at N=8192 in f32 and a 2-device threads-mode DGEMM at
    N=4096, each checked against an f64 oracle on the card, with the
-   kernel's launch counter held against the ledger.
+   kernel's launch counter held against the ledger; every bf16/f16
+   launch must take the wgmma path and every f64 launch the dmma path
+   (``LAUNCHES_BY_PATH``).
 5. epilogue — the same GEMM kernel with a bias row and each activation
-   (the reference's fused epilogue) against its plain version in f32
-   and bf16, at the MLP's shape (M,K,N) = (1024,1024,3072) and ragged
-   shapes; timed at the MLP shape beside its bound and ``torch.addmm``
-   plus the activation (a yardstick only).
+   (the reference's fused epilogue) against its plain version in f32,
+   bf16 and f16, at the MLP's shape (M,K,N) = (1024,1024,3072) (the
+   wgmma path in 16 bits) and ragged shapes (simt); timed in bf16 at
+   the MLP shape beside its bound and ``torch.addmm`` plus the
+   activation (a yardstick only), by CUDA events, and for information
+   by the device time ``torch.profiler`` records (these calls are about
+   as short as their host side, which the events include).
 6. attention — the flash-attention kernel against its plain version on
    the reference's test cases and the serving path's prefill shape
    (B=1, S=1024, H=16, Hkv=8, D=128), in f32 (max abs) and bf16 (max
@@ -89,7 +99,7 @@ HBM_BYTES_PER_S = 3.35e12
 KERNEL_TOL = {"float64": 1e-12, "float32": 1e-4, "bfloat16": 2e-2,
               "float16": 2e-2}
 # epilogue vs plain version, normwise: the GEMM's tolerances
-EPI_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+EPI_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
 EPI_MAIN = (1024, 1024, 3072)   # Qwen3-0.6B's MLP up/gate projection
 EPI_SHAPES = [EPI_MAIN, (100, 70, 130), (1, 200, 300), (513, 129, 257)]
 ACTIVATIONS = (None, "relu", "gelu", "silu", "tanh")
@@ -114,10 +124,22 @@ SERVE = dict(arch="qwen3_0_6b", smoke=False, batch_slots=8, prompt_len=1024,
 # 1.6e-2 and a planted 16-key drop on the last q-block 1.3e-1 (PERF.md)
 SERVE_LOGIT_TOL = 5e-2
 MAIN_SHAPE = (4, 16, 1024, 1024, 1024)
-SHAPES = [MAIN_SHAPE, (3, 2, 1000, 997, 1003), (1, 1, 1024, 1024, 1024),
-          (1, 1, 1, 7, 5), (2, 3, 65, 33, 129), (5, 1, 17, 300, 31),
-          (1, 4, 128, 64, 64)]
+# the tensor-core paths' hazards: one 64-tile, ragged M/N with aligned
+# strides across item boundaries, M = 1 with K = N = 8, and an uneven
+# 200 x 96 x 136; then unaligned shapes (simt in 16 bits)
+SHAPES = [MAIN_SHAPE, (1, 1, 64, 64, 64), (2, 3, 1000, 64, 1000),
+          (1, 1, 1, 8, 8), (3, 2, 200, 96, 136), (3, 2, 1000, 997, 1003),
+          (1, 1, 1024, 1024, 1024), (1, 1, 1, 7, 5), (2, 3, 65, 33, 129),
+          (5, 1, 17, 300, 31), (1, 4, 128, 64, 64)]
+# the 16-bit simt path timed at the runtime's size, K off the 8 TMA needs
+SIMT_SHAPE = (4, 16, 1024, 1020, 1024)
 DTYPES = ("float64", "float32", "bfloat16", "float16")
+HALF = ("bfloat16", "float16")
+# the path the BLAS main path's launches must take, by dtype
+MAIN_PATH = {"float64": "dmma", "float32": "simt", "bfloat16": "wgmma",
+             "float16": "wgmma"}
+# profiler device times an entry may carry beside its CUDA-event times
+DEVICE_KEYS = ("device_ms", "plain_device_ms", "library_device_ms")
 
 
 class SmokeFailure(Exception):
@@ -160,6 +182,35 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int):
+    """Mean device time of one call: the kernels' time that
+    ``torch.profiler`` records over ``reps`` calls after one warm-up
+    call, gaps between kernels excluded; None when the profile holds no
+    device time.  Informational beside :func:`time_ms`, for calls about
+    as short as their host side."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(_device_us(e) for e in _kernel_events(prof))
+    return busy_us / reps / 1e3 if busy_us > 0 else None
+
+
+def warm_profiler() -> None:
+    """One short profiler session, so that the tracer is set up before
+    any session whose numbers are kept (a first session taken after much
+    unprofiled work once came back empty on an H100)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(1024, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]):
+        (x * 2).sum().item()
+
+
 def least_time(flops: float, nbytes: float, dtype: str):
     """(bound_ms, bound_by): the larger of the flops over the dtype's
     peak and the bytes (inputs read once, outputs written once) over the
@@ -197,6 +248,19 @@ def _timed_build(name):
     return path, time.perf_counter() - t0
 
 
+def _kernel_label(mangled: str) -> str:
+    """``wgmma_gemm bf16 128`` from a mangled template kernel's name."""
+    t = re.search(r"(batched_gemm|wgmma_gemm|dmma_gemm|flash_fwd)_kernelI"
+                  r"((?:\d+\w+?|[df])?)((?:Li\d+E)+)", mangled)
+    if not t:
+        return mangled[:40]
+    name, typ, ints = t.groups()
+    typ = {"d": "f64", "f": "f32", "6__half": "f16",
+           "13__nv_bfloat16": "bf16"}.get(typ, typ)
+    return " ".join(x for x in (name, typ, "x".join(
+        re.findall(r"Li(\d+)E", ints))) if x)
+
+
 def phase_build():
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
@@ -215,10 +279,8 @@ def phase_build():
                 fn = m.group(1)
             m = re.search(r"Used (\d+) registers", line)
             if m and fn:
-                t = re.search(r"(batched_gemm|flash_fwd)_kernelI(\w+?)Li(\d+)"
-                              r"ELi(\d+)ELi(\d+)E", fn)
-                label = ("%s %s %sx%sx%s" % t.groups()) if t else fn[:40]
-                print(f"[build] ptxas {label}: {line.split(':', 1)[1].strip()}")
+                print(f"[build] ptxas {_kernel_label(fn)}: "
+                      f"{line.split(':', 1)[1].strip()}")
             if "spill" in line and not re.search(r"\b0 bytes spill stores", line):
                 print(f"[build] ptxas spill: {line.strip()}")
     print(f"[build] both sources in {secs:.1f} s", flush=True)
@@ -228,55 +290,108 @@ def phase_build():
 def phase_kernel(card: str):
     import torch
     from repro_torch.core.dtypes import accumulator_dtype, canonical_dtype
+    from repro_torch.kernels import matmul as kmm
     from repro_torch.kernels.matmul import batched_contract
     from repro_torch.kernels.ref import batched_contract_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results = {}
+
+    def operands(shape, dt):
+        g, s, m, k, n = shape
+        return (torch.randn((g, s, m, k), generator=gen, device="cuda",
+                            dtype=torch.float32).to(dt),
+                torch.randn((g, s, k, n), generator=gen, device="cuda",
+                            dtype=torch.float32).to(dt))
+
+    def timed(name, path, shape, a, b):
+        """Time the kernel on every compiled block of its path (the
+        default's time is the entry's), the plain version and the
+        library call, at ``shape``."""
+        g, s, m, k, n = shape
+        flops = 2 * g * s * m * k * n
+        default = kmm.default_blocks(m, n, k, a.element_size(), path)
+        per_block = {}
+        for blocks in kmm.compiled_blocks(path):
+            if path == "simt" and blocks != default:
+                continue  # simt: the default block only
+            per_block[blocks] = time_ms(
+                lambda: batched_contract(a, b, blocks=blocks), 20)
+            print(f"[kernel] {name} {path} {shape} blocks {blocks}: "
+                  f"{per_block[blocks]:.4f} ms "
+                  f"({flops / per_block[blocks] / 1e9:.1f} TFLOP/s)"
+                  f"{' (default)' if blocks == default else ''} | {card}",
+                  flush=True)
+        ms = per_block[default]
+        a2 = a.transpose(1, 2).reshape(g, m, s * k).contiguous()
+        b2 = b.reshape(g, s * k, n)
+        plain_ms = time_ms(lambda: batched_contract_ref(a, b), 5)
+        lib_ms = time_ms(lambda: torch.matmul(a2, b2), 20)
+        bound_ms, bound_by = bound(shape, name)
+        print(f"[kernel] {name} {path} {shape}: kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f}"
+              f" ms, torch.matmul folded {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {PEAK_NAME[name]}) "
+              f"acc {accumulator_dtype(a.dtype)} | {card}", flush=True)
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, shape=shape,
+                    blocks={"x".join(map(str, k)): v
+                            for k, v in per_block.items()})
+
     for name in DTYPES:
         dt = canonical_dtype(name)
-        worst, max_abs = 0.0, 0.0
+        worst = {}
         for shape in SHAPES:
             g, s, m, k, n = shape
-            a = torch.randn((g, s, m, k), generator=gen, device="cuda",
-                            dtype=torch.float32).to(dt)
-            b = torch.randn((g, s, k, n), generator=gen, device="cuda",
-                            dtype=torch.float32).to(dt)
+            path = kmm.kernel_path(dt, m, k, n)
+            a, b = operands(shape, dt)
             got = batched_contract(a, b)
             torch.cuda.synchronize()
             want = batched_contract_ref(a, b)
             err = normwise(got, want)
             abs_err = float((got.to(torch.float64)
                              - want.to(torch.float64)).abs().max())
-            print(f"[kernel] {name} {shape}: normwise {err:.3e} "
+            print(f"[kernel] {name} {path} {shape}: normwise {err:.3e} "
                   f"max_abs {abs_err:.3e} (tol {KERNEL_TOL[name]:.0e})",
                   flush=True)
             check(err <= KERNEL_TOL[name],
-                  f"kernel {name} {shape} normwise {err:.3e} > "
+                  f"kernel {name} {path} {shape} normwise {err:.3e} > "
                   f"{KERNEL_TOL[name]:.0e}")
-            worst = max(worst, err)
+            worst[path] = max(worst.get(path, 0.0), err)
+            if name in HALF and shape in (MAIN_SHAPE, (3, 2, 1000, 997, 1003)):
+                # the unrounded f32 sums (out_acc) on each 16-bit path
+                wide = batched_contract(a, b, torch.float32)
+                torch.cuda.synchronize()
+                err = normwise(wide, batched_contract_ref(a, b,
+                                                          torch.float32))
+                print(f"[kernel] {name} {path} {shape} f32 out: normwise "
+                      f"{err:.3e} (tol {KERNEL_TOL['float32']:.0e})",
+                      flush=True)
+                check(err <= KERNEL_TOL["float32"],
+                      f"kernel {name} {path} {shape} f32 out normwise "
+                      f"{err:.3e}")
+                del wide
             if shape == MAIN_SHAPE:
-                max_abs = abs_err
-                acc = accumulator_dtype(dt)
-                a2 = a.transpose(1, 2).reshape(g, m, s * k).contiguous()
-                b2 = b.reshape(g, s * k, n)
-                reps = 5
-                ms = time_ms(lambda: batched_contract(a, b), reps)
-                plain_ms = time_ms(lambda: batched_contract_ref(a, b), reps)
-                lib_ms = time_ms(lambda: torch.matmul(a2, b2), reps)
-                bound_ms, bound_by = bound(shape, name)
-                flops = 2 * g * s * m * k * n
-                print(f"[kernel] {name} {shape}: kernel {ms:.3f} ms "
-                      f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f}"
-                      f" ms, torch.matmul folded {lib_ms:.3f} ms, bound "
-                      f"{bound_ms:.3f} ms ({bound_by}; {PEAK_NAME[name]}) "
-                      f"acc {acc} | {card}", flush=True)
-                results[name] = dict(ms=ms, plain_ms=plain_ms,
-                                     library_ms=lib_ms, bound_ms=bound_ms,
-                                     bound_by=bound_by, max_abs_err=max_abs)
-                del a2, b2
-        results[name]["worst_normwise"] = worst
+                results[(name, path)] = timed(name, path, shape, a, b)
+                results[(name, path)]["max_abs_err"] = abs_err
+            del a, b, got, want
+        if name in HALF:
+            a, b = operands(SIMT_SHAPE, dt)
+            g, s, m, k, n = SIMT_SHAPE
+            check(kmm.kernel_path(dt, m, k, n) == "simt",
+                  f"{SIMT_SHAPE} should take the simt path")
+            err = normwise(batched_contract(a, b), batched_contract_ref(a, b))
+            check(err <= KERNEL_TOL[name], f"kernel {name} simt "
+                  f"{SIMT_SHAPE} normwise {err:.3e}")
+            results[(name, "simt")] = timed(name, "simt", SIMT_SHAPE, a, b)
+            got, want = batched_contract(a, b), batched_contract_ref(a, b)
+            results[(name, "simt")]["max_abs_err"] = float(
+                (got.double() - want.double()).abs().max())
+            del a, b, got, want
+        for path, w in worst.items():
+            print(f"[kernel] {name} {path}: worst normwise {w:.3e} over "
+                  f"its shapes", flush=True)
     return results
 
 
@@ -388,13 +503,14 @@ def phase_epilogue(card: str):
     its plain version; timed in bf16 with bias + silu at the MLP shape."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import matmul as kmm
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import matmul_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(4321)
     out = {}
-    for name in ("float32", "bfloat16"):
+    for name in ("float32", "bfloat16", "float16"):
         dt = getattr(torch, name)
         worst = 0.0
         for m, k, n in EPI_SHAPES:
@@ -425,14 +541,32 @@ def phase_epilogue(card: str):
                     # a, b and c in bf16, the bias row in f32
                     bound_ms, bound_by = least_time(
                         flops, (m * k + k * n + m * n) * 2 + n * 4, name)
-                    print(f"[epilogue] bf16 {(m, k, n)} bias+silu: kernel "
-                          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-                          f"plain {plain_ms:.4f} ms, torch.addmm+silu "
-                          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                          f"({bound_by}) | {card}", flush=True)
+                    path = kmm.kernel_path(dt, m, k, n)
+                    print(f"[epilogue] bf16 {path} {(m, k, n)} bias+silu, "
+                          f"CUDA events: kernel {ms:.4f} ms "
+                          f"({flops / ms / 1e9:.1f} TFLOP/s), plain "
+                          f"{plain_ms:.4f} ms, torch.addmm+silu {lib_ms:.4f}"
+                          f" ms, bound {bound_ms:.4f} ms ({bound_by}) | "
+                          f"{card}", flush=True)
+                    # the same calls' device time, gaps and host excluded
+                    # (information only: the entry's times are the events')
+                    dev = dict(
+                        device_ms=device_ms(lambda: ops.matmul(
+                            a, b, bias, activation="silu"), reps),
+                        plain_device_ms=device_ms(
+                            lambda: matmul_ref(a, b, bias, "silu"), reps),
+                        library_device_ms=device_ms(
+                            lambda: F.silu(torch.addmm(bias_t, a, b)), reps))
+                    shown = {key: "not measured" if v is None
+                             else f"{v:.4f} ms" for key, v in dev.items()}
+                    print(f"[epilogue] bf16 {path} {(m, k, n)} bias+silu, "
+                          f"device time: kernel {shown['device_ms']}, plain "
+                          f"{shown['plain_device_ms']}, torch.addmm+silu "
+                          f"{shown['library_device_ms']} | {card}",
+                          flush=True)
                     out = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                bound_ms=bound_ms, bound_by=bound_by,
-                               max_abs_err=max_abs)
+                               max_abs_err=max_abs, path=path, **dev)
         print(f"[epilogue] {name}: {len(EPI_SHAPES)} shapes x "
               f"{len(ACTIVATIONS)} activations, bias, worst normwise "
               f"{worst:.3e} (tol {EPI_TOL[name]:.0e})", flush=True)
@@ -591,6 +725,15 @@ def _device_us(event) -> float:
                          getattr(event, "self_cuda_time_total", 0.0)))
 
 
+def _kernel_events(prof):
+    """The profile's device-side events (kernels, copies) with device
+    time.  A host-side op carries its kernels' time too, so summing
+    every event would count each kernel twice."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+
+
 def profile_serving(card: str, model, params, tokens):
     """Where one prefill and one 8-slot decode step spend the card's
     time: ``torch.profiler`` over each, device time by kernel, and the
@@ -617,7 +760,7 @@ def profile_serving(card: str, model, params, tokens):
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        events = [e for e in prof.key_averages() if _device_us(e) > 0]
+        events = _kernel_events(prof)
         busy_us = sum(_device_us(e) for e in events)
         if busy_us == 0:
             print(f"[profile] {label}: the profiler saw no device time; "
@@ -639,6 +782,7 @@ def _reset_counts():
     from repro_torch.kernels import matmul as kmm
     kmm.LAUNCHES = 0
     kmm.LAUNCHES_BY_DTYPE.clear()
+    kmm.LAUNCHES_BY_PATH.clear()
     kmm.LAUNCHES_EPILOGUE = 0
     kfa.LAUNCHES = 0
     kfa.LAUNCHES_BY_DTYPE.clear()
@@ -648,6 +792,7 @@ def _read_counts():
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import matmul as kmm
     return {"gemm": dict(kmm.LAUNCHES_BY_DTYPE),
+            "gemm_path": {p: dict(d) for p, d in kmm.LAUNCHES_BY_PATH.items()},
             "epilogue": kmm.LAUNCHES_EPILOGUE,
             "flash": dict(kfa.LAUNCHES_BY_DTYPE)}
 
@@ -659,6 +804,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = phase_device()
+    warm_profiler()
     build_s = phase_build()
     kern = phase_kernel(card)
     epi = phase_epilogue(card)
@@ -668,29 +814,42 @@ def main() -> int:
     _reset_counts()
     phase_main_path(card, 16384)
     blas = _read_counts()
+    print(f"[main] GEMM launches by path: {blas['gemm_path']} | {card}",
+          flush=True)
     for name in DTYPES:
-        check(blas["gemm"].get(name, 0) > 0,
-              f"kernel for {name} never launched on the BLAS main path")
+        n = blas["gemm"].get(name, 0)
+        check(n > 0, f"kernel for {name} never launched on the BLAS main path")
+        on_path = blas["gemm_path"].get(MAIN_PATH[name], {}).get(name, 0)
+        check(on_path == n, f"{name}: {on_path} of {n} BLAS main-path "
+              f"launches took the {MAIN_PATH[name]} path")
     # main path 2, serving (counted from 0 inside)
     _, serve = phase_serve(card)
-    gemm_launches = {name: blas["gemm"].get(name, 0)
-                     + serve["gemm"].get(name, 0) for name in DTYPES}
     print(f"[done] build {build_s:.1f} s, total "
           f"{time.perf_counter() - t_start:.1f} s | {card}")
 
-    def entry(name, source, replaces, launches, r):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+    def launches(path, name):
+        return sum(run["gemm_path"].get(path, {}).get(name, 0)
+                   for run in (blas, serve))
 
-    kernels = [entry(f"blasx_batched_gemm<{name}>", KERNEL_SOURCE, REPLACES,
-                     gemm_launches[name], kern[name]) for name in DTYPES]
-    kernels.append(entry("blasx_gemm_epilogue<bfloat16>", KERNEL_SOURCE,
-                         EPILOGUE_REPLACES,
+    def entry(name, path, source, replaces, launches, r):
+        e = {"name": name, "route": "cuda", "path": path,
+             "source": source, "replaces": replaces, "launches": launches,
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        e.update({k: r[k] for k in DEVICE_KEYS if k in r})
+        return e
+
+    # one GEMM entry per path and dtype; the simt path (the kernel of
+    # PR 11) keeps its entries' names, the tensor-core paths add theirs
+    kernels = [entry(f"blasx_batched_gemm<{name}>" if path == "simt"
+                     else f"blasx_batched_gemm<{name},{path}>", path,
+                     KERNEL_SOURCE, REPLACES, launches(path, name),
+                     kern[(name, path)]) for name, path in kern]
+    kernels.append(entry("blasx_gemm_epilogue<bfloat16>", epi["path"],
+                         KERNEL_SOURCE, EPILOGUE_REPLACES,
                          blas["epilogue"] + serve["epilogue"], epi))
-    kernels += [entry(f"flash_attention<{name}>", FLASH_SOURCE,
+    kernels += [entry(f"flash_attention<{name}>", "simt", FLASH_SOURCE,
                       FLASH_REPLACES,
                       blas["flash"].get(name, 0) + serve["flash"].get(name, 0),
                       flash[name]) for name in ("bfloat16", "float32")]

@@ -6,7 +6,10 @@ a shared library with a plain C interface, which is loaded with
 minutes of ``torch.utils.cpp_extension``.  The library lands in
 ``build/repro_torch/`` at the root of the checkout (git-ignored), named
 by a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is reused.
+and an unchanged one is reused.  The libraries link only the CUDA
+runtime: ``cuTensorMapEncodeTiled`` (TMA descriptors), which lives in
+libcuda, is looked up at run time through ``cudaGetDriverEntryPoint``,
+so there is no ``-lcuda`` flag.
 
 Nothing here runs at import time: the tests import every module on
 hosts with no ``nvcc`` and no card.

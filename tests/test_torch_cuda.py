@@ -47,6 +47,83 @@ def test_kernel_matches_plain_version(card, dtype, shape):
     assert float(err) <= TOL[dtype]
 
 
+# the tensor-core paths' hazards: the runtime's group shape, one
+# 64-tile, ragged M/N with aligned strides across item boundaries, M = 1
+# with K = N = 8, and an uneven 200 x 96 x 136
+TC_SHAPES = [(4, 16, 1024, 1024, 1024), (1, 1, 64, 64, 64),
+             (2, 3, 1000, 64, 1000), (1, 1, 1, 8, 8), (3, 2, 200, 96, 136)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float64], ids=str)
+@pytest.mark.parametrize("shape", TC_SHAPES, ids=str)
+def test_tensor_core_paths_match_plain_version(card, dtype, shape):
+    from repro_torch.core.dtypes import dtype_name
+    g, s, m, k, n = shape
+    path = "dmma" if dtype == torch.float64 else "wgmma"
+    assert kmm.kernel_path(dtype, m, k, n) == path
+    gen = torch.Generator(device=card).manual_seed(sum(shape))
+    a = torch.randn((g, s, m, k), generator=gen, device=card).to(dtype)
+    b = torch.randn((g, s, k, n), generator=gen, device=card).to(dtype)
+    name = dtype_name(dtype)
+    before = kmm.LAUNCHES_BY_PATH.get(path, {}).get(name, 0)
+    got = kmm.batched_contract(a, b)
+    torch.cuda.synchronize()
+    assert kmm.LAUNCHES_BY_PATH[path][name] == before + 1
+    want = batched_contract_ref(a, b)
+    err = torch.linalg.norm((got - want).double()) / torch.linalg.norm(
+        want.double())
+    assert float(err) <= TOL[dtype]
+    for blocks in kmm.compiled_blocks(path):
+        other = kmm.batched_contract(a, b, blocks=blocks)
+        err = torch.linalg.norm((other - want).double()) / torch.linalg.norm(
+            want.double())
+        assert float(err) <= TOL[dtype], blocks
+
+
+def test_entry_refuses_operands_the_path_cannot_read(card):
+    """The wrapper picks the path; the C entry still refuses what that
+    path cannot read (rc -2) rather than reading past it: another type
+    on dmma or wgmma, and 16-bit operands off TMA's 16-byte alignment."""
+    def call(path, a, b, blocks):
+        g, s, m, k = a.shape
+        n = b.shape[3]
+        c = torch.empty((g, m, n), device=card, dtype=torch.float32)
+        stream = torch.cuda.current_stream().cuda_stream
+        return kmm._entry()(kmm.PATH_CODES[path], kmm._DTYPE_CODES[a.dtype],
+                            1, a.data_ptr(), b.data_ptr(), None, 0,
+                            c.data_ptr(), g, s, m, k, n, *blocks,
+                            kmm.BLOCKS[path][blocks], stream)
+    wg, dm = kmm.compiled_blocks("wgmma")[0], kmm.compiled_blocks("dmma")[0]
+    f32 = torch.ones((1, 1, 64, 64), device=card)
+    bf = f32.bfloat16()
+    assert call("wgmma", f32, f32, wg) == -2
+    assert call("dmma", bf, bf, dm) == -2
+    assert call("simt", f32.double(), f32.double(), (64, 64, 8)) == -2
+    off = torch.ones(64 * 64 + 1, device=card, dtype=torch.bfloat16)[1:]
+    assert call("wgmma", off.view(1, 1, 64, 64), bf, wg) == -2
+    torch.cuda.synchronize()
+
+
+def test_context_launches_take_the_tensor_core_paths(card):
+    """A bf16 and an f64 GEMM through the context on 64-tiles: every
+    bf16 launch takes wgmma and every f64 launch dmma."""
+    rng = np.random.default_rng(2)
+    A = rng.standard_normal((256, 192))
+    B = rng.standard_normal((192, 320))
+    for dtype, path in (("bfloat16", "wgmma"), ("float64", "dmma")):
+        kmm.LAUNCHES_BY_PATH.clear()
+        kmm.LAUNCHES_BY_DTYPE.clear()
+        with BlasxContext(RuntimeConfig(n_devices=2), tile=64,
+                          dtype=dtype) as ctx:
+            out = ctx.gemm(A, B)
+            launches = ctx.stats()["launch"]["kernel_launches"]
+        assert kmm.LAUNCHES_BY_PATH == {path: {dtype: launches}}
+        tol = 1e-12 if dtype == "float64" else 2e-2
+        got = torch.as_tensor(out.array()).double().numpy()
+        assert np.linalg.norm(got - A @ B) / np.linalg.norm(A @ B) <= tol
+
+
 def test_context_gemm_launches_match_ledger(card):
     rng = np.random.default_rng(1)
     A = rng.standard_normal((300, 200))
@@ -80,6 +157,30 @@ def test_epilogue_matches_plain_version(card, dtype, activation):
     err = torch.linalg.norm((got - want).double()) / torch.linalg.norm(
         want.double())
     assert float(err) <= (1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("activation", [None, "relu", "gelu", "silu",
+                                        "tanh"])
+def test_epilogue_on_the_wgmma_path(card, dtype, activation):
+    """The MLP projection's shape (1024, 1024, 3072) with a bias row and
+    each activation, on the wgmma path, against the plain version."""
+    from repro_torch.core.dtypes import dtype_name
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import matmul_ref
+    gen = torch.Generator(device=card).manual_seed(3)
+    a = torch.randn((1024, 1024), generator=gen, device=card).to(dtype)
+    b = torch.randn((1024, 3072), generator=gen, device=card).to(dtype)
+    bias = torch.randn((3072,), generator=gen, device=card)
+    assert ops.kernel_path(dtype, 1024, 1024, 3072) == "wgmma"
+    before = kmm.LAUNCHES_BY_PATH.get("wgmma", {}).get(dtype_name(dtype), 0)
+    got = ops.matmul(a, b, bias, activation=activation)
+    torch.cuda.synchronize()
+    assert kmm.LAUNCHES_BY_PATH["wgmma"][dtype_name(dtype)] == before + 1
+    want = matmul_ref(a, b, bias, activation)
+    err = torch.linalg.norm((got - want).double()) / torch.linalg.norm(
+        want.double())
+    assert float(err) <= 2e-2
 
 
 # ------------------------------------------------------- flash attention

@@ -183,6 +183,39 @@ def test_matmul_explicit_blocks():
         np.testing.assert_allclose(out.numpy(), a @ b, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_matmul_block_override_follows_the_path(dtype):
+    """A 16-bit block override is checked against the table of the path
+    the converted operands take, their alignment included, and the sizes
+    not given come from that path's default."""
+    dt = getattr(torch, dtype)
+    a, b = _np_pair(64, 64, 128, seed=6)
+    ta, tb = torch.from_numpy(a).to(dt), torch.from_numpy(b).to(dt)
+    want = matmul_ref(ta, tb)
+    assert kmm.operand_path(ta, tb) == "wgmma"
+    for kw in ({"block_n": 128}, {"block_n": 256}, {"block_m": 128},
+               {"block_m": 128, "block_n": 256, "block_k": 64}):
+        assert torch.equal(ops.matmul(ta, tb, **kw), want)
+    for kw in ({"block_k": 16}, {"block_m": 64}, {"block_n": 64}):
+        with pytest.raises(ValueError, match="compiled table of the wgmma"):
+            ops.matmul(ta, tb, **kw)
+    # K off the 8 TMA needs: simt's table and defaults
+    tk, tkb = ta[:, :60].contiguous(), tb[:60].contiguous()
+    assert kmm.operand_path(tk, tkb) == "simt"
+    assert torch.equal(ops.matmul(tk, tkb, block_k=16), matmul_ref(tk, tkb))
+    with pytest.raises(ValueError, match="compiled table of the simt"):
+        ops.matmul(tk, tkb, block_n=256)
+    # the same shape two bytes off a 16-byte boundary is simt's too
+    base = torch.zeros(64 * 64 + 1, dtype=dt)
+    off = base[1:].view(64, 64)
+    off.copy_(ta)
+    assert off.data_ptr() % 16 != 0
+    assert kmm.operand_path(off, tb) == "simt"
+    assert torch.equal(ops.matmul(off, tb, block_m=64), want)
+    with pytest.raises(ValueError, match="compiled table of the simt"):
+        ops.matmul(off, tb, block_n=256)
+
+
 def test_matmul_shape_errors():
     a, b = _np_pair(32, 16, 32)
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
@@ -214,21 +247,100 @@ def test_batched_contract_rejects_what_the_kernel_does_not_take():
 
 def test_block_heuristic_respects_smem():
     """Twin of test_block_heuristic_respects_vmem: every block the
-    chooser picks — and every block compiled into the library — fits
-    the shared memory one block may use on the card."""
+    chooser picks — and every block compiled into the library, on every
+    path, the TMA ring's stages and barriers included — fits the shared
+    memory one block may use on the card."""
     assert ops.SMEM_BUDGET == 232448  # 227 KB
     for m, n, k, isz in [(8192, 8192, 8192, 2), (4096, 11008, 4096, 4),
                          (33, 100000, 7, 4), (1024, 1024, 16384, 8),
-                         (1, 1, 1, 8)]:
+                         (1, 1, 1, 8), (1024, 3072, 1024, 2),
+                         (100, 130, 70, 2), (1, 8, 8, 2)]:
+        path = kmm._path(isz, k, n)
         bm, bn, bk = ops.default_blocks(m, n, k, isz)
-        assert bm in kmm.BLOCK_MN and bn in kmm.BLOCK_MN
-        assert bk in kmm.BLOCK_K
-        acc = 8 if isz == 8 else 4
-        assert ops.smem_bytes(bm, bn, bk, acc) <= ops.SMEM_BUDGET
-    for bm in kmm.BLOCK_MN:
-        for bn in kmm.BLOCK_MN:
-            for bk in kmm.BLOCK_K:
-                assert ops.smem_bytes(bm, bn, bk, 8) <= ops.SMEM_BUDGET
+        assert (bm, bn, bk) in kmm.compiled_blocks(path)
+        staged = {"simt": 4, "dmma": 8, "wgmma": 2}[path]
+        assert ops.smem_bytes(bm, bn, bk, staged, path) <= ops.SMEM_BUDGET
+    for bm, bn, bk in kmm.compiled_blocks("simt"):
+        assert ops.smem_bytes(bm, bn, bk, 4) <= ops.SMEM_BUDGET
+    for bm, bn, bk in kmm.compiled_blocks("dmma"):
+        assert ops.smem_bytes(bm, bn, bk, 8, "dmma") <= ops.SMEM_BUDGET
+    for (bm, bn, bk), stages in kmm.BLOCKS["wgmma"].items():
+        need = ops.smem_bytes(bm, bn, bk, 2, "wgmma")
+        # the ring, a full and an empty mbarrier per stage, 1 KB of
+        # alignment slack for the 128-byte swizzle
+        assert need == stages * (bm * bk + bk * bn) * 2 + 16 * stages + 1024
+        assert need <= ops.SMEM_BUDGET
+    # 128 x 128 tiles leave room for two blocks on one SM (228 KB)
+    assert 2 * (ops.smem_bytes(128, 128, 64, 2, "wgmma") + 1024) <= 233472
+
+
+@pytest.mark.parametrize("dtype,m,k,n,path", [
+    ("bfloat16", 1024, 1024, 1024, "wgmma"),
+    ("float16", 1024, 1024, 3072, "wgmma"),
+    ("bfloat16", 1, 8, 8, "wgmma"),
+    ("float16", 1000, 64, 1000, "wgmma"),      # ragged M/N, aligned strides
+    ("bfloat16", 100, 70, 130, "simt"),        # K % 8 != 0
+    ("float16", 1000, 997, 1003, "simt"),
+    ("bfloat16", 64, 64, 60, "simt"),          # N % 8 != 0
+    ("float64", 1024, 1024, 1024, "dmma"),
+    ("float64", 1, 7, 5, "dmma"),              # odd K stays on dmma
+    ("float64", 1000, 997, 1003, "dmma"),
+    ("float32", 1024, 1024, 1024, "simt"),     # no TF32
+    ("float32", 8, 8, 8, "simt"),
+])
+def test_kernel_path_by_dtype_and_alignment(dtype, m, k, n, path):
+    """The path is a function of dtype and alignment alone: wgmma for
+    f16/bf16 whose rows TMA can read, dmma for every f64 shape, simt for
+    f32 and unaligned 16-bit shapes."""
+    assert kmm.kernel_path(dtype, m, k, n) == path
+    assert kmm.kernel_path(getattr(torch, dtype), m, k, n) == path
+    # an operand base off 16 bytes takes the 16-bit shape off TMA
+    want = "simt" if path == "wgmma" else path
+    assert kmm.kernel_path(dtype, m, k, n, aligned=False) == want
+
+
+def test_blocks_outside_the_paths_table_raise():
+    """``blocks=`` is checked against the table of the path the call
+    takes, on every device: a simt block on a wgmma shape, a wgmma block
+    on an f64 call and an f64 block on an f32 call all raise."""
+    bf = torch.zeros((1, 1, 64, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="compiled table of the wgmma"):
+        kmm.batched_contract(bf, bf, blocks=(128, 128, 16))
+    f64 = torch.zeros((1, 1, 64, 64), dtype=torch.float64)
+    with pytest.raises(ValueError, match="compiled table of the dmma"):
+        kmm.batched_contract(f64, f64, blocks=(128, 128, 64))
+    f32 = torch.zeros((1, 1, 64, 64))
+    with pytest.raises(ValueError, match="compiled table of the simt"):
+        kmm.batched_contract(f32, f32, blocks=(128, 256, 64))
+    # a block of the right table is taken (the plain version runs here)
+    out = kmm.batched_contract(bf, bf, blocks=(128, 256, 64))
+    assert out.shape == (1, 64, 64)
+    for path in kmm.PATHS:
+        bm, bn, bk = kmm.compiled_blocks(path)[0]
+        kmm.check_blocks(bm, bn, bk, path)
+    with pytest.raises(ValueError, match="unknown path"):
+        kmm.compiled_blocks("tf32")
+
+
+def test_compiled_tables_match_the_source():
+    """The wrapper's block and stage table (``kmm.BLOCKS``) is what
+    ``csrc/blasx_gemm.cu`` instantiates, path by path: a block asked of
+    the library that it did not compile would fail only on the card."""
+    import re
+    src = (build.CSRC / "blasx_gemm.cu").read_text()
+    for path in kmm.PATHS:
+        m = re.search(rf"#define BLASX_{path.upper()}_BLOCKS\(X\)((?:[^\n]*"
+                      rf"\\\n)*[^\n]*)", src)
+        assert m, path
+        cases = re.findall(r"X\((\d+), (\d+), (\d+), (\d+)\)", m.group(1))
+        compiled = {tuple(map(int, c[:3])): int(c[3]) for c in cases}
+        assert len(compiled) == len(cases)
+        assert compiled == kmm.BLOCKS[path], path
+        assert re.search(rf"BLASX_{path.upper()}_BLOCKS\(BLASX_CASE\)", src)
+    assert re.findall(r"kPath(\w+) = (\d)", src) and {
+        name.lower(): int(code)
+        for name, code in re.findall(r"kPath(\w+) = (\d)", src)} \
+        == kmm.PATH_CODES
 
 
 def test_wrapper_raises_instead_of_falling_back():
