@@ -39,16 +39,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    by the device time ``torch.profiler`` records (these calls are about
    as short as their host side, which the events include).
 6. attention — the flash-attention kernel against its plain version on
-   the reference's test cases and the serving path's prefill shape
-   (B=1, S=1024, H=16, Hkv=8, D=128), in f32 (max abs) and bf16 (max
-   abs and normwise); timed at that shape beside its bound and
-   ``scaled_dot_product_attention`` (a yardstick only: the port never
-   calls it).
+   the reference's test cases, the serving path's prefill shape (B=1,
+   S=1024, H=16, Hkv=8, D=128) and the tensor-core path's hazards (D = 8
+   and 16, Sq = 1, Sk = 65, non-causal Sq != Sk, a bhsd view), in f32
+   (max abs) and bf16/f16 (max abs and normwise), on the path
+   ``flash_path`` names (mma for aligned 16-bit operands, simt for f32
+   and a 16-bit seq stride off a multiple of 8), each launch checked in
+   ``LAUNCHES_BY_PATH``; timed at the prefill shape on each
+   (path, dtype) beside its bound and ``scaled_dot_product_attention`` (a
+   yardstick only: the port never calls it), by CUDA events and by the
+   device time ``torch.profiler`` records.
 7. serve — ``repro_torch.launch.serve.run`` at Qwen3-0.6B's full width in
    bf16 (random weights from a seed): 16 requests of 1024-token prompts,
    32 new tokens each, 8 slots.  Checks every request and token, every
    logit finite, the flash kernel launched once per layer and prefill
-   (28 x 16), and one prompt's last logits through the kernel against
+   (28 x 16), every launch bf16 on the mma path, and one prompt's last
+   logits through the kernel against
    the plain "sdpa" attention backend on the card.
 
 Phases 4 and 7 are the main paths: each kernel's launch count is set to
@@ -104,19 +110,28 @@ EPI_MAIN = (1024, 1024, 3072)   # Qwen3-0.6B's MLP up/gate projection
 EPI_SHAPES = [EPI_MAIN, (100, 70, 130), (1, 200, 300), (513, 129, 257)]
 ACTIVATIONS = (None, "relu", "gelu", "silu", "tanh")
 # flash vs plain version, max abs: the reference's test tolerances
-# (f32 sums in another order; bf16 rounds the output to 8 bits)
-FLASH_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
-# bf16 also normwise: at the prefill shape a typical |o| is ~0.076, so
+# (f32 sums in another order; bf16 rounds the output to 8 bits); f16 is
+# held to bf16's limits, which its longer mantissa makes stricter for it
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 5e-2, "float16": 5e-2}
+# 16-bit also normwise: at the prefill shape a typical |o| is ~0.076, so
 # 5e-2 max abs is loose.  On an H100 the sound kernel read <= 4.5e-5 and
 # the subtlest fault planted by tools/flash_fault_margin.py (the output
-# rounded toward zero) 3.9e-3 (PERF.md)
-FLASH_NORMWISE_TOL = {"bfloat16": 1e-3}
+# rounded toward zero) 3.9e-3 (PERF.md); P rounded once to bf16 before
+# PV (the FA-2/3 shortcut) reads ~2e-3 on the CPU
+FLASH_NORMWISE_TOL = {"bfloat16": 1e-3, "float16": 1e-3}
+FLASH_DTYPES = ("float32", "bfloat16", "float16")
 # (B, Sq, Sk, H, Hkv, D, causal): test_kernels.py's FLASH_CASES, then
 # the serving path's prefill shape
 FLASH_MAIN = (1, 1024, 1024, 16, 8, 128, True)
 FLASH_CASES = [(2, 256, 256, 4, 4, 64, True), (1, 200, 200, 4, 2, 32, True),
                (2, 128, 384, 8, 2, 64, False), (1, 130, 130, 2, 1, 16, True),
                (1, 64, 64, 1, 1, 128, True), FLASH_MAIN]
+# the mma path's hazards: D = 8 and 16 across blocks, Sq = 1, one key
+# past a block, non-causal Sq != Sk, causal Sq < Sk
+FLASH_HAZARDS = [(2, 37, 37, 4, 2, 8, True), (2, 130, 130, 4, 1, 8, True),
+                 (1, 300, 170, 4, 2, 16, True), (1, 1, 1, 4, 2, 128, True),
+                 (1, 1, 200, 4, 2, 64, False), (1, 65, 65, 4, 2, 128, True),
+                 (1, 100, 65, 4, 2, 32, False), (1, 70, 200, 2, 1, 64, True)]
 # the serve phase: Qwen3-0.6B, 28 layers, bf16
 SERVE = dict(arch="qwen3_0_6b", smoke=False, batch_slots=8, prompt_len=1024,
              max_len=1088, requests=16, max_new=32, seed=0, device="cuda")
@@ -250,7 +265,8 @@ def _timed_build(name):
 
 def _kernel_label(mangled: str) -> str:
     """``wgmma_gemm bf16 128`` from a mangled template kernel's name."""
-    t = re.search(r"(batched_gemm|wgmma_gemm|dmma_gemm|flash_fwd)_kernelI"
+    t = re.search(r"(batched_gemm|wgmma_gemm|dmma_gemm|flash_fwd|flash_mma)"
+                  r"_kernelI"
                   r"((?:\d+\w+?|[df])?)((?:Li\d+E)+)", mangled)
     if not t:
         return mangled[:40]
@@ -585,9 +601,26 @@ def flash_bound(case, dtype: str):
     return (*least_time(flops, nbytes, dtype), flops)
 
 
+def _flash_qkv(gen, case, dt, pad=0):
+    """q, k, v of ``case`` in ``dt``; ``pad`` > 0 widens each seq row by
+    that many elements (a seq stride off the 8 the mma path reads)."""
+    import torch
+    b, sq, sk, h, hkv, d, _ = case
+
+    def one(s, heads):
+        x = torch.randn((b, s, heads * d + pad), generator=gen,
+                        device="cuda").to(dt)
+        return x[..., :heads * d].unflatten(-1, (heads, d))
+    return one(sq, h), one(sk, hkv), one(sk, hkv)
+
+
 def phase_attention(card: str):
-    """The flash kernel against its plain version; timed at the serving
-    path's prefill shape beside its bound and SDPA (a yardstick)."""
+    """The flash kernel against its plain version in f32, bf16 and f16
+    on the reference's cases, the mma path's hazards, a bhsd view and an
+    unaligned 16-bit layout, each on the path ``flash_path`` names; timed
+    at the serving path's prefill shape on each (path, dtype) beside its
+    bound and SDPA (a yardstick: the port never calls it), by CUDA events
+    and by profiler device time."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
@@ -596,58 +629,112 @@ def phase_attention(card: str):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(99)
     results = {}
-    for name in ("float32", "bfloat16"):
+
+    def held(label, name, path, fn, want):
+        """Run ``fn()``, check its launch landed on ``path`` and its
+        error; returns (max abs, normwise)."""
+        before = kfa.LAUNCHES_BY_PATH.get(path, {}).get(name, 0)
+        got = fn()
+        torch.cuda.synchronize()
+        after = kfa.LAUNCHES_BY_PATH.get(path, {}).get(name, 0)
+        check(after == before + 1, f"flash {name} {label}: launch not on "
+              f"the {path} path ({kfa.LAUNCHES_BY_PATH})")
+        max_abs = float((got.float() - want.float()).abs().max())
+        check(max_abs <= FLASH_TOL[name], f"flash {name} {path} {label}: "
+              f"max abs {max_abs:.3e} > {FLASH_TOL[name]:.0e}")
+        err = 0.0
+        if name in FLASH_NORMWISE_TOL:
+            err = normwise(got, want)
+            check(err <= FLASH_NORMWISE_TOL[name],
+                  f"flash {name} {path} {label}: normwise {err:.3e} > "
+                  f"{FLASH_NORMWISE_TOL[name]:.0e}")
+        return max_abs, err
+
+    def timed(name, path, case, q, k, v, max_abs, err):
+        b, sq, sk, h, hkv, d, causal = case
+        reps = 20
+        kern = lambda: kfa.flash_attention(q, k, v, causal=causal)
+        ms = time_ms(kern, reps)
+        plain = lambda: flash_attention_ref(q, k, v, causal=causal)
+        plain_ms = time_ms(plain, 5)
+        # SDPA wants (B, H, S, D) and as many kv heads as q heads
+        g = h // hkv
+        qs = q.transpose(1, 2).contiguous()
+        ks = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+        vs = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                      is_causal=causal)
+        lib_ms = time_ms(sdpa, reps)
+        dev = dict(device_ms=device_ms(kern, reps),
+                   plain_device_ms=device_ms(plain, 5),
+                   library_device_ms=device_ms(sdpa, reps))
+        bound_ms, bound_by, flops = flash_bound(case, name)
+        shown = {key: "not measured" if x is None else f"{x:.4f} ms"
+                 for key, x in dev.items()}
+        print(f"[attention] {name} {path} {case}: CUDA events: kernel "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms; device time: "
+              f"kernel {shown['device_ms']}, plain "
+              f"{shown['plain_device_ms']}, SDPA "
+              f"{shown['library_device_ms']}; bound {bound_ms:.4f} ms "
+              f"({bound_by}; {PEAK_NAME[name]}); max abs {max_abs:.3e}, "
+              f"normwise {err:.3e} | {card}", flush=True)
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_abs,
+                    **dev)
+
+    def layouts(name, dt, worst):
+        """16-bit only: the reference kernel's bhsd layout (permuted
+        views, read in place: mma), then a seq stride off a multiple of 8
+        (simt), checked on a hazard and timed at the prefill shape."""
+        view = lambda x: x.permute(1, 0, 2)[None]
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                   for shape in ((8, 150, 64), (2, 150, 64), (2, 150, 64)))
+        check(kfa.flash_path(dt, 64, view(q), view(k), view(v)) == "mma",
+              "the bhsd views should take mma")
+        want = flash_attention_ref(view(q), view(k), view(v))[0]
+        w = held("bhsd (8,150,64)/(2,150,64)", name, "mma",
+                 lambda: kfa.flash_attention_bhsd(q, k, v),
+                 want.permute(1, 0, 2))
+        worst["mma"] = tuple(map(max, zip(worst["mma"], w)))
+        for case in ((1, 200, 200, 4, 2, 64, True), FLASH_MAIN):
+            q, k, v = _flash_qkv(gen, case, dt, pad=1)
+            check(kfa.flash_path(dt, case[5], q, k, v) == "simt",
+                  f"{case} with a ragged seq stride should take simt")
+            want = flash_attention_ref(q, k, v, causal=case[6])
+            w = held(f"{case} seq stride {q.stride(1)}", name, "simt",
+                     lambda: kfa.flash_attention(q, k, v, causal=case[6]),
+                     want)
+            worst["simt"] = tuple(map(max, zip(worst.get("simt", (0, 0)),
+                                               w)))
+            if case == FLASH_MAIN:
+                results[(name, "simt")] = timed(name, "simt", case, q, k, v,
+                                                *w)
+
+    for name in FLASH_DTYPES:
         dt = getattr(torch, name)
-        worst, worst_nw = 0.0, 0.0
-        for case in FLASH_CASES:
-            b, sq, sk, h, hkv, d, causal = case
-            q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dt)
-            k = torch.randn((b, sk, hkv, d), generator=gen,
-                            device="cuda").to(dt)
-            v = torch.randn((b, sk, hkv, d), generator=gen,
-                            device="cuda").to(dt)
+        worst = {}
+        for case in FLASH_CASES + FLASH_HAZARDS:
+            causal, d = case[6], case[5]
+            q, k, v = _flash_qkv(gen, case, dt)
+            path = kfa.flash_path(dt, d, q, k, v)
+            check(path == ("simt" if name == "float32" else "mma"),
+                  f"flash {name} {case} takes {path}")
             want = flash_attention_ref(q, k, v, causal=causal)
-            got = kfa.flash_attention(q, k, v, causal=causal)
-            torch.cuda.synchronize()
-            max_abs = float((got.float() - want.float()).abs().max())
-            check(max_abs <= FLASH_TOL[name],
-                  f"flash {name} {case}: max abs {max_abs:.3e} > "
-                  f"{FLASH_TOL[name]:.0e}")
-            worst = max(worst, max_abs)
-            if name in FLASH_NORMWISE_TOL:
-                err = normwise(got, want)
-                check(err <= FLASH_NORMWISE_TOL[name],
-                      f"flash {name} {case}: normwise {err:.3e} > "
-                      f"{FLASH_NORMWISE_TOL[name]:.0e}")
-                worst_nw = max(worst_nw, err)
-            if case != FLASH_MAIN:
-                continue
-            reps = 20
-            ms = time_ms(lambda: kfa.flash_attention(q, k, v), reps)
-            plain_ms = time_ms(lambda: flash_attention_ref(q, k, v), 5)
-            # SDPA wants (B, H, S, D) and as many kv heads as q heads
-            g = h // hkv
-            qs = q.transpose(1, 2).contiguous()
-            ks = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
-            vs = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True), reps)
-            bound_ms, bound_by, flops = flash_bound(case, name)
-            nw = (f", normwise {err:.3e}" if name in FLASH_NORMWISE_TOL
-                  else "")
-            print(f"[attention] {name} {case}: kernel {ms:.4f} ms "
-                  f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} "
-                  f"ms, SDPA {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}; {PEAK_NAME[name]}); max abs {max_abs:.3e}"
-                  f"{nw} | {card}", flush=True)
-            results[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                 bound_ms=bound_ms, bound_by=bound_by,
-                                 max_abs_err=max_abs)
-        nw = (f", worst normwise {worst_nw:.3e} (tol "
-              f"{FLASH_NORMWISE_TOL[name]:.0e})"
-              if name in FLASH_NORMWISE_TOL else "")
-        print(f"[attention] {name}: {len(FLASH_CASES)} cases, worst max abs "
-              f"{worst:.3e} (tol {FLASH_TOL[name]:.0e}){nw}", flush=True)
+            w = held(str(case), name, path, lambda: kfa.flash_attention(
+                q, k, v, causal=causal), want)
+            worst[path] = tuple(map(max, zip(worst.get(path, (0, 0)), w)))
+            if case == FLASH_MAIN:
+                results[(name, path)] = timed(name, path, case, q, k, v, *w)
+            del q, k, v, want
+        if name != "float32":
+            layouts(name, dt, worst)
+        for path, (max_abs, err) in sorted(worst.items()):
+            nw = (f", worst normwise {err:.3e} (tol "
+                  f"{FLASH_NORMWISE_TOL[name]:.0e})"
+                  if name in FLASH_NORMWISE_TOL else "")
+            print(f"[attention] {name} {path}: worst max abs {max_abs:.3e} "
+                  f"(tol {FLASH_TOL[name]:.0e}){nw}", flush=True)
     return results
 
 
@@ -677,7 +764,7 @@ def phase_serve(card: str):
           f"(prefill {out['prefill_s']:.3f} s, decode {out['decode_s']:.3f}"
           f" s, {out['tok_per_s']:.1f} tok/s), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, flash "
-          f"launches {launches['flash']} | {card}", flush=True)
+          f"launches {launches['flash_path']} | {card}", flush=True)
     check(out["device"].startswith("cuda"), f"served on {out['device']}")
     check(out["requests"] == SERVE["requests"], "not every request finished")
     check(out["tokens"] == n_tok and all(
@@ -686,10 +773,9 @@ def phase_serve(card: str):
     check(out["nonfinite_logits"] == 0,
           f"{out['nonfinite_logits']} prefills/steps had non-finite logits")
     want = cfg.n_layers * SERVE["requests"]
-    check(launches["flash"].get("bfloat16", 0) == want
-          and sum(launches["flash"].values()) == want,
-          f"flash launches {launches['flash']}, want {want} bf16 "
-          f"(layers x prefills)")
+    check(launches["flash_path"] == {"mma": {"bfloat16": want}},
+          f"flash launches {launches['flash_path']}, want {want} bf16 on "
+          f"the mma path (layers x prefills)")
 
     # one prompt's last logits through the kernel against the plain
     # "sdpa" backend, on the same weights (same seed) on the card
@@ -786,6 +872,7 @@ def _reset_counts():
     kmm.LAUNCHES_EPILOGUE = 0
     kfa.LAUNCHES = 0
     kfa.LAUNCHES_BY_DTYPE.clear()
+    kfa.LAUNCHES_BY_PATH.clear()
 
 
 def _read_counts():
@@ -794,7 +881,8 @@ def _read_counts():
     return {"gemm": dict(kmm.LAUNCHES_BY_DTYPE),
             "gemm_path": {p: dict(d) for p, d in kmm.LAUNCHES_BY_PATH.items()},
             "epilogue": kmm.LAUNCHES_EPILOGUE,
-            "flash": dict(kfa.LAUNCHES_BY_DTYPE)}
+            "flash_path": {p: dict(d)
+                           for p, d in kfa.LAUNCHES_BY_PATH.items()}}
 
 
 def main() -> int:
@@ -849,10 +937,14 @@ def main() -> int:
     kernels.append(entry("blasx_gemm_epilogue<bfloat16>", epi["path"],
                          KERNEL_SOURCE, EPILOGUE_REPLACES,
                          blas["epilogue"] + serve["epilogue"], epi))
-    kernels += [entry(f"flash_attention<{name}>", "simt", FLASH_SOURCE,
-                      FLASH_REPLACES,
-                      blas["flash"].get(name, 0) + serve["flash"].get(name, 0),
-                      flash[name]) for name in ("bfloat16", "float32")]
+    # one flash entry per path and dtype; the simt entries keep their
+    # earlier names, the mma path adds its own
+    kernels += [entry(f"flash_attention<{name}>" if path == "simt"
+                      else f"flash_attention<{name},{path}>", path,
+                      FLASH_SOURCE, FLASH_REPLACES,
+                      sum(run["flash_path"].get(path, {}).get(name, 0)
+                          for run in (blas, serve)), flash[(name, path)])
+                 for name, path in flash]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

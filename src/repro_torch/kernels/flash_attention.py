@@ -18,8 +18,17 @@ rows are masked loads.
 
 What bounds it on the card: at the serving path's prefill (B*H = 16,
 S = 1024, D = 128, causal) it is bound by operations (~4.3 GFLOP
-against ~16 MB).  This first kernel runs both products on the CUDA cores
-in f32 (so f32 never takes TF32); the tensor cores are later work.
+against ~16 MB).  :func:`flash_path` picks one of two paths by dtype and
+alignment alone, and the wrapper passes it to the kernel:
+
+* ``"mma"`` — f16/bf16 whose operands have 16-byte aligned bases and
+  batch, seq and head strides that are multiples of 8 elements:
+  ``mma.sync`` tensor-core products with f32 accumulators, P carried as
+  two 16-bit terms so bf16 keeps ~16 bits of it;
+* ``"simt"`` — f32 (never TF32) and the other 16-bit operands: both
+  products on the CUDA cores in f32.
+
+Each path has its compiled ``(block_q, block_k)`` in ``BLOCKS``.
 
 The kernel or its plain version is chosen by the tensors' device: CPU
 tensors take ``kernels.ref.flash_attention_ref``; CUDA tensors launch
@@ -28,6 +37,7 @@ the kernel or raise.  Nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Dict, Optional, Tuple
 
@@ -37,29 +47,63 @@ from ..core.dtypes import dtype_name
 from . import build
 from .ref import flash_attention_ref
 
-# shapes compiled into the library (csrc/flash_attention.cu dispatch)
+# what the library compiles (csrc/flash_attention.cu FLASH_HEAD_DIMS and
+# FLASH_<PATH>_BLOCKS): head dims, and each path's (block_q, block_k).
+# simt: at the serving prefill's shape (D = 128) 64-row k steps beat
+# 32-row ones on an H100 (PERF.md), though only one 113 KB block then
+# fits on an SM.  mma: 4 warps of 16 q rows (8 warps, BQ = 128, were no
+# faster: PERF.md)
 HEAD_DIMS: Tuple[int, ...] = (8, 16, 32, 64, 128)
-BLOCK_Q = 64   # q rows per block
-# k rows per step: at the serving prefill's shape (D = 128) 64-row steps
-# beat 32-row ones on an H100 (PERF.md), though only one 113 KB block
-# then fits on an SM
-BLOCK_K = 64
+PATHS: Tuple[str, ...] = ("mma", "simt")
+PATH_CODES = {"simt": 0, "mma": 1}  # csrc/flash_attention.cu Path
+BLOCKS: Dict[str, Tuple[int, int]] = {"simt": (64, 64), "mma": (64, 64)}
 SMEM_BUDGET = 232448  # bytes of shared memory one block may use (227 KB)
 
 _DTYPE_CODES = {torch.float32: 1, torch.float16: 2, torch.bfloat16: 3}
 
-# launches of the kernel in this process, in all and by dtype
-# (plain-version calls never count)
+# launches of the kernel in this process, in all, by dtype, and by path
+# and dtype ({"mma": {"bfloat16": n}, ...}); plain-version calls never
+# count
 LAUNCHES = 0
 LAUNCHES_BY_DTYPE: Dict[str, int] = {}
+LAUNCHES_BY_PATH: Dict[str, Dict[str, int]] = {}
 _count_lock = threading.Lock()
 
 
-def smem_bytes(d: int) -> int:
-    """Shared memory of one block (f32): the transposed q and k tiles and
-    the probability tile, each skewed by one column, and the v tile."""
-    bq, bk = BLOCK_Q, BLOCK_K
-    return 4 * (d * (bq + 1) + d * (bk + 1) + bk * d + bk * (bq + 1))
+def smem_bytes(path: str, d: int) -> int:
+    """Shared memory of one block of ``path`` at head dim ``d``.  simt
+    stages f32: the transposed q and k tiles and the probability tile,
+    each skewed by one column, and the v tile.  mma stages the input
+    type: the q tile and two stages each of K and V, rows of max(d, 16)
+    elements skewed by 8."""
+    if path not in BLOCKS:
+        raise ValueError(f"unknown path {path!r}; choose from {PATHS}")
+    bq, bk = BLOCKS[path]
+    if path == "simt":
+        return 4 * (d * (bq + 1) + d * (bk + 1) + bk * d + bk * (bq + 1))
+    return 2 * (bq + 4 * bk) * (max(d, 16) + 8)
+
+
+def _strides(x: torch.Tensor) -> Tuple[int, int, int]:
+    """(batch, seq, head) element strides of a (B, S, H, D) view; 0 for
+    an axis of size 1, whose stride is never used."""
+    return tuple(x.stride(i) if x.shape[i] > 1 else 0 for i in range(3))
+
+
+def flash_path(dtype, d: int, *operands: torch.Tensor) -> str:
+    """The path a call of ``dtype`` and head dim ``d`` takes on the card:
+    ``"mma"`` for f16/bf16 whose ``operands`` ((B, S, H, D) views: q, k,
+    v and the output) all have 16-byte aligned bases and batch, seq and
+    head strides that are multiples of 8 elements, else ``"simt"`` (f32,
+    and 16-bit operands the mma path's 16-byte copies cannot read).  The
+    kernel is told the path; it only refuses operands the path cannot
+    read."""
+    if dtype not in (torch.float16, torch.bfloat16) or d % 8:
+        return "simt"
+    for x in operands:
+        if x.data_ptr() % 16 or any(s % 8 for s in _strides(x)):
+            return "simt"
+    return "mma"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -100,19 +144,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("sequence lengths must fit in 32-bit ints")
 
 
+@functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.load("flash_attention").flash_attention_fwd
-    # dtype, d, q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal,
-    # 12 strides (q, k, v, o: batch, seq, head), stream
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+    # path, dtype, d, bq, bk, q, k, v, o, B, H, Hkv, Sq, Sk, scale,
+    # causal, 12 strides (q, k, v, o: batch, seq, head), stream
+    fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]
                    + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
-
-
-def _bshd_strides(x: torch.Tensor) -> Tuple[int, int, int]:
-    return x.stride(0), x.stride(1), x.stride(2)
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -139,21 +180,24 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, memory_format=torch.contiguous_format)
     if o.numel() == 0:
         return o
+    path = flash_path(q.dtype, d, q, k, v, o)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _entry()(_DTYPE_CODES[q.dtype], d, q.data_ptr(),
-                      k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, hkv,
-                      sq, sk, scale, int(causal), *_bshd_strides(q),
-                      *_bshd_strides(k), *_bshd_strides(v),
-                      *_bshd_strides(o), stream)
+        rc = _entry()(PATH_CODES[path], _DTYPE_CODES[q.dtype], d,
+                      *BLOCKS[path], q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), o.data_ptr(), b, h, hkv, sq, sk, scale,
+                      int(causal), *_strides(q), *_strides(k), *_strides(v),
+                      *_strides(o), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: error {rc} "
-                           f"(B={b} Sq={sq} Sk={sk} H={h} Hkv={hkv} D={d} "
-                           f"dtype={q.dtype})")
+                           f"(path={path} B={b} Sq={sq} Sk={sk} H={h} "
+                           f"Hkv={hkv} D={d} dtype={q.dtype})")
     with _count_lock:
         LAUNCHES += 1
         name = dtype_name(q.dtype)
         LAUNCHES_BY_DTYPE[name] = LAUNCHES_BY_DTYPE.get(name, 0) + 1
+        by_path = LAUNCHES_BY_PATH.setdefault(path, {})
+        by_path[name] = by_path.get(name, 0) + 1
     return o
 
 

@@ -188,32 +188,111 @@ FLASH_CASES = [(2, 256, 256, 4, 4, 64, True), (1, 200, 200, 4, 2, 32, True),
                (2, 128, 384, 8, 2, 64, False), (1, 130, 130, 2, 1, 16, True),
                (1, 64, 64, 1, 1, 128, True), (2, 37, 37, 4, 2, 8, True),
                (1, 300, 170, 4, 2, 128, True)]
+# the mma path's other hazards (chip_smoke.FLASH_HAZARDS): Sq = 1, one key
+# past a block, non-causal Sq != Sk, causal Sq < Sk, D = 8 and 16 across
+# blocks
+FLASH_HAZARDS = [(1, 1, 1, 4, 2, 128, True), (1, 1, 200, 4, 2, 64, False),
+                 (1, 65, 65, 4, 2, 128, True), (1, 100, 65, 4, 2, 32, False),
+                 (1, 70, 200, 2, 1, 64, True), (2, 130, 130, 4, 1, 8, True),
+                 (1, 300, 170, 4, 2, 16, True)]
+# max abs: the reference's tolerances (f16 held to bf16's); 16-bit also
+# normwise (chip_smoke.FLASH_NORMWISE_TOL)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2, torch.float16: 5e-2}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
-def test_flash_kernel_matches_plain_version(card, dtype, case):
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels.ref import flash_attention_ref
-    b, sq, sk, h, hkv, d, causal = case
-    gen = torch.Generator(device=card).manual_seed(sq + d)
-    q = torch.randn((b, sq, h, d), generator=gen, device=card).to(dtype)
-    k = torch.randn((b, sk, hkv, d), generator=gen, device=card).to(dtype)
-    v = torch.randn((b, sk, hkv, d), generator=gen, device=card).to(dtype)
-    want = flash_attention_ref(q, k, v, causal=causal).float()
-    tol = 2e-5 if dtype == torch.float32 else 5e-2
-    before = kfa.LAUNCHES
-    got = kfa.flash_attention(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert kfa.LAUNCHES == before + 1
-    assert float((got.float() - want).abs().max()) <= tol
-    if dtype == torch.bfloat16:
+def _flash_operands(card, dtype, case):
+    b, sq, sk, h, hkv, d, _ = case
+    gen = torch.Generator(device=card).manual_seed(sq + sk + d)
+    return (torch.randn((b, sq, h, d), generator=gen, device=card).to(dtype),
+            torch.randn((b, sk, hkv, d), generator=gen, device=card).to(dtype),
+            torch.randn((b, sk, hkv, d), generator=gen, device=card).to(dtype))
+
+
+def _flash_close(got, want, dtype):
+    want = want.float()
+    assert float((got.float() - want).abs().max()) <= FLASH_TOL[dtype]
+    if dtype != torch.float32:
         # max abs 5e-2 is near a typical |o| at long rows; the normwise
         # limit sits between the sound kernel's reading and a planted
         # fault's (chip_smoke.FLASH_NORMWISE_TOL)
         err = torch.linalg.norm((got.float() - want).double()) / \
             torch.linalg.norm(want.double())
         assert float(err) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", list(FLASH_TOL), ids=str)
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_HAZARDS, ids=str)
+def test_flash_kernel_matches_plain_version(card, dtype, case):
+    """Every case on the path flash_path names: mma for 16-bit, simt for
+    f32."""
+    from repro_torch.core.dtypes import dtype_name
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.ref import flash_attention_ref
+    causal = case[-1]
+    q, k, v = _flash_operands(card, dtype, case)
+    path = kfa.flash_path(dtype, case[5], q, k, v)
+    assert path == ("simt" if dtype == torch.float32 else "mma")
+    name = dtype_name(dtype)
+    before = kfa.LAUNCHES_BY_PATH.get(path, {}).get(name, 0)
+    got = kfa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kfa.LAUNCHES_BY_PATH[path][name] == before + 1
+    _flash_close(got, flash_attention_ref(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_flash_views_take_the_path_their_strides_allow(card, dtype):
+    """flash_attention_bhsd's permuted views read in place on the mma
+    path; a seq stride off a multiple of 8 elements takes simt."""
+    from repro_torch.core.dtypes import dtype_name
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.ref import flash_attention_ref
+    name = dtype_name(dtype)
+    gen = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
+               for shape in ((8, 150, 64), (2, 150, 64), (2, 150, 64)))
+    before = dict(kfa.LAUNCHES_BY_PATH.get("mma", {}))
+    got = kfa.flash_attention_bhsd(q, k, v)
+    torch.cuda.synchronize()
+    assert kfa.LAUNCHES_BY_PATH["mma"][name] == before.get(name, 0) + 1
+    view = lambda x: x.permute(1, 0, 2)[None]
+    want = flash_attention_ref(view(q), view(k), view(v))[0].permute(1, 0, 2)
+    _flash_close(got, want, dtype)
+
+    b, s, h, hkv, d = 1, 200, 4, 2, 64
+    wide = lambda heads: torch.randn((b, s, heads * d + 1), generator=gen,
+                                     device=card).to(dtype)[
+        ..., :heads * d].unflatten(-1, (heads, d))
+    q, k, v = wide(h), wide(hkv), wide(hkv)
+    assert kfa.flash_path(dtype, d, q, k, v) == "simt"
+    before = kfa.LAUNCHES_BY_PATH.get("simt", {}).get(name, 0)
+    got = kfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kfa.LAUNCHES_BY_PATH["simt"][name] == before + 1
+    _flash_close(got, flash_attention_ref(q, k, v), dtype)
+
+
+def test_flash_entry_refuses_operands_the_path_cannot_read(card):
+    """The wrapper picks the path; the C entry still refuses (rc -2) what
+    the mma path cannot read: f32, and a 16-bit base off 16 bytes."""
+    from repro_torch.kernels import flash_attention as kfa
+
+    def call(q, kv, o):
+        b, s, h, d = q.shape
+        stream = torch.cuda.current_stream().cuda_stream
+        st = [x.stride(i) for x in (q, kv, kv, o) for i in range(3)]
+        return kfa._entry()(kfa.PATH_CODES["mma"], kfa._DTYPE_CODES[q.dtype],
+                            d, *kfa.BLOCKS["mma"], q.data_ptr(), kv.data_ptr(),
+                            kv.data_ptr(), o.data_ptr(), b, h, kv.shape[2],
+                            s, kv.shape[1], 0.125, 1, *st, stream)
+    f32 = torch.ones((1, 64, 2, 64), device=card)
+    assert call(f32, f32, torch.empty_like(f32)) == -2
+    bf = f32.bfloat16()
+    off = torch.ones(bf.numel() + 1, device=card,
+                     dtype=torch.bfloat16)[1:].view(bf.shape)
+    assert call(off, bf, torch.empty_like(bf)) == -2
+    assert call(bf, bf, torch.empty_like(bf)) == 0
+    torch.cuda.synchronize()
 
 
 def test_serve_run_launches_flash_once_per_layer_and_prefill(card):
@@ -224,3 +303,21 @@ def test_serve_run_launches_flash_once_per_layer_and_prefill(card):
                           batch_slots=2, max_new=4))
     assert out["requests"] == 5 and out["tokens"] == 20
     assert kfa.LAUNCHES - before == 2 * 5  # 2 layers x 5 prefills
+
+
+def test_bf16_serve_run_puts_every_flash_launch_on_mma(card, monkeypatch):
+    """The smoke config served in bf16 (head dim 8): every flash launch
+    is a 16-bit one on the mma path."""
+    import dataclasses
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch.serve import ServeConfig, run
+    reduced = ModelConfig.reduced
+    monkeypatch.setattr(ModelConfig, "reduced", lambda self:
+                        dataclasses.replace(reduced(self), dtype="bfloat16"))
+    monkeypatch.setattr(kfa, "LAUNCHES_BY_PATH", {})
+    out = run(ServeConfig(smoke=True, device="cuda", requests=5,
+                          batch_slots=2, max_new=4))
+    assert out["requests"] == 5 and out["tokens"] == 20
+    assert out["nonfinite_logits"] == 0
+    assert kfa.LAUNCHES_BY_PATH == {"mma": {"bfloat16": 2 * 5}}

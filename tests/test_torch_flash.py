@@ -169,9 +169,93 @@ def test_wrapper_raises_instead_of_falling_back():
 
 
 def test_compiled_blocks_fit_shared_memory():
-    """Every compiled head dim fits the shared memory one block may use
-    on the card at the fixed 64 x 64 block."""
-    assert (kfa.BLOCK_Q, kfa.BLOCK_K) == (64, 64)
-    for d in kfa.HEAD_DIMS:
-        assert kfa.smem_bytes(d) <= kfa.SMEM_BUDGET
-    assert kfa.smem_bytes(128) == 115968
+    """Every compiled (path, head dim) fits the shared memory one block
+    may use on the card.  simt stages f32 (113 KB at D = 128); mma stages
+    the input type, the q tile and two K/V stages (85 KB at D = 128, so
+    two blocks share an SM)."""
+    for path in kfa.PATHS:
+        for d in kfa.HEAD_DIMS:
+            assert kfa.smem_bytes(path, d) <= kfa.SMEM_BUDGET, (path, d)
+    assert kfa.BLOCKS == {"simt": (64, 64), "mma": (64, 64)}
+    assert kfa.smem_bytes("simt", 128) == 115968
+    assert kfa.smem_bytes("mma", 128) == 87040
+    assert 2 * kfa.smem_bytes("mma", 128) <= kfa.SMEM_BUDGET
+    with pytest.raises(ValueError, match="unknown path"):
+        kfa.smem_bytes("wgmma", 128)
+
+
+def test_compiled_tables_match_the_source():
+    """The wrapper's head dims, blocks and path codes are what
+    ``csrc/flash_attention.cu`` instantiates: a head dim or block asked
+    of the library that it did not compile would fail only on the card."""
+    import re
+    from repro_torch.kernels import build
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    dims = re.search(r"#define FLASH_HEAD_DIMS\(X\) (.*)", src).group(1)
+    assert tuple(map(int, re.findall(r"X\((\d+)\)", dims))) == kfa.HEAD_DIMS
+    for path in kfa.PATHS:
+        line = re.search(rf"#define FLASH_{path.upper()}_BLOCKS\(X\) (.*)",
+                         src)
+        assert line, path
+        blocks = [(int(a), int(b)) for a, b in
+                  re.findall(r"X\((\d+), (\d+)\)", line.group(1))]
+        assert blocks == [kfa.BLOCKS[path]], path
+        assert re.search(rf"FLASH_{path.upper()}_BLOCKS\(FLASH_"
+                         rf"{path.upper()}_CASE\)", src), path
+    codes = {name.lower(): int(code)
+             for name, code in re.findall(r"kPath(\w+) = (\d)", src)}
+    assert codes == kfa.PATH_CODES
+
+
+def _bshd(dtype, b=2, s=24, h=4, d=16, pad=0, offset=0):
+    """A (B, S, H, D) view of ``dtype`` whose seq stride is H*D + pad and
+    whose base sits ``offset`` elements into its storage."""
+    n = b * s * (h * d + pad)
+    flat = torch.zeros(n + offset, dtype=dtype)[offset:]
+    return flat.view(b, s, h * d + pad)[..., :h * d].unflatten(-1, (h, d))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("d", kfa.HEAD_DIMS)
+def test_flash_path_takes_mma_for_aligned_16_bit_operands(dtype, d):
+    """Contiguous f16/bf16 operands, the bhsd layout's permuted views and
+    a size-1 axis of any stride take the tensor-core path at every
+    compiled head dim."""
+    q, kv = _bshd(dtype, d=d), _bshd(dtype, h=2, d=d)
+    assert kfa.flash_path(dtype, d, q, kv, kv) == "mma"
+    bhsd = torch.zeros((6, 40, d), dtype=dtype).permute(1, 0, 2)[None]
+    assert kfa.flash_path(dtype, d, bhsd) == "mma"
+    one = torch.zeros((1, 1, 4, d), dtype=dtype)
+    assert kfa.flash_path(dtype, d, one.as_strided(one.shape,
+                                                   (3, 5, d, 1))) == "mma"
+
+
+def test_flash_path_takes_simt_where_mma_cannot_read():
+    """f32 at any layout, a 16-bit seq stride off a multiple of 8
+    elements and a 16-bit base off 16 bytes (a view one element in) all
+    take the CUDA-core path."""
+    assert kfa.flash_path(torch.float32, 128, _bshd(torch.float32)) == "simt"
+    for dtype in (torch.bfloat16, torch.float16):
+        aligned = _bshd(dtype)
+        assert kfa.flash_path(dtype, 16, aligned) == "mma"
+        ragged = _bshd(dtype, pad=1)
+        assert ragged.stride(1) % 8 and ragged.stride(-1) == 1
+        assert kfa.flash_path(dtype, 16, aligned, ragged) == "simt"
+        shifted = _bshd(dtype, offset=1)
+        assert shifted.data_ptr() % 16
+        assert kfa.flash_path(dtype, 16, shifted, aligned) == "simt"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+def test_cpu_calls_never_count_a_launch(dtype):
+    """The plain version runs for CPU tensors on either path and counts
+    nothing: not in all, by dtype or by path."""
+    q, kv = _bshd(dtype), _bshd(dtype, h=2)
+    before = (kfa.LAUNCHES, dict(kfa.LAUNCHES_BY_DTYPE),
+              {p: dict(n) for p, n in kfa.LAUNCHES_BY_PATH.items()})
+    flash_attention(q, kv, kv)
+    flash_attention_bhsd(q[0].transpose(0, 1), kv[0].transpose(0, 1),
+                         kv[0].transpose(0, 1))
+    assert (kfa.LAUNCHES, kfa.LAUNCHES_BY_DTYPE, kfa.LAUNCHES_BY_PATH) \
+        == before

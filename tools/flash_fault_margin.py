@@ -17,6 +17,9 @@ make:
   drop64 — the last q-block's rows lose keys 0..63 (one whole k-window)
   drop16 — the same rows lose keys 0..15 (a quarter of a window)
   trunc  — the bf16 output rounded toward zero instead of to nearest
+  p_bf16 — the PV product taken with the probabilities rounded once to
+           the input type (the FA-2/3 shortcut the kernel's mma path
+           avoids by carrying P as two 16-bit terms)
 
 The faults live in this script only.  ``--device cpu --smoke`` runs it
 at the reduced config on the CPU (the "kernel" is then its plain
@@ -43,7 +46,8 @@ from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 
-FAULTS = ("drop64", "drop16", "trunc")
+FAULTS = ("drop64", "drop16", "trunc", "p_bf16")
+Q_BLOCK = 64  # rows of the "last q-block" the drop faults hit
 
 
 def normwise(got, want) -> float:
@@ -69,10 +73,18 @@ def faulty_attention(fault: str):
         kpos = torch.arange(sk, device=q.device)[None, :]
         keep = (kpos <= qpos) if causal else torch.ones_like(kpos <= qpos)
         if fault in ("drop64", "drop16"):
-            last_block = (qpos >= (sq - 1) // kfa.BLOCK_Q * kfa.BLOCK_Q)
+            last_block = (qpos >= (sq - 1) // Q_BLOCK * Q_BLOCK)
             keep = keep & ~(last_block & (kpos < int(fault[4:])))
         s = torch.where(keep[None, None, None], s,
                         torch.tensor(-1e30, dtype=s.dtype, device=s.device))
+        if fault == "p_bf16":
+            # unnormalised p in [0, 1] rounded to q's type for PV; the
+            # denominator sums the f32 p
+            p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+            o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(q.dtype).float(),
+                             v.float()) / p.sum(-1).permute(0, 3, 1, 2)[
+                                 ..., None]
+            return o.reshape(b, sq, h, d).to(q.dtype)
         o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, dim=-1),
                          v.float()).reshape(b, sq, h, d)
         if fault == "trunc" and q.dtype == torch.bfloat16:
