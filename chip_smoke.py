@@ -57,8 +57,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    logits through the kernel against
    the plain "sdpa" attention backend on the card.
 
-Phases 4 and 7 are the main paths: each kernel's launch count is set to
-0 just before each and read just after it.  The last two lines are a
+8. api — runs right after phase 4, on the card: all 12 CBLAS routines
+   at N=4096 (the d family in f64, the s family in f32) from col-major
+   flat buffers with ld = N + 64 and beta != 0, each normwise against an
+   f64 oracle (1e-12 DGEMM, 1e-5 SGEMM, 1e-8 DTRSM, 1e-10 the other f64
+   routines, 1e-4 the other f32 ones) with the padding between columns
+   checked untouched; ``cblas_dgemm`` row-major at N=16384 (padded ld)
+   timed beside ``ctx.gemm`` at the same N; four chained f32 GEMMs at
+   N=8192 through ``ctx.submit`` (an error future first, then the
+   chain); ``gemm_batched`` of 8 f32 4096^2 GEMMs on one weight handle,
+   twice (the second moves fewer H2D bytes); ``BlasxContext(auto_tune=
+   True)`` tuning an f32 GEMM at N=8192 (``tile="auto"``); and a
+   ``BlasxServer`` of 2 contexts x 2 simulated devices serving an
+   interactive f32 tenant (16 GEMMs), a quota'd bf16 flood (32) and an
+   f64 tenant (8) at 4096^2, every result against its oracle, per-tenant
+   latency, throughput and quota evictions printed, the server's launches
+   on wgmma (bf16), dmma (f64) and simt (f32).  Its numbers go on a
+   ``{"api": ...}`` JSON line.
+
+Phases 4, 8 and 7 are the main paths, in that order: each kernel's
+launch count is set to 0 just before each and read just after it.
+The last two lines are a
 JSON object describing each kernel and then
 ``{"ok": true, "device": {...}}``.
 """
@@ -155,6 +174,23 @@ MAIN_PATH = {"float64": "dmma", "float32": "simt", "bfloat16": "wgmma",
              "float16": "wgmma"}
 # profiler device times an entry may carry beside its CUDA-event times
 DEVICE_KEYS = ("device_ms", "plain_device_ms", "library_device_ms")
+# the api phase: CBLAS at cblas_n (col-major, ld = n + pad) and the
+# row-major DGEMM timed at cblas_time_n; the async chain, the batch, the
+# tuned GEMM and the server's GEMMs; the contexts' tile; the server's
+# cache per simulated device and the flood's quota per device
+API = {"cblas_n": 4096, "pad": 64, "cblas_time_n": 16384, "chain_n": 8192,
+       "batch_n": 4096, "batch": 8, "tune_n": 8192, "serve_n": 4096,
+       "tile": 1024, "serve_cache": 1 << 30, "quota": 32 << 20,
+       "requests": {"app": 16, "flood": 32, "f64": 8}}
+# CBLAS limits, normwise against an f64 oracle: the GEMMs at the main
+# path's limits, TRSM at the reference's oracle limit, every other
+# routine at 1e-10 (f64, the reference's oracle limit) and 1e-4 (f32,
+# PERF.md's limit for f32 SYRK/SYMM/TRMM/TRSM)
+CBLAS_TOL = {("d", "gemm"): 1e-12, ("s", "gemm"): 1e-5,
+             ("d", "trsm"): 1e-8}
+CBLAS_OTHER_TOL = {"d": 1e-10, "s": 1e-4}
+# four chained f32 products: the f32 limit of a composite routine
+CHAIN_TOL = 1e-4
 
 
 class SmokeFailure(Exception):
@@ -512,6 +548,319 @@ def phase_main_path(card: str, n_gemm: int):
     # the faithful threaded engine: one host thread per simulated device
     gemm("threads dgemm", 4096, torch.float64, 1e-12, mode="threads")
     return launches_by_ledger
+
+
+def phase_api(card: str, device: str = "cuda", sizes=None):
+    """The library's other front doors, each through the GEMM kernel:
+    the 12 CBLAS routines, async futures, batched GEMM, the autotuner
+    and the multi-tenant server.  Returns the phase's numbers and the
+    kernel launches the server made, by path and dtype."""
+    import numpy as np
+    import torch
+    import repro_torch.api as api
+    from repro_torch.api import BlasxContext
+    from repro_torch.core import blas3
+    from repro_torch.core.runtime import RuntimeConfig
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.serve import BATCH, INTERACTIVE, BlasxServer
+
+    t_phase = time.perf_counter()
+    sz = dict(API, **(sizes or {}))
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    tile = sz["tile"]
+    out = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def cfg(cache=8 << 30):
+        return RuntimeConfig(n_devices=2, backend="cuda", device=device,
+                             cache_bytes=cache)
+
+    def randn(n, m, dtype=torch.float64, scale=1.0):
+        return torch.randn((n, m), generator=gen, device=dev,
+                           dtype=torch.float64).mul_(scale).to(dtype)
+
+    def on_dev(x):
+        return torch.as_tensor(x).to(dev, torch.float64)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        return r, time.perf_counter() - t0
+
+    # ---- CBLAS: all 12 routines, col-major flat buffers, ld = n + pad
+    n = sz["cblas_n"]
+    ld = n + sz["pad"]
+    CM, NT, L, U = (api.CblasColMajor, api.CblasNoTrans, api.CblasLower,
+                    api.CblasUpper)
+    LEFT, NONUNIT = api.CblasLeft, api.CblasNonUnit
+
+    def flat(M, dt):
+        """M (n x n) in a col-major buffer; NaN between the columns."""
+        buf = np.full(n * ld, np.nan, dtype=dt)
+        torch.from_numpy(buf.reshape(n, ld).T)[:n, :].copy_(M)
+        return buf
+
+    def logical(buf):
+        return buf.reshape(n, ld).T[:n, :]
+
+    a, b, c = randn(n, n), randn(n, n), randn(n, n)
+    tri = torch.triu(a) + n * torch.eye(n, device=dev, dtype=torch.float64)
+    # routine -> (call, output operand, oracle, flops); operands are
+    # A, B, C and T (well-conditioned upper triangle)
+    routines = {
+        "gemm": (lambda f, o: f(CM, NT, NT, n, n, n, 1.0, o["A"], ld,
+                                o["B"], ld, 0.5, o["C"], ld),
+                 "C", lambda o: blas3.ref_gemm(o["A"], o["B"], o["C"],
+                                               beta=0.5), 2 * n ** 3),
+        "symm": (lambda f, o: f(CM, LEFT, U, n, n, 1.0, o["A"], ld, o["B"],
+                                ld, 0.5, o["C"], ld),
+                 "C", lambda o: blas3.ref_symm(o["A"], o["B"], o["C"],
+                                               beta=0.5), 2 * n ** 3),
+        "syrk": (lambda f, o: f(CM, L, NT, n, n, 1.0, o["A"], ld, 0.5,
+                                o["C"], ld),
+                 "C", lambda o: blas3.ref_syrk(o["A"], o["C"], beta=0.5,
+                                               uplo="L"), n ** 3),
+        "syr2k": (lambda f, o: f(CM, U, NT, n, n, 0.5, o["A"], ld, o["B"],
+                                 ld, 0.5, o["C"], ld),
+                  "C", lambda o: blas3.ref_syr2k(o["A"], o["B"], o["C"],
+                                                 alpha=0.5, beta=0.5),
+                  2 * n ** 3),
+        "trmm": (lambda f, o: f(CM, LEFT, U, NT, NONUNIT, n, n, 1.0, o["T"],
+                                ld, o["B"], ld),
+                 "B", lambda o: blas3.ref_trmm(o["T"], o["B"]), n ** 3),
+        "trsm": (lambda f, o: f(CM, LEFT, U, NT, NONUNIT, n, n, 1.0, o["T"],
+                                ld, o["B"], ld),
+                 "B", lambda o: blas3.ref_trsm(o["T"], o["B"]), n ** 3),
+    }
+    cblas = {}
+    for fam, dt in (("d", np.float64), ("s", np.float32)):
+        tdt = torch.float64 if fam == "d" else torch.float32
+        mats = {k: v.to(tdt) for k, v in
+                (("A", a), ("B", b), ("C", c), ("T", tri))}
+        inputs = {k: flat(v, dt) for k, v in mats.items()}
+        with BlasxContext(cfg(), tile=tile) as ctx:
+            for name, (call, out_name, oracle, flops) in routines.items():
+                # inputs are only read; the output gets a buffer of its own
+                bufs = dict(inputs, **{out_name: inputs[out_name].copy()})
+                fn = getattr(api, f"cblas_{fam}{name}")
+                before = ctx.stats()["launch"]["kernel_launches"]
+                _, wall = timed(lambda: call(
+                    lambda *args: fn(*args, ctx=ctx), bufs))
+                launches = ctx.stats()["launch"]["kernel_launches"] - before
+                want = oracle({k: v.to(torch.float64)
+                               for k, v in mats.items()})
+                err = normwise(on_dev(logical(bufs[out_name])), want)
+                tol = CBLAS_TOL.get((fam, name), CBLAS_OTHER_TOL[fam])
+                padding = bufs[out_name].reshape(n, ld)[:, n:]
+                label = f"cblas_{fam}{name}"
+                print(f"[api] {label} N={n} ld={ld}: {wall:.3f} s wall, "
+                      f"{flops / wall / 1e9:.1f} GFLOP/s, normwise "
+                      f"{err:.3e} (tol {tol:.0e}), launches {launches} | "
+                      f"{card}", flush=True)
+                check(err <= tol, f"{label} normwise {err:.3e} > {tol:.0e}")
+                check(bool(np.isnan(padding).all()),
+                      f"{label} wrote into the padding between columns")
+                cblas[label] = {"wall_s": wall, "normwise": err,
+                                "launches": launches}
+    out["cblas"] = cblas
+    del a, b, c, tri, mats, inputs, bufs
+
+    # ---- cblas_dgemm row-major at cblas_time_n beside ctx.gemm
+    N = sz["cblas_time_n"]
+    ldN = N + sz["pad"]
+
+    def rowmajor(t):
+        buf = np.full(N * ldN, np.nan)
+        torch.from_numpy(buf.reshape(N, ldN))[:, :N].copy_(t)
+        return buf
+
+    A, B, C = randn(N, N), randn(N, N), randn(N, N)
+    want = torch.addmm(C, A, B, beta=0.5)
+    Af, Bf, Cf = rowmajor(A), rowmajor(B), rowmajor(C)
+    with BlasxContext(cfg(), tile=tile) as ctx:
+        _, t_cblas = timed(lambda: api.cblas_dgemm(
+            api.CblasRowMajor, NT, NT, N, N, N, 1.0, Af, ldN, Bf, ldN, 0.5,
+            Cf, ldN, ctx=ctx))
+    err_cblas = normwise(on_dev(Cf.reshape(N, ldN)[:, :N]), want)
+    check(bool(np.isnan(Cf.reshape(N, ldN)[:, N:]).all()),
+          "cblas_dgemm wrote into the padding between rows")
+    del Af, Bf, Cf
+    hosts = [x.cpu() for x in (A, B, C)]
+    with BlasxContext(cfg(), tile=tile) as ctx:
+        res, t_ctx = timed(lambda: ctx.gemm(*hosts, beta=0.5))
+        err_ctx = normwise(on_dev(res.tiled.data), want)
+    del A, B, C, want, hosts, res
+    print(f"[api] dgemm N={N}: cblas row-major ld={ldN} {t_cblas:.3f} s "
+          f"(normwise {err_cblas:.3e}), ctx.gemm {t_ctx:.3f} s (normwise "
+          f"{err_ctx:.3e}) | {card}", flush=True)
+    for label, err in (("cblas", err_cblas), ("ctx", err_ctx)):
+        check(err <= 1e-12, f"{label} DGEMM N={N} normwise {err:.3e}")
+    out["dgemm_cblas_vs_ctx"] = {"n": N, "ld": ldN, "cblas_s": t_cblas,
+                                 "ctx_s": t_ctx, "cblas_normwise": err_cblas,
+                                 "ctx_normwise": err_ctx}
+
+    # ---- async: four chained f32 GEMMs through ctx.submit
+    n = sz["chain_n"]
+    x = randn(n, n, torch.float32)
+    w = randn(n, n, torch.float32, scale=n ** -0.5)
+    with BlasxContext(cfg(), tile=tile) as ctx:
+        xh, wh = ctx.tile(x.cpu()), ctx.tile(w.cpu())
+        try:
+            ctx.submit("no_such_routine")
+            check(False, "a bad routine name was accepted")
+        except ValueError:
+            pass
+        bad = ctx.submit("gemm", xh, ctx.tile(torch.zeros((5, 7))))
+        check(isinstance(bad.exception(timeout=600), ValueError),
+              "a failing call did not return an error future")
+
+        def chain():
+            h = xh
+            for _ in range(4):
+                h = ctx.submit("gemm", h, wh).result(timeout=600)
+            return h
+        h, wall = timed(chain)
+        w64 = w.double()
+        err = normwise(on_dev(h.tiled.data),
+                       x.double() @ w64 @ w64 @ w64 @ w64)
+    print(f"[api] submit: 4 chained f32 GEMMs N={n} {wall:.3f} s, normwise "
+          f"{err:.3e} (tol {CHAIN_TOL:.0e}); error future ValueError, next "
+          f"submit ran | {card}", flush=True)
+    check(err <= CHAIN_TOL, f"chained GEMMs normwise {err:.3e}")
+    out["async"] = {"n": n, "chain": 4, "wall_s": wall, "normwise": err}
+    del x, w, h
+
+    # ---- batched: 8 f32 GEMMs sharing one weight handle, twice
+    n, nb = sz["batch_n"], sz["batch"]
+    W = randn(n, n, torch.float32, scale=n ** -0.5)
+    xs = [randn(n, n, torch.float32) for _ in range(nb)]
+    walls, h2d = [], []
+    with BlasxContext(cfg(), tile=tile) as ctx:
+        Wh = ctx.tile(W.cpu())
+        xs_h = [x.cpu() for x in xs]
+        for _ in range(2):
+            outs, wall = timed(lambda: ctx.gemm_batched(xs_h, [Wh] * nb))
+            walls.append(wall)
+            h2d.append(sum(r.h2d_bytes for r in ctx.calls[-nb:]))
+        err = max(normwise(on_dev(o.tiled.data), x.double() @ W.double())
+                  for o, x in zip(outs, xs))
+    print(f"[api] gemm_batched {nb} x f32 N={n}, shared weight: walls "
+          f"{walls[0]:.3f} / {walls[1]:.3f} s, h2d {h2d[0]} / {h2d[1]} B, "
+          f"normwise {err:.3e} | {card}", flush=True)
+    check(err <= 1e-5, f"batched GEMM normwise {err:.3e}")
+    check(h2d[1] < h2d[0], f"second batch moved {h2d[1]} B, first {h2d[0]}")
+    out["batched"] = {"n": n, "batch": nb, "walls_s": walls,
+                      "h2d_bytes": h2d, "normwise": err}
+    del W, xs, xs_h, outs
+
+    # ---- tuned: auto_tune=True, tile="auto"
+    n = sz["tune_n"]
+    a32, b32 = randn(n, n, torch.float32), randn(n, n, torch.float32)
+    with BlasxContext(cfg(), tile=tile, auto_tune=True,
+                      tuning_cache="") as ctx:
+        picked, t_tune = timed(lambda: ctx.auto_tile("gemm", n, n, n,
+                                                     dtype="float32"))
+        res, wall = timed(lambda: ctx.gemm(a32.cpu(), b32.cpu(),
+                                           tile="auto"))
+        err = normwise(on_dev(res.tiled.data), a32.double() @ b32.double())
+        rep = ctx.tuning_report()
+    entry = rep["entries"][0]
+    pick = {"tile": entry["tile"], "n_streams": entry["n_streams"],
+            "policy": entry["policy"], "work_centric": entry["work_centric"]}
+    counters = {k: rep[k] for k in ("sweeps", "bucket_sweeps",
+                                    "confirmations", "cache_hits",
+                                    "model_adoptions", "model_fallbacks")}
+    print(f"[api] tuned f32 GEMM N={n}: pick {pick} (tile {picked}, "
+          f"applied {rep['applied']}), tuning {t_tune:.3f} s, GEMM "
+          f"{wall:.3f} s, normwise {err:.3e}, report {counters} | {card}",
+          flush=True)
+    check(err <= 1e-5, f"tuned GEMM normwise {err:.3e}")
+    check(res.tile == picked == pick["tile"], "tuned tile not applied")
+    out["tuned"] = {"n": n, "pick": pick, "tune_s": t_tune, "gemm_s": wall,
+                    "normwise": err, "report": counters}
+    del a32, b32, res
+
+    # ---- the multi-tenant server: 2 contexts x 2 simulated devices
+    n = sz["serve_n"]
+    rng = np.random.default_rng(16)
+    x_app = rng.standard_normal((n, n)).astype(np.float32)
+    w_app = (rng.standard_normal((n, n)) / np.sqrt(n)).astype(np.float32)
+    f_a = rng.standard_normal((n, n)).astype(np.float32)
+    f_b = rng.standard_normal((n, n)).astype(np.float32)
+    d_a, d_b = rng.standard_normal((n, n)), rng.standard_normal((n, n))
+    want = {"app": on_dev(x_app) @ on_dev(w_app),
+            "flood": on_dev(f_a) @ on_dev(f_b),
+            "f64": on_dev(d_a) @ on_dev(d_b)}
+    tol = {"app": 1e-5, "flood": 2e-2, "f64": 1e-12}
+    before = {p: dict(d) for p, d in kmm.LAUNCHES_BY_PATH.items()}
+    reqs = sz["requests"]
+    with BlasxServer(cfg(sz["serve_cache"]), pool_size=2, tile=tile,
+                     quotas={"flood": sz["quota"]}) as srv:
+        xh, wh = srv.tile("app", x_app), srv.tile("app", w_app)
+        sync()
+        t0 = time.perf_counter()
+        futs = [("flood", srv.submit("flood", "gemm", f_a, f_b,
+                                     dtype="bfloat16", priority=BATCH))
+                for _ in range(reqs["flood"])]
+        futs += [("app", srv.submit("app", "gemm", xh, wh,
+                                    priority=INTERACTIVE))
+                 for _ in range(reqs["app"])]
+        futs += [("f64", srv.submit("f64", "gemm", d_a, d_b,
+                                    priority=BATCH))
+                 for _ in range(reqs["f64"])]
+        errs = {t: 0.0 for t in reqs}
+        for tenant, f in futs:
+            got = f.result(timeout=600)
+            errs[tenant] = max(errs[tenant],
+                               normwise(on_dev(got.array()), want[tenant]))
+        sync()
+        wall = time.perf_counter() - t0
+        st = srv.stats()
+    delta = {p: {dt: k - before.get(p, {}).get(dt, 0)
+                 for dt, k in d.items()
+                 if k - before.get(p, {}).get(dt, 0)}
+             for p, d in kmm.LAUNCHES_BY_PATH.items()}
+    delta = {p: d for p, d in delta.items() if d}
+    server = {"n": n, "wall_s": wall, "launches": delta,
+              "affinity": st["affinity"], "tenants": {}}
+    for tenant, count in reqs.items():
+        row = st["tenants"][tenant]
+        flops = 2 * n ** 3 * row["completed"]
+        server["tenants"][tenant] = {
+            "completed": row["completed"],
+            "p50_ms": row["latency_p50_ms"], "p99_ms": row["latency_p99_ms"],
+            "gemm_per_s": row["completed"] / wall,
+            "gflop_per_s": flops / wall / 1e9,
+            "quota_evictions": row["quota_evictions"],
+            "normwise": errs[tenant]}
+        print(f"[api] server {tenant}: {row['completed']}/{count} done, "
+              f"p50 {row['latency_p50_ms']:.1f} ms, p99 "
+              f"{row['latency_p99_ms']:.1f} ms, "
+              f"{row['completed'] / wall:.2f} GEMM/s, quota_evictions "
+              f"{row['quota_evictions']}, normwise {errs[tenant]:.3e} "
+              f"(tol {tol[tenant]:.0e}) | {card}", flush=True)
+        check(row["completed"] == count, f"{tenant}: {row['completed']} of "
+              f"{count} requests completed")
+        check(errs[tenant] <= tol[tenant],
+              f"{tenant}: normwise {errs[tenant]:.3e}")
+    print(f"[api] server wall {wall:.3f} s, launches by path {delta}, "
+          f"affinity {st['affinity']} | {card}", flush=True)
+    check(server["tenants"]["flood"]["quota_evictions"] > 0,
+          "the quota'd flood evicted none of its own blocks")
+    for victim in ("app", "f64"):
+        check(server["tenants"][victim]["quota_evictions"] == 0,
+              f"{victim} lost blocks to quota evictions")
+    out["server"] = server
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[api] phase {out['phase_s']:.1f} s | {card}", flush=True)
+    print(json.dumps({"api": out}), flush=True)
+    return out, delta
 
 
 def phase_epilogue(card: str):
@@ -910,14 +1259,33 @@ def main() -> int:
         on_path = blas["gemm_path"].get(MAIN_PATH[name], {}).get(name, 0)
         check(on_path == n, f"{name}: {on_path} of {n} BLAS main-path "
               f"launches took the {MAIN_PATH[name]} path")
-    # main path 2, serving (counted from 0 inside)
+    # main path 2, the library's other front doors: CBLAS, async
+    # futures, batched GEMM, the autotuner and the multi-tenant server
+    _reset_counts()
+    _, server_launches = phase_api(card)
+    api = _read_counts()
+    print(f"[api] GEMM launches by path: {api['gemm_path']} | {card}",
+          flush=True)
+    for name in ("float64", "float32", "bfloat16"):
+        n = api["gemm"].get(name, 0)
+        check(n > 0, f"kernel for {name} never launched on the api path")
+        on_path = api["gemm_path"].get(MAIN_PATH[name], {}).get(name, 0)
+        check(on_path == n, f"{name}: {on_path} of {n} api-path launches "
+              f"took the {MAIN_PATH[name]} path")
+    check(set(server_launches) == {"wgmma", "dmma", "simt"}
+          and set(server_launches["wgmma"]) == {"bfloat16"}
+          and set(server_launches["dmma"]) == {"float64"}
+          and set(server_launches["simt"]) == {"float32"},
+          f"server launches by path {server_launches}: want bf16 on "
+          "wgmma, f64 on dmma, f32 on simt, each non-zero")
+    # main path 3, serving (counted from 0 inside)
     _, serve = phase_serve(card)
     print(f"[done] build {build_s:.1f} s, total "
           f"{time.perf_counter() - t_start:.1f} s | {card}")
 
     def launches(path, name):
         return sum(run["gemm_path"].get(path, {}).get(name, 0)
-                   for run in (blas, serve))
+                   for run in (blas, api, serve))
 
     def entry(name, path, source, replaces, launches, r):
         e = {"name": name, "route": "cuda", "path": path,
@@ -936,14 +1304,16 @@ def main() -> int:
                      kern[(name, path)]) for name, path in kern]
     kernels.append(entry("blasx_gemm_epilogue<bfloat16>", epi["path"],
                          KERNEL_SOURCE, EPILOGUE_REPLACES,
-                         blas["epilogue"] + serve["epilogue"], epi))
+                         blas["epilogue"] + api["epilogue"]
+                         + serve["epilogue"], epi))
     # one flash entry per path and dtype; the simt entries keep their
     # earlier names, the mma path adds its own
     kernels += [entry(f"flash_attention<{name}>" if path == "simt"
                       else f"flash_attention<{name},{path}>", path,
                       FLASH_SOURCE, FLASH_REPLACES,
                       sum(run["flash_path"].get(path, {}).get(name, 0)
-                          for run in (blas, serve)), flash[(name, path)])
+                          for run in (blas, api, serve)),
+                      flash[(name, path)])
                  for name, path in flash]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -22,13 +22,11 @@ Key objects
     hit the warm caches on every subsequent call.
 ``default_context()``
     Module-cached context used by the legacy ``repro_torch.core.blas3``
-    wrappers.
+    wrappers and the ``repro_torch.api.cblas`` layer.
 
 The context computes on the card (``device="cuda"``) unless the caller
 asks for the CPU with ``device="cpu"``; without a card the default
-raises instead of running on the host.  Asynchronous submission,
-batched GEMM, the CBLAS layer, request scopes / tenant quotas and the
-autotuner are not ported yet.
+raises instead of running on the host.
 
 Example
 -------
@@ -41,19 +39,22 @@ Example
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
 import threading
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..core import task as taskmod
-from ..core.dtypes import promote_dtypes, validate_backend_dtype
+from ..core.dtypes import (canonical_dtype, promote_dtypes,
+                           validate_backend_dtype)
 from ..core.runtime import BlasxRuntime, RuntimeConfig
 from ..core.tiling import TiledMatrix, host_tensor
+from .futures import BlasFuture, SerialExecutor
 
 DEFAULT_TILE = 256
 
@@ -119,8 +120,7 @@ class MatrixHandle:
     def array(self):
         """The host data, no copy: a numpy view for float64/float32/
         float16, the CPU tensor itself for bfloat16 (numpy has none)."""
-        data = self._tiled.data
-        return data if data.dtype == torch.bfloat16 else data.numpy()
+        return host_array(self._tiled.data)
 
     def invalidate(self) -> int:
         """Drop every cached device copy of this matrix's tiles.
@@ -158,14 +158,22 @@ class CallRecord:
         return self.h2d_bytes + self.d2d_bytes + self.ici_bytes
 
 
+def host_array(data: torch.Tensor):
+    """What the API hands back for host data: a numpy view for
+    float64/float32/float16, the CPU tensor itself for bfloat16."""
+    return data if data.dtype == torch.bfloat16 else data.numpy()
+
+
 class CallLog:
     """The per-call ledger snapshots of one context, its closed flag,
-    and the reentrant lock that serializes the context's calls.
+    its async executor, its request scope (tenant and priority boost),
+    its autotuner, and the reentrant lock that serializes the context's
+    calls.
 
     Every routine of a context runs with :attr:`lock` held: the runtime
     under it is not re-entrant, and the side='R' reductions re-enter
-    the routines.  The records and the flag are touched only by the
-    methods below, under the same lock.
+    the routines.  The fields are touched only by the methods below,
+    under the same lock.
 
     It is a class of its own rather than fields of ``BlasxContext``
     because the reference's lock-order lint (``repro.analysis``) keys
@@ -174,13 +182,20 @@ class CallLog:
     reference's context in that graph.
     """
 
-    _GUARDED_BY = {"lock": ("_closed", "_calls", "_n_calls")}
+    _GUARDED_BY = {"lock": ("_closed", "_calls", "_n_calls", "_executor",
+                            "_tenant", "_boost", "_tuner")}
 
     def __init__(self):
         self.lock = threading.RLock()
         self._closed = False
         self._calls: List[CallRecord] = []   # last MAX_CALL_RECORDS only
         self._n_calls = 0                    # lifetime count
+        self._executor: Optional[SerialExecutor] = None
+        # serving attribution (repro_torch.serve): tenant tag and
+        # priority-class boost the next run threads into the runtime
+        self._tenant: Optional[str] = None
+        self._boost = 0.0
+        self._tuner = None                   # built on first use
 
     @property
     def closed(self) -> bool:
@@ -229,6 +244,46 @@ class CallLog:
             self._calls = []
             self._n_calls = 0
 
+    def executor_for_submit(self) -> SerialExecutor:
+        """The context's executor, created on first use; raises once the
+        context is closed (checked under the same lock as the creation,
+        so a concurrent close cannot leak a fresh executor)."""
+        with self.lock:
+            if self._closed:
+                raise RuntimeError("BlasxContext is closed")
+            if self._executor is None:
+                self._executor = SerialExecutor(name="blasx-ctx")
+            return self._executor
+
+    def detach_executor(self) -> Optional[SerialExecutor]:
+        """Hand the executor over for shutdown (None if never made)."""
+        with self.lock:
+            executor, self._executor = self._executor, None
+            return executor
+
+    def scope(self):
+        """``(tenant, priority_boost)`` of the request in flight."""
+        with self.lock:
+            return self._tenant, self._boost
+
+    def swap_scope(self, tenant: Optional[str], boost: float):
+        """Install a request scope; returns the one it replaces."""
+        with self.lock:
+            prev = (self._tenant, self._boost)
+            self._tenant, self._boost = tenant, boost
+            return prev
+
+    def tuner_or_make(self, make):
+        """The context's autotuner, built by ``make()`` on first use."""
+        with self.lock:
+            if self._tuner is None:
+                self._tuner = make()
+            return self._tuner
+
+    def has_tuner(self) -> bool:
+        with self.lock:
+            return self._tuner is not None
+
 
 class BlasxContext:
     """Persistent two-level-cache BLAS handle (cuBLAS-handle analogue).
@@ -255,16 +310,37 @@ class BlasxContext:
         the routines cast raw-array operands to it and outputs are
         produced in it.  ``None`` (default) promotes from the inputs.
         Each routine also takes a per-call ``dtype=``.
+    auto_tune:
+        Enable the shape-adaptive runtime autotuner
+        (``repro_torch.tuning``).  Raw-array calls without an explicit
+        ``tile=`` then resolve their tile size per (routine, shape
+        bucket, dtype) from the tuning cache, and while the context is
+        still cold (no call has executed) the first tuned call may
+        rebuild the runtime with the tuned ``n_streams``/``policy``.
+        A bool or a mode string: ``True`` / ``"sweep"`` sweeps every
+        candidate through metadata-only shadow runs; ``"model"``
+        predicts makespans with the learned cost model and confirms the
+        predicted winner in a shadow run; ``"auto"`` uses the model once
+        it is trained and trusted, sweeping otherwise.  Calls on
+        :class:`MatrixHandle` operands keep the handle's tile.  Any call
+        may also pass ``tile="auto"``, with or without ``auto_tune``.
+    tuning_cache:
+        Where tuned configs persist: ``None`` (default) shares the
+        port's process-wide cache, a path string gives a JSON file, or
+        pass a ``repro_torch.tuning.TuningCache``.
     device_class, mesh:
         The pod tier: ``device_class="mesh_shard"`` (implied by a bare
         ``mesh=N``) makes each scheduler device a ring of ``mesh``
         shards (see ``RuntimeConfig``).
 
-    The context is a context manager; :meth:`close` drops all cached
-    tiles.  All methods are thread-safe: calls serialize on the
-    reentrant lock of the context's :class:`CallLog` (the runtime is
-    not re-entrant).  ``runtime``/``cfg``/``tile_size``/``dtype`` are
-    fixed after ``__init__``.
+    The context is a context manager; :meth:`close` shuts down the
+    async executor and drops all cached tiles.  All methods are
+    thread-safe: calls serialize on the reentrant lock of the context's
+    :class:`CallLog` (the runtime is not re-entrant), which is also
+    what makes :meth:`submit` futures well-ordered.
+    ``tile_size``/``dtype`` are fixed after ``__init__``; ``runtime``/
+    ``cfg`` change only when a cold ``auto_tune`` context adopts a
+    tuned schedule.
     """
 
     def __init__(self, config: Optional[RuntimeConfig] = None, *,
@@ -273,6 +349,8 @@ class BlasxContext:
                  backend: Optional[str] = None,
                  device: Optional[str] = None,
                  dtype=None,
+                 auto_tune: Union[bool, str] = False,
+                 tuning_cache=None,
                  device_class: Optional[str] = None,
                  mesh: Optional[int] = None):
         # an adopted runtime (runtime=) belongs to the caller
@@ -317,6 +395,20 @@ class BlasxContext:
                       if dtype is not None else None)
         self._log = CallLog()
         self._lock = self._log.lock
+        # auto_tune accepts a bool (True == "sweep") or a mode string;
+        # the mode also applies to explicit tile="auto" calls on an
+        # auto_tune=False context
+        if isinstance(auto_tune, str):
+            from ..tuning import MODES
+            if auto_tune not in MODES:
+                raise ValueError(f"auto_tune must be a bool or one of "
+                                 f"{MODES}, got {auto_tune!r}")
+            self._auto_tune = True
+            self._tune_mode = auto_tune
+        else:
+            self._auto_tune = bool(auto_tune)
+            self._tune_mode = "sweep"
+        self._tuning_cache = tuning_cache
 
     # ------------------------------------------------------------ lifecycle
     def __enter__(self) -> "BlasxContext":
@@ -326,11 +418,22 @@ class BlasxContext:
         self.close()
 
     def close(self) -> None:
-        """Drop all cached tiles.  Idempotent; further routine calls
-        raise ``RuntimeError``.  An adopted runtime belongs to the
-        caller and keeps its caches and ledgers."""
+        """Shut down the async executor and drop all cached tiles.
+        Idempotent; further routine calls raise ``RuntimeError``.  An
+        adopted runtime belongs to the caller and keeps its caches and
+        ledgers.
+
+        The executor is drained *outside* the context lock: in-flight
+        work takes that lock to run routines, so holding it through the
+        shutdown would deadlock the closing thread."""
         with self._lock:
-            if self._log.close() and self._owns_runtime:
+            if not self._log.close():
+                return
+            executor = self._log.detach_executor()
+        if executor is not None:
+            executor.shutdown()
+        with self._lock:
+            if self._owns_runtime:
                 self.runtime.reset()
 
     @property
@@ -373,8 +476,12 @@ class BlasxContext:
         a dtype that was passed explicitly."""
         self._check_open()
         if isinstance(tile, str):
-            raise ValueError("tile must be an int; the autotuner "
-                             "(tile='auto') is not ported yet")
+            # a handle has no routine to tune against; callers wanting
+            # tuned handles pre-resolve via auto_tile
+            raise ValueError(
+                "tile='auto' is resolved per routine call; use "
+                "ctx.auto_tile(routine, m, k, n) to pre-resolve a tuned "
+                "tile for ctx.tile()")
         dt = self._resolve_dtype(dtype)
         if isinstance(data, MatrixHandle):
             return self._adopt(data, dt if dtype is not None else None,
@@ -452,7 +559,8 @@ class BlasxContext:
         before = [(d.ledger.tasks, d.ledger.steals, d.alru.hits,
                    d.alru.misses) for d in rt.devices]
         t0 = rt.makespan()
-        rt.run(tasks, mats, out_id)
+        tenant, boost = self._log.scope()
+        rt.run(tasks, mats, out_id, tenant=tenant, priority_boost=boost)
         after_comm = rt.total_comm_bytes()
         d_tasks = sum(d.ledger.tasks for d in rt.devices) - \
             sum(b[0] for b in before)
@@ -478,6 +586,35 @@ class BlasxContext:
     @property
     def last_call(self) -> Optional[CallRecord]:
         return self._log.last()
+
+    # ------------------------------------------------------------- serving
+    @contextlib.contextmanager
+    def request_scope(self, tenant: Optional[str] = None,
+                      priority_boost: float = 0.0):
+        """Attribute every routine executed inside the ``with`` body to
+        ``tenant`` (tagging its cached tiles for the per-tenant ALRU
+        quotas) and add ``priority_boost`` to each task's Eq. 3
+        locality priority.  Holds the context lock for the duration —
+        routine execution takes the same (reentrant) lock, so scopes
+        from concurrent threads serialize rather than interleave their
+        attribution.  This is the channel ``repro_torch.serve`` uses per
+        request."""
+        self._check_open()
+        with self._lock:
+            prev = self._log.swap_scope(tenant, float(priority_boost))
+            try:
+                yield self
+            finally:
+                self._log.swap_scope(*prev)
+
+    def set_tenant_quota(self, tenant: str,
+                         nbytes: Optional[int]) -> None:
+        """Cap ``tenant``'s resident tile-cache bytes on every device
+        (None removes the cap); see
+        :meth:`repro_torch.core.runtime.BlasxRuntime.set_tenant_quota`."""
+        self._check_open()
+        with self._lock:
+            self.runtime.set_tenant_quota(tenant, nbytes)
 
     # --------------------------------------------------------------- stats
     def stats(self) -> Dict[str, object]:
@@ -521,6 +658,136 @@ class BlasxContext:
             self.runtime.reset()
             self._log.forget_all()
 
+    # ---------------------------------------------------------------- async
+    def submit(self, routine, *args, **kwargs) -> BlasFuture:
+        """Submit an L3 call for asynchronous execution.
+
+        ``routine`` is a routine name (``"gemm"`` ... ``"trsm"``,
+        ``"gemm_batched"``) or any callable.  Returns a
+        :class:`BlasFuture`; the result is whatever the synchronous
+        method returns (a :class:`MatrixHandle` for the six routines).
+        Submissions execute in order on a background thread, so
+        independent calls overlap with the caller and chained calls
+        may pass handles obtained from ``future.result()``."""
+        if isinstance(routine, str):
+            fn = getattr(self, routine, None)
+            if fn is None or not callable(fn):
+                raise ValueError(f"unknown routine {routine!r}")
+        else:
+            fn = routine
+        # closed-check, lazy creation and enqueue all under the lock so
+        # a concurrent close() can neither leak a fresh executor nor
+        # shut the one we are about to use
+        with self._lock:
+            return self._log.executor_for_submit().submit(fn, *args,
+                                                          **kwargs)
+
+    # ==================================================== runtime autotuning
+    def _get_tuner(self):
+        """The :class:`repro_torch.tuning.Autotuner` bound to this
+        context's topology, built on first use (imported here: tuning
+        depends on core.runtime, the api layer must not import it
+        eagerly)."""
+        def make():
+            from ..tuning import Autotuner
+            return Autotuner(self.cfg, cache=self._tuning_cache,
+                             mode=self._tune_mode,
+                             default_tile=self.tile_size)
+        return self._log.tuner_or_make(make)
+
+    def auto_tile(self, routine: str, m: int, k: Optional[int] = None,
+                  n: Optional[int] = None, dtype=None) -> int:
+        """Resolve the tuned tile size for one (routine, shape, dtype).
+
+        Consults the tuning cache (topology fingerprint + routine +
+        shape bucket + dtype); on a miss, resolves candidate
+        ``(tile, n_streams, policy)`` configs through metadata-only
+        shadow runs on the virtual clock and caches the winner.  With
+        ``auto_tune=True`` and a still-cold context the tuned
+        scheduling knobs are also adopted (see :meth:`tuning_report`).
+        This is what ``tile="auto"`` calls under the hood; batched
+        entry points use it to resolve one tile for a whole batch."""
+        self._check_open()
+        with self._lock:
+            dt = self._resolve_dtype(dtype)
+            best = self._get_tuner().tune(
+                routine, m, k, n,
+                dtype=dt if dt is not None else torch.float64)
+            self._maybe_adopt_schedule(best)
+            return best.tile
+
+    def _maybe_adopt_schedule(self, best) -> None:
+        """Adopt the tuned ``(n_streams, policy, work_centric)`` by
+        rebuilding the runtime — only with ``auto_tune=True``, only on a
+        context that owns its runtime, and only while it is still cold
+        (nothing executed, so no warm cache or ledger is lost).  The
+        first tuned call pins the schedule; later calls tune tiles
+        only.  The caller holds ``self._lock``."""
+        if not self._auto_tune or not self._owns_runtime:
+            return
+        if self.runtime.runs > 0 or self._log.n_calls > 0:
+            return
+        wc = bool(best.work_centric)
+        if (best.n_streams == self.cfg.n_streams
+                and best.policy == self.cfg.policy
+                and wc == self.cfg.work_centric):
+            return
+        cfg = dataclasses.replace(self.cfg, n_streams=best.n_streams,
+                                  rs_slots=None, policy=best.policy,
+                                  work_centric=wc)
+        self.runtime = BlasxRuntime(cfg)
+        self.cfg = cfg
+
+    def _tile_arg(self, tile, routine: str, m: int, k: int, n: int,
+                  dtype, operands) -> Optional[int]:
+        """Resolve a routine's ``tile=`` argument: an int (as ever),
+        ``"auto"`` (tune this call), or ``None`` — which under
+        ``auto_tune=True`` tunes too, unless an operand is a
+        :class:`MatrixHandle` (its tile is pinned by the warm-cache
+        contract)."""
+        if isinstance(tile, str):
+            if tile != "auto":
+                raise ValueError(f"tile must be an int or 'auto', "
+                                 f"got {tile!r}")
+        elif not (tile is None and self._auto_tune and not any(
+                isinstance(x, MatrixHandle) for x in operands)):
+            return tile
+        if dtype is None:
+            # tune at the operands' storage precision (it halves or
+            # doubles the modeled byte volume); f64 for anything else
+            try:
+                dt = _host_of(operands[0]).dtype
+                for x in operands[1:]:
+                    dt = promote_dtypes(dt, _host_of(x).dtype)
+                dtype = canonical_dtype(dt)
+            except (TypeError, ValueError):
+                dtype = torch.float64
+        return self.auto_tile(routine, m, k, n, dtype=dtype)
+
+    def tuning_report(self) -> Dict[str, object]:
+        """Introspection for the autotuner: fingerprint, sweep/cache
+        counters split by provenance (file-cache vs process-cache hits,
+        model adoptions vs sweeps vs fallbacks), candidate spaces, the
+        per-key tuning decisions this context made, and the schedule
+        knobs currently applied."""
+        with self._lock:
+            if not self._log.has_tuner():
+                return {"enabled": self._auto_tune,
+                        "mode": self._tune_mode,
+                        "sweeps": 0, "bucket_sweeps": 0,
+                        "confirmations": 0,
+                        "cache_hits": 0, "file_cache_hits": 0,
+                        "process_cache_hits": 0,
+                        "model_adoptions": 0, "model_fallbacks": 0,
+                        "cache_entries": 0, "entries": []}
+            rep = self._get_tuner().report()
+            rep["enabled"] = self._auto_tune
+            rep["applied"] = {"tile_default": self.tile_size,
+                              "n_streams": self.cfg.n_streams,
+                              "policy": self.cfg.policy,
+                              "work_centric": self.cfg.work_centric}
+            return rep
+
     # ======================================================== L3 routines
     def gemm(self, A: ArrayLike, B: ArrayLike, C: Optional[ArrayLike] = None,
              *, alpha: float = 1.0, beta: float = 0.0,
@@ -532,6 +799,12 @@ class BlasxContext:
         dt = self._resolve_dtype(dtype)
         strict = dtype is not None
         with self._lock:
+            a_sh, b_sh = _shape_of(A), _shape_of(B)
+            tile = self._tile_arg(
+                tile, "gemm",
+                a_sh[0] if transa == "N" else a_sh[1],
+                a_sh[1] if transa == "N" else a_sh[0],
+                b_sh[1] if transb == "N" else b_sh[0], dt, (A, B))
             eph: List[MatrixHandle] = []
             Ah = self._coerce(A, "A", tile, eph, dt, strict)
             Bh = self._coerce(B, "B", tile, eph, dt, strict)
@@ -563,6 +836,9 @@ class BlasxContext:
         dt = self._resolve_dtype(dtype)
         strict = dtype is not None
         with self._lock:
+            a_sh = _shape_of(A)
+            nt, kt = (a_sh if trans == "N" else a_sh[::-1])
+            tile = self._tile_arg(tile, "syrk", nt, kt, nt, dt, (A,))
             eph: List[MatrixHandle] = []
             Ah = self._coerce(A, "A", tile, eph, dt, strict)
             n = Ah.shape[0] if trans == "N" else Ah.shape[1]
@@ -585,6 +861,9 @@ class BlasxContext:
         dt = self._resolve_dtype(dtype)
         strict = dtype is not None
         with self._lock:
+            a_sh = _shape_of(A)
+            nt, kt = (a_sh if trans == "N" else a_sh[::-1])
+            tile = self._tile_arg(tile, "syr2k", nt, kt, nt, dt, (A, B))
             eph: List[MatrixHandle] = []
             Ah = self._coerce(A, "A", tile, eph, dt, strict)
             Bh = self._coerce(B, "B", tile, eph, dt, strict)
@@ -624,6 +903,9 @@ class BlasxContext:
         dt = self._resolve_dtype(dtype)
         strict = dtype is not None
         with self._lock:
+            b_sh = _shape_of(B)
+            tile = self._tile_arg(tile, "symm", b_sh[0], b_sh[0], b_sh[1],
+                                  dt, (A, B))
             eph: List[MatrixHandle] = []
             Ah = self._coerce(A, "A", tile, eph, dt, strict)
             Bh = self._coerce(B, "B", tile, eph, dt, strict)
@@ -660,6 +942,9 @@ class BlasxContext:
         dt = self._resolve_dtype(dtype)
         strict = dtype is not None
         with self._lock:
+            b_sh = _shape_of(B)
+            tile = self._tile_arg(tile, "trmm", b_sh[0], b_sh[0], b_sh[1],
+                                  dt, (A, B))
             eph: List[MatrixHandle] = []
             Ah = self._coerce(A, "A", tile, eph, dt, strict)
             Bh = self._coerce(B, "B", tile, eph, dt, strict)
@@ -698,6 +983,9 @@ class BlasxContext:
         dt = self._resolve_dtype(dtype)
         strict = dtype is not None
         with self._lock:
+            b_sh = _shape_of(B)
+            tile = self._tile_arg(tile, "trsm", b_sh[0], b_sh[0], b_sh[1],
+                                  dt, (A, B))
             eph: List[MatrixHandle] = []
             Ah = self._coerce(A, "A", tile, eph, dt, strict)
             Bh = self._coerce(B, "B", tile, eph, dt, strict)
@@ -714,6 +1002,29 @@ class BlasxContext:
             mats = {h.matrix_id: h.tiled for h in (Ah, Bh, out)}
             self._run("trsm", tasks, mats, out.matrix_id, eph)
             return out
+
+    # --------------------------------------------------------- batched API
+    def gemm_batched(self, As: Sequence[ArrayLike], Bs: Sequence[ArrayLike],
+                     Cs: Optional[Sequence[ArrayLike]] = None, *,
+                     alpha: float = 1.0, beta: float = 0.0,
+                     transa: str = "N", transb: str = "N",
+                     tile: Optional[int] = None,
+                     dtype=None) -> List[MatrixHandle]:
+        """Pointer-array style batch (cublasDgemmBatched analogue)."""
+        from .batch import gemm_batched
+        return gemm_batched(self, As, Bs, Cs, alpha=alpha, beta=beta,
+                            transa=transa, transb=transb, tile=tile,
+                            dtype=dtype)
+
+    def gemm_strided_batched(self, A, B, C=None, *, alpha: float = 1.0,
+                             beta: float = 0.0, transa: str = "N",
+                             transb: str = "N",
+                             tile: Optional[int] = None, dtype=None):
+        """3-D strided batch (cublasDgemmStridedBatched analogue)."""
+        from .batch import gemm_strided_batched
+        return gemm_strided_batched(self, A, B, C, alpha=alpha, beta=beta,
+                                    transa=transa, transb=transb, tile=tile,
+                                    dtype=dtype)
 
     # ------------------------------------------------------------- helpers
     def _check_side_r_handles(self, dtype, **operands) -> None:
@@ -767,6 +1078,15 @@ def _host_of(x: ArrayLike) -> torch.Tensor:
     """The host tensor behind an operand (a handle's data, or the
     array itself, shared)."""
     return x.tiled.data if isinstance(x, MatrixHandle) else host_tensor(x)
+
+
+def _shape_of(x: ArrayLike):
+    """2-D shape of an operand without tiling it (tile resolution needs
+    the dims before tiling can happen)."""
+    sh = tuple(_host_of(x).shape)
+    if len(sh) != 2:
+        raise ValueError(f"operand must be 2-D, got shape {sh}")
+    return sh
 
 
 # ---------------------------------------------------------- default context
@@ -823,5 +1143,5 @@ def set_default_context(ctx: Optional[BlasxContext]
 
 
 __all__ = ["BlasxContext", "MatrixHandle", "CallRecord", "CallLog",
-           "default_context",
+           "default_context", "host_array",
            "backend_context", "set_default_context"]

@@ -14,8 +14,9 @@ the transpose identities (op(A)^T X^T = alpha B^T), mirroring the
 paper's §III-C trick at matrix granularity — the reduction happens
 inside the context methods.
 
-``tile=`` is an int (default 256); the reference's ``tile="auto"``
-autotuner is not ported yet.
+``tile=`` is an int (default 256) or ``"auto"``, which resolves the
+tile through the runtime autotuner (``repro_torch.tuning``) for the
+call's routine, shape and dtype.
 
 Every routine also has a ``ref_*`` oracle — plain PyTorch in float64,
 on the CPU for arrays and on their own device for tensors — used by the

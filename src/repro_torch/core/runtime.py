@@ -411,16 +411,30 @@ class BlasxRuntime:
         self._engine: Optional[EventEngine] = (
             EventEngine(cfg) if cfg.mode == "sim"
             and cfg.time_model == "events" else None)
+        # serving front-end state (repro_torch.serve): which tenant the
+        # in-flight run belongs to (tags ALRU blocks for the quota
+        # machinery) and its priority-class boost (additive Eq. 3
+        # term).  Quotas live here too so reset() can reapply them to
+        # the rebuilt devices.
+        self._tenant: Optional[str] = None
+        self._boost: float = 0.0
+        self._tenant_quotas: Dict[str, int] = {}
 
     # ------------------------------------------------------------- public
     def run(self, tasks: Sequence[Task], matrices: Dict[str, TiledMatrix],
-            out_id: str) -> None:
+            out_id: str, *, tenant: Optional[str] = None,
+            priority_boost: float = 0.0) -> None:
         """Execute all tasks; the output matrix (``matrices[out_id]``) is
         updated in place tile by tile.
 
-        The reference's serving hooks (``tenant=``/``priority_boost=``,
-        ``set_tenant_quota``) are not ported yet; every tile is
-        untagged and the Eq. 3 priority has no class boost."""
+        ``tenant`` attributes every tile this run pulls into the ALRU
+        caches to that owner (the serving layer's per-tenant quota
+        machinery keys off the tag); ``priority_boost`` is the
+        request's priority-class term, added to every task's Eq. 3
+        locality priority for the duration of the run (the serving
+        front end maps ``interactive``/``batch`` onto it)."""
+        self._tenant = tenant
+        self._boost = float(priority_boost)
         self.runs += 1
         if not tasks:
             return
@@ -657,10 +671,13 @@ class BlasxRuntime:
         return d.rs.take_top(self.cfg.effective_streams)
 
     def _priority(self, d: DeviceSim, t: Task) -> float:
-        """Eq. 3: +2 per L1-resident input tile, +1 per L2 (peer) tile."""
+        """Eq. 3: +2 per L1-resident input tile, +1 per L2 (peer) tile,
+        plus the in-flight run's priority-class boost (serving front
+        end: interactive requests outrank batch in every reservation
+        station their tasks ever share)."""
         if not self.cfg.use_priority:
             return 0.0
-        p = 0.0
+        p = self._boost
         for ref in t.input_refs():
             if ref.key in d.alru:
                 p += 2.0
@@ -962,7 +979,7 @@ class BlasxRuntime:
             data, secs = self._bypass_read(d, ref, xfers)
             return data, secs
 
-        block, evicted = d.alru.translate(key, nbytes)
+        block, evicted = d.alru.translate(key, nbytes, owner=self._tenant)
         # sync the directory and store outside the ALRU lock: a peer
         # that reads a stale holder in between finds a valid payload or
         # None, and None is answered below with a host fetch
@@ -1083,6 +1100,20 @@ class BlasxRuntime:
         return materialize(mat.read_tile(key.i, key.j).to(self.device),
                            ref), secs
 
+    def set_tenant_quota(self, tenant: str, nbytes: Optional[int]) -> None:
+        """Cap ``tenant``'s resident ALRU bytes on every device (None
+        removes the cap).  While any quota is configured the caches
+        refuse cross-tenant eviction — a flooding tenant recycles its
+        own blocks instead of another tenant's warm set.  Blocks evicted
+        to get under a lowered cap leave the directory and the tile
+        store, so their device memory is freed."""
+        if nbytes is None:
+            self._tenant_quotas.pop(tenant, None)
+        else:
+            self._tenant_quotas[tenant] = int(nbytes)
+        for d in self.devices:
+            d.forget(d.alru.set_quota(tenant, nbytes))
+
     # ----------------------------------------------------------- sessions
     def reset(self) -> None:
         """Cold restart: drop every cached tile, rebuild the coherence
@@ -1095,6 +1126,9 @@ class BlasxRuntime:
         self.runs = 0
         if self._engine is not None:  # fresh timelines and trace
             self._engine = EventEngine(self.cfg)
+        for tenant, nbytes in self._tenant_quotas.items():
+            for d in self.devices:
+                d.alru.set_quota(tenant, nbytes)
 
     def reset_stats(self) -> None:
         """Zero ledgers and cache counters *without* evicting anything —

@@ -67,7 +67,20 @@ _DTYPE_CODES = {torch.float32: 1, torch.float16: 2, torch.bfloat16: 3}
 LAUNCHES = 0
 LAUNCHES_BY_DTYPE: Dict[str, int] = {}
 LAUNCHES_BY_PATH: Dict[str, Dict[str, int]] = {}
+# bumped from every thread that launches, so each bump is one locked
+# update
 _count_lock = threading.Lock()
+
+
+def count_launch(path: str, dtype: torch.dtype) -> None:
+    """Add one launch of ``path`` in ``dtype`` to every count."""
+    global LAUNCHES
+    name = dtype_name(dtype)
+    with _count_lock:
+        LAUNCHES += 1
+        LAUNCHES_BY_DTYPE[name] = LAUNCHES_BY_DTYPE.get(name, 0) + 1
+        by_path = LAUNCHES_BY_PATH.setdefault(path, {})
+        by_path[name] = by_path.get(name, 0) + 1
 
 
 def smem_bytes(path: str, d: int) -> int:
@@ -162,7 +175,6 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Shared body: q (B, Sq, H, D), k/v (B, Sk, Hkv, D) views of any
     strides with a contiguous last axis; the kernel writes ``out`` (a
     (B, Sq, H, D) view) or a new contiguous tensor."""
-    global LAUNCHES
     d = q.shape[3]
     _check(q, k, v)
     scale = float(scale) if scale is not None else d ** -0.5
@@ -192,12 +204,7 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention_fwd launch failed: error {rc} "
                            f"(path={path} B={b} Sq={sq} Sk={sk} H={h} "
                            f"Hkv={hkv} D={d} dtype={q.dtype})")
-    with _count_lock:
-        LAUNCHES += 1
-        name = dtype_name(q.dtype)
-        LAUNCHES_BY_DTYPE[name] = LAUNCHES_BY_DTYPE.get(name, 0) + 1
-        by_path = LAUNCHES_BY_PATH.setdefault(path, {})
-        by_path[name] = by_path.get(name, 0) + 1
+    count_launch(path, q.dtype)
     return o
 
 

@@ -85,7 +85,21 @@ LAUNCHES = 0
 LAUNCHES_BY_DTYPE: Dict[str, int] = {}
 LAUNCHES_BY_PATH: Dict[str, Dict[str, int]] = {}
 LAUNCHES_EPILOGUE = 0
+# the counts are bumped from every thread that launches (one worker per
+# pooled context in a BlasxServer), so each bump is one locked update
 _count_lock = threading.Lock()
+
+
+def count_launch(path: str, dtype: torch.dtype, epilogue: bool) -> None:
+    """Add one launch of ``path`` in ``dtype`` to every count."""
+    global LAUNCHES, LAUNCHES_EPILOGUE
+    name = dtype_name(dtype)
+    with _count_lock:
+        LAUNCHES += 1
+        LAUNCHES_EPILOGUE += int(epilogue)
+        LAUNCHES_BY_DTYPE[name] = LAUNCHES_BY_DTYPE.get(name, 0) + 1
+        by_dtype = LAUNCHES_BY_PATH.setdefault(path, {})
+        by_dtype[name] = by_dtype.get(name, 0) + 1
 
 
 def _path(itemsize: int, k: int, n: int, aligned: bool = True) -> str:
@@ -230,7 +244,6 @@ def batched_contract(a: torch.Tensor, b: torch.Tensor,
     :func:`kernel_path`.
     The epilogue (``bias`` of N values, ``activation`` from
     ``ACTIVATIONS``) is taken for G = 1, S = 1 only."""
-    global LAUNCHES, LAUNCHES_EPILOGUE
     _check(a, b)
     g, s, m, k = a.shape
     n = b.shape[3]
@@ -276,11 +289,5 @@ def batched_contract(a: torch.Tensor, b: torch.Tensor,
                            f"blocks={bm}x{bn}x{bk} path={path} "
                            f"dtype={a.dtype} "
                            f"activation={activation})")
-    with _count_lock:
-        LAUNCHES += 1
-        LAUNCHES_EPILOGUE += int(epilogue)
-        name = dtype_name(a.dtype)
-        LAUNCHES_BY_DTYPE[name] = LAUNCHES_BY_DTYPE.get(name, 0) + 1
-        by_dtype = LAUNCHES_BY_PATH.setdefault(path, {})
-        by_dtype[name] = by_dtype.get(name, 0) + 1
+    count_launch(path, a.dtype, epilogue)
     return c if c.dtype == out_dtype else c.to(out_dtype)

@@ -321,3 +321,70 @@ def test_bf16_serve_run_puts_every_flash_launch_on_mma(card, monkeypatch):
     assert out["requests"] == 5 and out["tokens"] == 20
     assert out["nonfinite_logits"] == 0
     assert kfa.LAUNCHES_BY_PATH == {"mma": {"bfloat16": 2 * 5}}
+
+
+def test_cblas_padded_leading_dimensions_on_the_card(card):
+    """cblas_dgemm/sgemm from col-major flat buffers with ld = m + 13
+    into a context on the card: the caller's buffer gets the result,
+    its padding stays untouched, f64 takes dmma and f32 simt."""
+    from repro_torch.api import CblasColMajor, CblasNoTrans, CblasTrans
+    from repro_torch.api import cblas_dgemm, cblas_sgemm
+    rng = np.random.default_rng(4)
+    m, n, k = 300, 260, 200
+    ld = m + 13
+    for fn, dt, tol, path in ((cblas_dgemm, np.float64, 1e-12, "dmma"),
+                              (cblas_sgemm, np.float32, 1e-5, "simt")):
+        A = rng.standard_normal((k, m)).astype(dt)      # op(A) = A^T
+        B = rng.standard_normal((k, n)).astype(dt)
+        C0 = rng.standard_normal((m, n)).astype(dt)
+        store = np.full(n * ld, 7.0, dtype=dt)
+        store.reshape(n, ld).T[:m, :] = C0
+        before = kmm.LAUNCHES_BY_PATH.get(path, {}).get(np.dtype(dt).name,
+                                                        0)
+        with BlasxContext(RuntimeConfig(n_devices=2), tile=128) as ctx:
+            fn(CblasColMajor, CblasTrans, CblasNoTrans, m, n, k, 0.5,
+               np.asfortranarray(A), k, np.asfortranarray(B), k, -1.5,
+               store, ld, ctx=ctx)
+            launches = ctx.stats()["launch"]["kernel_launches"]
+        got = store.reshape(n, ld).T[:m, :].astype(np.float64)
+        want = 0.5 * A.T.astype(np.float64) @ B - 1.5 * C0
+        assert np.linalg.norm(got - want) / np.linalg.norm(want) <= tol
+        assert np.all(store.reshape(n, ld)[:, m:] == 7.0)
+        assert kmm.LAUNCHES_BY_PATH[path][np.dtype(dt).name] == \
+            before + launches
+
+
+def test_two_tenant_server_on_the_card(card):
+    """An interactive f32 tenant and a quota'd bf16 flood on a
+    two-context pool on one card: every result right, the flood's own
+    blocks evicted and the victim's none, bf16 launches on wgmma and
+    f32 on simt."""
+    from repro_torch.serve import BATCH, INTERACTIVE, BlasxServer
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((256, 256)).astype(np.float32)
+    w = rng.standard_normal((256, 256)).astype(np.float32)
+    big = rng.standard_normal((512, 512))
+    kmm.LAUNCHES_BY_PATH.clear()
+    with BlasxServer(RuntimeConfig(n_devices=2, cache_bytes=64 << 20),
+                     pool_size=2, tile=128,
+                     quotas={"flood": 256 << 10}) as srv:
+        floods = [srv.submit("flood", "gemm", big, big, dtype="bfloat16",
+                             priority=BATCH) for _ in range(4)]
+        serves = [srv.submit("app", "gemm", x, w, priority=INTERACTIVE)
+                  for _ in range(4)]
+        want = x.astype(np.float64) @ w
+        for f in serves:
+            got = f.result(timeout=120).array().astype(np.float64)
+            assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 1e-5
+        ref = big @ big
+        for f in floods:
+            got = torch.as_tensor(f.result(timeout=120).array()).double()
+            err = np.linalg.norm(got.numpy() - ref) / np.linalg.norm(ref)
+            assert err <= 2e-2
+        st = srv.stats()["tenants"]
+    assert st["app"]["completed"] == 4 and st["flood"]["completed"] == 4
+    assert st["flood"]["quota_evictions"] > 0
+    assert st["app"]["quota_evictions"] == 0
+    assert set(kmm.LAUNCHES_BY_PATH) == {"wgmma", "simt"}
+    assert set(kmm.LAUNCHES_BY_PATH["wgmma"]) == {"bfloat16"}
+    assert set(kmm.LAUNCHES_BY_PATH["simt"]) == {"float32"}

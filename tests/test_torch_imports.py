@@ -68,3 +68,14 @@ def test_registry_loads_the_ports_own_config_modules():
     cfg = get_config("qwen3-0-6b")
     assert isinstance(cfg, base.ModelConfig)
     assert "repro_torch.configs.qwen3_0_6b" in sys.modules
+
+
+@pytest.mark.parametrize("package", ["api", "serve", "tuning"])
+def test_public_packages_export_the_references_names(package):
+    """``repro_torch.<package>`` exports exactly the names
+    ``repro.<package>`` does, and each resolves."""
+    import importlib
+    ref = importlib.import_module(f"repro.{package}")
+    port = importlib.import_module(f"repro_torch.{package}")
+    assert sorted(port.__all__) == sorted(ref.__all__)
+    assert all(hasattr(port, name) for name in port.__all__)

@@ -380,3 +380,58 @@ def test_library_is_named_by_source_and_flags(tmp_path, monkeypatch):
     assert build.library_path("k") != first
     assert first.parent == build.BUILD_DIR
     assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+
+
+@pytest.mark.parametrize("module", ["matmul", "flash_attention"])
+def test_launch_counts_are_exact_under_eight_threads(module, monkeypatch):
+    """The GEMM and flash wrappers count launches from every thread
+    that launches (one worker per pooled context in a BlasxServer):
+    eight threads bumping at once, with a 1 us switch interval, lose no
+    update in the total, by dtype or by path.  Ten rounds: without the
+    lock a round loses updates about four times in ten here."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import flash_attention as kfa
+    mod = kmm if module == "matmul" else kfa
+    paths = ("simt", "dmma") if module == "matmul" else ("simt", "mma")
+    dtypes = (torch.float32, torch.bfloat16)
+
+    def bump(i, k):
+        if module == "matmul":
+            mod.count_launch(paths[i % 2], dtypes[k % 2], i % 3 == 0)
+        else:
+            mod.count_launch(paths[i % 2], dtypes[k % 2])
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for _ in range(10):
+            for name in ("LAUNCHES_BY_DTYPE", "LAUNCHES_BY_PATH"):
+                monkeypatch.setattr(mod, name, {})
+            monkeypatch.setattr(mod, "LAUNCHES", 0)
+            if module == "matmul":
+                monkeypatch.setattr(mod, "LAUNCHES_EPILOGUE", 0)
+            barrier = threading.Barrier(8)
+
+            def worker(i):
+                barrier.wait(30)
+                for k in range(2000):
+                    bump(i, k)
+
+            threads = [threading.Thread(target=worker, args=(i,))
+                       for i in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=30)
+            assert not any(t.is_alive() for t in threads)
+            assert mod.LAUNCHES == 16000
+            assert mod.LAUNCHES_BY_DTYPE == {"float32": 8000,
+                                             "bfloat16": 8000}
+            assert mod.LAUNCHES_BY_PATH == {
+                p: {"float32": 4000, "bfloat16": 4000} for p in paths}
+            if module == "matmul":
+                assert mod.LAUNCHES_EPILOGUE == 3 * 2000  # threads 0, 3, 6
+    finally:
+        sys.setswitchinterval(old)
