@@ -14,14 +14,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    PyTorch version on the card, in f64/f32/bf16/f16, at the runtime's
    shape (G,S,M,K,N) = (4,16,1024,1024,1024), ragged shapes and small
    odd shapes, by normwise relative error.  Each call's path
-   (``kernel_path``: wgmma for aligned f16/bf16, dmma for f64, simt for
-   f32 and unaligned 16-bit shapes) is printed; the shapes cover each
-   tensor-core path's hazards (one 64-tile, ragged M/N across item
-   boundaries, M = 1, K = 8).  At the runtime's shape it times the
+   (``kernel_path``: wgmma for f16/bf16, dmma for f64, simt for f32) is
+   printed; the shapes cover each tensor-core path's hazards (one
+   64-tile, ragged M/N across item boundaries, M = 1, K = 8) and the
+   16-bit shapes TMA cannot read in place, which are staged into a
+   zero-padded copy first.  f32 is also held on every compiled simt
+   block in both copy variants (16-byte; 4-byte at K % 4, N % 4 and an
+   A base 4 bytes off 16), each launch's variant read from the wrapper's
+   count (``LAUNCHES_SIMT_COPY``).  At the runtime's shape it times the
    kernel on each compiled block of its path, the plain version and
    ``torch.matmul`` on the folded shape (a yardstick only), beside the
-   least time the card could take (``bound_ms``); the 16-bit simt path
-   is timed at an unaligned shape of the same size.
+   least time the card could take (``bound_ms``); at an unaligned shape
+   of the same size (K = 1020) it times the staged 16-bit route (the
+   staging copy and the kernel apart) and f32's 4-byte variant on every
+   block (A one element past an aligned base), beside the 16-byte
+   variant at the same shape from an aligned A.
 4. main path — ``BlasxContext(backend="cuda", device="cuda")`` runs the
    paper's Fig. 7/10 regime (N=16384, tile 1024, 2 simulated devices)
    for DGEMM, SGEMM and a bf16 GEMM, an f16 GEMM at N=8192, SYRK/SYMM/
@@ -29,11 +36,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    N=4096, each checked against an f64 oracle on the card, with the
    kernel's launch counter held against the ledger; every bf16/f16
    launch must take the wgmma path and every f64 launch the dmma path
-   (``LAUNCHES_BY_PATH``).
+   (``LAUNCHES_BY_PATH``).  No phase may launch a 16-bit GEMM on simt.
 5. epilogue — the same GEMM kernel with a bias row and each activation
    (the reference's fused epilogue) against its plain version in f32,
    bf16 and f16, at the MLP's shape (M,K,N) = (1024,1024,3072) (the
-   wgmma path in 16 bits) and ragged shapes (simt); timed in bf16 at
+   wgmma path in 16 bits) and ragged shapes (staged onto wgmma in 16
+   bits, simt in f32); timed in bf16 at
    the MLP shape beside its bound and ``torch.addmm`` plus the
    activation (a yardstick only), by CUDA events, and for information
    by the device time ``torch.profiler`` records (these calls are about
@@ -165,8 +173,19 @@ SHAPES = [MAIN_SHAPE, (1, 1, 64, 64, 64), (2, 3, 1000, 64, 1000),
           (1, 1, 1, 8, 8), (3, 2, 200, 96, 136), (3, 2, 1000, 997, 1003),
           (1, 1, 1024, 1024, 1024), (1, 1, 1, 7, 5), (2, 3, 65, 33, 129),
           (5, 1, 17, 300, 31), (1, 4, 128, 64, 64)]
-# the 16-bit simt path timed at the runtime's size, K off the 8 TMA needs
+# the runtime's size with K off the 8 TMA needs: timed with 16-bit
+# operands staged onto wgmma, and in f32 with A SIMT_A_OFFSET elements
+# past an aligned base, which takes the 4-byte copy variant (K and N
+# are multiples of 4: from an aligned base it is 16-byte)
 SIMT_SHAPE = (4, 16, 1024, 1020, 1024)
+SIMT_A_OFFSET = 1
+# f32 shapes for the simt copy variants, (shape, A's offset in elements,
+# variant): 16-byte at aligned K, N and bases; 4-byte at K % 4, N % 4
+# and an A base 4 bytes past 16
+SIMT_VARIANTS = [((2, 3, 200, 96, 136), 0, "16-byte"),
+                 ((2, 3, 65, 33, 128), 0, "4-byte"),
+                 ((1, 2, 100, 64, 130), 0, "4-byte"),
+                 ((2, 2, 96, 64, 128), 1, "4-byte")]
 DTYPES = ("float64", "float32", "bfloat16", "float16")
 HALF = ("bfloat16", "float16")
 # the path the BLAS main path's launches must take, by dtype
@@ -301,7 +320,7 @@ def _timed_build(name):
 
 def _kernel_label(mangled: str) -> str:
     """``wgmma_gemm bf16 128`` from a mangled template kernel's name."""
-    t = re.search(r"(batched_gemm|wgmma_gemm|dmma_gemm|flash_fwd|flash_mma)"
+    t = re.search(r"(sgemm|wgmma_gemm|dmma_gemm|flash_fwd|flash_mma)"
                   r"_kernelI"
                   r"((?:\d+\w+?|[df])?)((?:Li\d+E)+)", mangled)
     if not t:
@@ -350,27 +369,31 @@ def phase_kernel(card: str):
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results = {}
 
-    def operands(shape, dt):
+    def operands(shape, dt, a_offset=0):
+        """Random (G,S,M,K) and (G,S,K,N) operands; A ``a_offset``
+        elements past an allocation's (aligned) base."""
         g, s, m, k, n = shape
-        return (torch.randn((g, s, m, k), generator=gen, device="cuda",
-                            dtype=torch.float32).to(dt),
+        buf = torch.randn(g * s * m * k + a_offset, generator=gen,
+                          device="cuda", dtype=torch.float32).to(dt)
+        return (buf[a_offset:].view(g, s, m, k),
                 torch.randn((g, s, k, n), generator=gen, device="cuda",
                             dtype=torch.float32).to(dt))
 
-    def timed(name, path, shape, a, b):
+    def timed(name, label, shape, a, b):
         """Time the kernel on every compiled block of its path (the
         default's time is the entry's), the plain version and the
-        library call, at ``shape``."""
+        library call, at ``shape``; for staged operands also the
+        staging copy and the kernel on the staged copies apart.
+        ``label`` is the path, or the path and the route's variant."""
+        path = label.split()[0]
         g, s, m, k, n = shape
         flops = 2 * g * s * m * k * n
         default = kmm.default_blocks(m, n, k, a.element_size(), path)
         per_block = {}
         for blocks in kmm.compiled_blocks(path):
-            if path == "simt" and blocks != default:
-                continue  # simt: the default block only
             per_block[blocks] = time_ms(
                 lambda: batched_contract(a, b, blocks=blocks), 20)
-            print(f"[kernel] {name} {path} {shape} blocks {blocks}: "
+            print(f"[kernel] {name} {label} {shape} blocks {blocks}: "
                   f"{per_block[blocks]:.4f} ms "
                   f"({flops / per_block[blocks] / 1e9:.1f} TFLOP/s)"
                   f"{' (default)' if blocks == default else ''} | {card}",
@@ -381,38 +404,64 @@ def phase_kernel(card: str):
         plain_ms = time_ms(lambda: batched_contract_ref(a, b), 5)
         lib_ms = time_ms(lambda: torch.matmul(a2, b2), 20)
         bound_ms, bound_by = bound(shape, name)
-        print(f"[kernel] {name} {path} {shape}: kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f}"
-              f" ms, torch.matmul folded {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}; {PEAK_NAME[name]}) "
+        out = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, shape=shape,
+                   blocks={"x".join(map(str, k)): v
+                           for k, v in per_block.items()})
+        staged = ""
+        if any(kmm.operand_staging(a, b)):
+            ops = kmm.stage_operands(a, b)
+            out["stage_ms"] = time_ms(lambda: kmm.stage_operands(a, b), 20)
+            out["kernel_ms"] = time_ms(lambda: kmm._launch(ops), 20)
+            staged = (f" (staging copy {out['stage_ms']:.4f} ms + kernel "
+                      f"{out['kernel_ms']:.4f} ms)")
+        print(f"[kernel] {name} {label} {shape}: kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s){staged}, plain "
+              f"{plain_ms:.3f} ms, torch.matmul folded {lib_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}; {PEAK_NAME[name]}) "
               f"acc {accumulator_dtype(a.dtype)} | {card}", flush=True)
-        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    bound_ms=bound_ms, bound_by=bound_by, shape=shape,
-                    blocks={"x".join(map(str, k)): v
-                            for k, v in per_block.items()})
+        return out
+
+    def copies_of(fn):
+        """Run ``fn`` (one simt launch); the copy variants whose count
+        it raised."""
+        before = dict(kmm.LAUNCHES_SIMT_COPY)
+        out = fn()
+        return out, sorted(v for v, n in kmm.LAUNCHES_SIMT_COPY.items()
+                           if n > before.get(v, 0))
+
+    def held(name, shape, a, b, label=""):
+        got, copies = copies_of(lambda: batched_contract(a, b))
+        torch.cuda.synchronize()
+        if name == "float32":
+            label += f" {'/'.join(copies)}"
+        want = batched_contract_ref(a, b)
+        err = normwise(got, want)
+        abs_err = float((got.to(torch.float64)
+                         - want.to(torch.float64)).abs().max())
+        path = kmm.operand_path(a, b)
+        print(f"[kernel] {name} {path}{label} {shape}: normwise {err:.3e} "
+              f"max_abs {abs_err:.3e} (tol {KERNEL_TOL[name]:.0e})",
+              flush=True)
+        check(err <= KERNEL_TOL[name],
+              f"kernel {name} {path}{label} {shape} normwise {err:.3e} > "
+              f"{KERNEL_TOL[name]:.0e}")
+        return err, abs_err, copies
 
     for name in DTYPES:
         dt = canonical_dtype(name)
         worst = {}
         for shape in SHAPES:
             g, s, m, k, n = shape
-            path = kmm.kernel_path(dt, m, k, n)
+            path = kmm.kernel_path(dt)
             a, b = operands(shape, dt)
-            got = batched_contract(a, b)
-            torch.cuda.synchronize()
-            want = batched_contract_ref(a, b)
-            err = normwise(got, want)
-            abs_err = float((got.to(torch.float64)
-                             - want.to(torch.float64)).abs().max())
-            print(f"[kernel] {name} {path} {shape}: normwise {err:.3e} "
-                  f"max_abs {abs_err:.3e} (tol {KERNEL_TOL[name]:.0e})",
-                  flush=True)
-            check(err <= KERNEL_TOL[name],
-                  f"kernel {name} {path} {shape} normwise {err:.3e} > "
-                  f"{KERNEL_TOL[name]:.0e}")
+            err, abs_err, copies = held(name, shape, a, b)
+            if shape == MAIN_SHAPE and name == "float32":
+                check(copies == ["16-byte"], f"f32 {shape}: simt copy "
+                      f"variant {copies}, want 16-byte")
             worst[path] = max(worst.get(path, 0.0), err)
             if name in HALF and shape in (MAIN_SHAPE, (3, 2, 1000, 997, 1003)):
-                # the unrounded f32 sums (out_acc) on each 16-bit path
+                # the unrounded f32 sums (out_acc) on each 16-bit route
                 wide = batched_contract(a, b, torch.float32)
                 torch.cuda.synchronize()
                 err = normwise(wide, batched_contract_ref(a, b,
@@ -427,20 +476,59 @@ def phase_kernel(card: str):
             if shape == MAIN_SHAPE:
                 results[(name, path)] = timed(name, path, shape, a, b)
                 results[(name, path)]["max_abs_err"] = abs_err
-            del a, b, got, want
-        if name in HALF:
-            a, b = operands(SIMT_SHAPE, dt)
-            g, s, m, k, n = SIMT_SHAPE
-            check(kmm.kernel_path(dt, m, k, n) == "simt",
-                  f"{SIMT_SHAPE} should take the simt path")
-            err = normwise(batched_contract(a, b), batched_contract_ref(a, b))
-            check(err <= KERNEL_TOL[name], f"kernel {name} simt "
-                  f"{SIMT_SHAPE} normwise {err:.3e}")
-            results[(name, "simt")] = timed(name, "simt", SIMT_SHAPE, a, b)
-            got, want = batched_contract(a, b), batched_contract_ref(a, b)
-            results[(name, "simt")]["max_abs_err"] = float(
-                (got.double() - want.double()).abs().max())
-            del a, b, got, want
+            del a, b
+        if name == "float32":
+            # both copy variants on every compiled block: 16-byte at
+            # aligned shapes, 4-byte at K % 4, N % 4 and an A base 4
+            # bytes off 16
+            for shape, offset, variant in SIMT_VARIANTS:
+                a, b = operands(shape, dt, offset)
+                for blocks in kmm.compiled_blocks("simt"):
+                    got, copies = copies_of(
+                        lambda: batched_contract(a, b, blocks=blocks))
+                    torch.cuda.synchronize()
+                    err = normwise(got, batched_contract_ref(a, b))
+                    check(err <= KERNEL_TOL[name] and copies == [variant],
+                          f"simt {variant} {shape} +{offset} {blocks} "
+                          f"normwise {err:.3e}, copies {copies}")
+                    worst["simt"] = max(worst["simt"], err)
+                print(f"[kernel] float32 simt {variant} {shape} A +{offset}"
+                      f": every block within {KERNEL_TOL[name]:.0e}, every "
+                      f"launch counted {variant}", flush=True)
+                del a, b
+        if name in HALF or name == "float32":
+            # the runtime's size with K off the 8 TMA needs: 16-bit
+            # operands staged onto wgmma; f32 from A one element past an
+            # aligned base on the 4-byte variant, and from an aligned A
+            # on the 16-byte one
+            f32 = name == "float32"
+            a, b = operands(SIMT_SHAPE, dt, SIMT_A_OFFSET if f32 else 0)
+            path = kmm.kernel_path(dt)
+            staged = any(kmm.operand_staging(a, b))
+            check(path == ("simt" if f32 else "wgmma")
+                  and staged == (name in HALF),
+                  f"{name} {SIMT_SHAPE}: path {path}, staged {staged}")
+            _, abs_err, copies = held(name, SIMT_SHAPE, a, b,
+                                      "" if f32 else " staged")
+            check(copies == (["4-byte"] if f32 else []),
+                  f"{name} {SIMT_SHAPE} A +{SIMT_A_OFFSET}: simt copy "
+                  f"variant {copies}")
+            label = path + (" 4-byte" if f32 else " staged")
+            key = (name, label)
+            results[key] = timed(name, label, SIMT_SHAPE, a, b)
+            results[key]["max_abs_err"] = abs_err
+            if f32:
+                a16, b16 = operands(SIMT_SHAPE, dt)
+                _, copies = copies_of(lambda: batched_contract(a16, b16))
+                check(copies == ["16-byte"], f"f32 {SIMT_SHAPE} aligned: "
+                      f"simt copy variant {copies}")
+                ms16 = time_ms(lambda: batched_contract(a16, b16), 20)
+                results[key]["ms_16byte"] = ms16
+                print(f"[kernel] float32 simt 16-byte {SIMT_SHAPE} A +0: "
+                      f"kernel {ms16:.4f} ms against the 4-byte variant's "
+                      f"{results[key]['ms']:.4f} ms | {card}", flush=True)
+                del a16, b16
+            del a, b
         for path, w in worst.items():
             print(f"[kernel] {name} {path}: worst normwise {w:.3e} over "
                   f"its shapes", flush=True)
@@ -906,7 +994,7 @@ def phase_epilogue(card: str):
                     # a, b and c in bf16, the bias row in f32
                     bound_ms, bound_by = least_time(
                         flops, (m * k + k * n + m * n) * 2 + n * 4, name)
-                    path = kmm.kernel_path(dt, m, k, n)
+                    path = kmm.kernel_path(dt)
                     print(f"[epilogue] bf16 {path} {(m, k, n)} bias+silu, "
                           f"CUDA events: kernel {ms:.4f} ms "
                           f"({flops / ms / 1e9:.1f} TFLOP/s), plain "
@@ -1219,6 +1307,8 @@ def _reset_counts():
     kmm.LAUNCHES_BY_DTYPE.clear()
     kmm.LAUNCHES_BY_PATH.clear()
     kmm.LAUNCHES_EPILOGUE = 0
+    kmm.LAUNCHES_STAGED.clear()
+    kmm.LAUNCHES_SIMT_COPY.clear()
     kfa.LAUNCHES = 0
     kfa.LAUNCHES_BY_DTYPE.clear()
     kfa.LAUNCHES_BY_PATH.clear()
@@ -1229,9 +1319,18 @@ def _read_counts():
     from repro_torch.kernels import matmul as kmm
     return {"gemm": dict(kmm.LAUNCHES_BY_DTYPE),
             "gemm_path": {p: dict(d) for p, d in kmm.LAUNCHES_BY_PATH.items()},
+            "staged": dict(kmm.LAUNCHES_STAGED),
+            "simt_copy": dict(kmm.LAUNCHES_SIMT_COPY),
             "epilogue": kmm.LAUNCHES_EPILOGUE,
             "flash_path": {p: dict(d)
                            for p, d in kfa.LAUNCHES_BY_PATH.items()}}
+
+
+def _check_simt_is_f32(where: str, counts) -> None:
+    """The simt path is f32's alone: no 16-bit launch takes it."""
+    simt = counts["gemm_path"].get("simt", {})
+    check(set(simt) <= {"float32"},
+          f"{where}: simt launches by dtype {simt}; 16-bit must take wgmma")
 
 
 def main() -> int:
@@ -1246,13 +1345,17 @@ def main() -> int:
     kern = phase_kernel(card)
     epi = phase_epilogue(card)
     flash = phase_attention(card)
+    # every launch so far (phases 3, 5 and 6) counted since start-up
+    _check_simt_is_f32("phases 3, 5, 6", _read_counts())
     # main path 1, the BLAS library: the counts start at 0; the
     # comparison phases' launches do not count
     _reset_counts()
     phase_main_path(card, 16384)
     blas = _read_counts()
-    print(f"[main] GEMM launches by path: {blas['gemm_path']} | {card}",
+    print(f"[main] GEMM launches by path: {blas['gemm_path']}, staged "
+          f"{blas['staged']}, simt copies {blas['simt_copy']} | {card}",
           flush=True)
+    _check_simt_is_f32("BLAS main path", blas)
     for name in DTYPES:
         n = blas["gemm"].get(name, 0)
         check(n > 0, f"kernel for {name} never launched on the BLAS main path")
@@ -1264,8 +1367,10 @@ def main() -> int:
     _reset_counts()
     _, server_launches = phase_api(card)
     api = _read_counts()
-    print(f"[api] GEMM launches by path: {api['gemm_path']} | {card}",
+    print(f"[api] GEMM launches by path: {api['gemm_path']}, staged "
+          f"{api['staged']}, simt copies {api['simt_copy']} | {card}",
           flush=True)
+    _check_simt_is_f32("api path", api)
     for name in ("float64", "float32", "bfloat16"):
         n = api["gemm"].get(name, 0)
         check(n > 0, f"kernel for {name} never launched on the api path")
@@ -1280,12 +1385,20 @@ def main() -> int:
           "wgmma, f64 on dmma, f32 on simt, each non-zero")
     # main path 3, serving (counted from 0 inside)
     _, serve = phase_serve(card)
+    _check_simt_is_f32("serving path", serve)
     print(f"[done] build {build_s:.1f} s, total "
           f"{time.perf_counter() - t_start:.1f} s | {card}")
 
-    def launches(path, name):
-        return sum(run["gemm_path"].get(path, {}).get(name, 0)
-                   for run in (blas, api, serve))
+    def launches(label, name):
+        """Main-path launches of a phase-3 entry: staged 16-bit launches
+        for "wgmma staged", the others for "wgmma"."""
+        path = label.split()[0]
+        n = sum(run["gemm_path"].get(path, {}).get(name, 0)
+                for run in (blas, api, serve))
+        staged = sum(run["staged"].get(name, 0) for run in (blas, api, serve))
+        if path == "wgmma":
+            return staged if label.endswith("staged") else n - staged
+        return n
 
     def entry(name, path, source, replaces, launches, r):
         e = {"name": name, "route": "cuda", "path": path,
@@ -1296,12 +1409,30 @@ def main() -> int:
         e.update({k: r[k] for k in DEVICE_KEYS if k in r})
         return e
 
-    # one GEMM entry per path and dtype; the simt path (the kernel of
-    # PR 11) keeps its entries' names, the tensor-core paths add theirs
-    kernels = [entry(f"blasx_batched_gemm<{name}>" if path == "simt"
-                     else f"blasx_batched_gemm<{name},{path}>", path,
-                     KERNEL_SOURCE, REPLACES, launches(path, name),
-                     kern[(name, path)]) for name, path in kern]
+    # one GEMM entry per route and dtype: f32 simt keeps its first
+    # name and carries its 4-byte variant's times at SIMT_SHAPE (and
+    # the 16-byte one's there) and its main-path launches by variant;
+    # the tensor-core paths add theirs, the staged 16-bit route its own
+    four = kern.pop(("float32", "simt 4-byte"))
+    kernels = [entry(f"blasx_batched_gemm<{name}>" if label == "simt"
+                     else f"blasx_batched_gemm<{name},"
+                          f"{label.replace(' ', ',')}>", label.split()[0],
+                     KERNEL_SOURCE, REPLACES, launches(label, name),
+                     kern[(name, label)]) for name, label in kern]
+    for e, (name, label) in zip(kernels, kern):
+        r = kern[(name, label)]
+        if label == "simt":
+            e.update(ms_by_block=r["blocks"], ms_4byte=four["ms"],
+                     ms_by_block_4byte=four["blocks"],
+                     ms_16byte_at_shape_4byte=four["ms_16byte"],
+                     shape_4byte=list(four["shape"]),
+                     a_offset_4byte=SIMT_A_OFFSET,
+                     launches_by_copy={
+                         v: sum(run["simt_copy"].get(v, 0)
+                                for run in (blas, api, serve))
+                         for v in ("16-byte", "4-byte")})
+        if "stage_ms" in r:
+            e.update(stage_ms=r["stage_ms"], kernel_ms=r["kernel_ms"])
     kernels.append(entry("blasx_gemm_epilogue<bfloat16>", epi["path"],
                          KERNEL_SOURCE, EPILOGUE_REPLACES,
                          blas["epilogue"] + api["epilogue"]

@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from ..core import task as taskmod
-from ..core.dtypes import (canonical_dtype, promote_dtypes,
+from ..core.dtypes import (canonical_dtype, is_integer, promote_dtypes,
                            validate_backend_dtype)
 from ..core.runtime import BlasxRuntime, RuntimeConfig
 from ..core.tiling import TiledMatrix, host_tensor
@@ -1037,9 +1037,12 @@ class BlasxContext:
                 self._adopt(x, dt, name)
 
     def _check_exec_dtype(self, *dts) -> None:
-        """Every storage dtype must be one the backend executes."""
+        """Every storage dtype must be one the backend executes: a
+        registry dtype, or an integer, which the routines promote as
+        the reference does (``core.dtypes``)."""
         for dt in dts:
-            validate_backend_dtype(dt, self.cfg.backend)
+            if not is_integer(dt):
+                validate_backend_dtype(dt, self.cfg.backend)
 
     @staticmethod
     def _check_tiles(*handles: "MatrixHandle") -> None:

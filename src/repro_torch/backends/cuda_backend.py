@@ -8,7 +8,8 @@ as one launch that walks each item's k-chain in place.  Everything else
 split into single steps) goes to the batched :class:`TorchBackend`.
 
 Unlike the reference, float64 runs in true float64 through the kernel;
-the reference's "f64" through Pallas is f32 arithmetic.
+the reference's "f64" through Pallas is f32 arithmetic.  Integer groups
+run on the kernel's f64 path and are rounded back (``core.dtypes``).
 """
 from __future__ import annotations
 
@@ -16,10 +17,10 @@ from typing import Sequence
 
 import torch
 
-from ..core.dtypes import canonical_dtype
+from ..core.dtypes import storage_dtype
 from ..kernels import matmul as kernel_matmul
 from .base import ExecutionBackend, GroupResult, StepGroupKey
-from .torch_backend import TorchBackend, stack_items
+from .torch_backend import TorchBackend, compute_dtype, stack_items
 
 # ops whose full-fill steps are plain C += A @ B tile multiplies
 _KERNEL_OPS = ("gemm", "syrk", "syr2k", "symm")
@@ -39,5 +40,6 @@ class CudaBackend(ExecutionBackend):
         if not self._route_to_kernel(key):
             return self._fallback.run_group(key, a_tiles, b_tiles)
         a, b = stack_items(key, a_tiles, b_tiles)
-        out = kernel_matmul.batched_contract(a, b, canonical_dtype(key.dtype))
+        out = kernel_matmul.batched_contract(a, b, compute_dtype(key))
+        out = out.to(storage_dtype(key.dtype))
         return GroupResult(list(out.unbind(0)), launches=1, engine=self.name)

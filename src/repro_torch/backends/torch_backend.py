@@ -10,7 +10,8 @@ so the group costs one batched matmul: ``launches=1``.
 Accumulation follows the reference's contract: float64 in float64 (on
 the port that is true f64 — the reference narrows it to f32 unless jax
 runs with x64), everything narrower in float32, then a cast back to
-the group's storage type.
+the group's storage type.  Integer groups are staged and summed in
+float64 and rounded back (``core.dtypes``).
 """
 from __future__ import annotations
 
@@ -18,18 +19,25 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ..core.dtypes import accumulator_dtype, canonical_dtype
+from ..core.dtypes import accumulator_dtype, is_integer, storage_dtype
 from .base import ExecutionBackend, GroupResult, StepGroupKey
+
+
+def compute_dtype(key: StepGroupKey) -> torch.dtype:
+    """The type a group's tiles are staged and multiplied in: its own,
+    or float64 for an integer group."""
+    dt = storage_dtype(key.dtype)
+    return accumulator_dtype(dt) if is_integer(dt) else dt
 
 
 def stack_items(key: StepGroupKey, a_tiles: Sequence[torch.Tensor],
                 b_tiles: Sequence[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(G*steps) tile lists -> contiguous ``(G, steps, m, k)`` /
-    ``(G, steps, k, n)`` buffers in the group's dtype, on the tiles'
-    device (one copy per operand)."""
+    ``(G, steps, k, n)`` buffers in the group's :func:`compute_dtype`,
+    on the tiles' device (one copy per operand)."""
     g = len(a_tiles) // key.steps
-    dt = canonical_dtype(key.dtype)
+    dt = compute_dtype(key)
     a = torch.stack([t.to(dt) for t in a_tiles])
     b = torch.stack([t.to(dt) for t in b_tiles])
     return (a.reshape(g, key.steps, key.m, key.k),
@@ -51,5 +59,5 @@ class TorchBackend(ExecutionBackend):
         acc = accumulator_dtype(a.dtype)
         a2 = a.to(acc).transpose(1, 2).reshape(g, m, s * k)
         b2 = b.to(acc).reshape(g, s * k, key.n)
-        out = torch.matmul(a2, b2).to(a.dtype)
+        out = torch.matmul(a2, b2).to(storage_dtype(key.dtype))
         return GroupResult(list(out.unbind(0)), launches=1, engine=self.name)

@@ -19,6 +19,15 @@ match it byte for byte.
 The group signatures the runtime forms (``StepGroupKey.dtype``) carry
 the *name* string, not the ``torch.dtype``, so group formation — and
 with it the ledger — is identical to the reference's.
+
+Integer operands are outside the registry (a per-call ``dtype=`` of one
+raises, as in the reference), but routines take them as the reference
+does: mixed pairs promote exactly as ``np.promote_types`` (int64 x
+float32 is float64), and int x int stays integer.  Integer groups are
+computed in float64 and rounded back, so their sums are exact while
+they stay below 2**53 in magnitude (the reference's numpy engine is
+exact in int64; its jax engine stages int32 and sums in float32, exact
+below 2**24).
 """
 from __future__ import annotations
 
@@ -43,11 +52,39 @@ TORCH_DTYPES: Dict[str, torch.dtype] = {
     "bfloat16": torch.bfloat16,
 }
 _NAMES: Dict[torch.dtype, str] = {v: k for k, v in TORCH_DTYPES.items()}
+# integer storage types the routines take beside the registry (numpy's
+# names, which name the groups)
+INTEGER_DTYPES: Dict[str, torch.dtype] = {
+    "uint8": torch.uint8, "int8": torch.int8, "int16": torch.int16,
+    "int32": torch.int32, "int64": torch.int64,
+}
+_INT_NAMES: Dict[torch.dtype, str] = {v: k
+                                      for k, v in INTEGER_DTYPES.items()}
 
 
 def dtype_name(dtype) -> str:
-    """The registry name of a supported dtype (any spelling)."""
-    return _NAMES[canonical_dtype(dtype)]
+    """The name of a supported or integer dtype (any spelling)."""
+    dt = storage_dtype(dtype)
+    return _NAMES.get(dt) or _INT_NAMES[dt]
+
+
+def storage_dtype(dtype) -> torch.dtype:
+    """:func:`canonical_dtype`, integer types included: the dtype of a
+    matrix or a group, where the registry gates only what a caller may
+    ask for."""
+    if isinstance(dtype, torch.dtype) and dtype in _INT_NAMES:
+        return dtype
+    name = str(dtype).replace("torch.", "")
+    if name not in INTEGER_DTYPES and name not in SUPPORTED_DTYPES:
+        try:
+            name = np.dtype(dtype).name
+        except TypeError:
+            pass
+    return INTEGER_DTYPES.get(name) or canonical_dtype(dtype)
+
+
+def is_integer(dtype) -> bool:
+    return storage_dtype(dtype) in _INT_NAMES
 
 
 def canonical_dtype(dtype) -> torch.dtype:
@@ -86,21 +123,33 @@ def validate_backend_dtype(dtype, backend: str) -> torch.dtype:
 
 
 def promote_dtypes(a, b) -> torch.dtype:
-    """``torch.promote_types`` over two supported dtypes.  bfloat16 x
-    float16 has no common precision in the reference (numpy refuses
-    it), while torch would silently widen to float32; the port keeps
-    the reference's error so both packages accept the same calls."""
-    da, db = canonical_dtype(a), canonical_dtype(b)
+    """The reference's ``promote_dtypes``: ``np.promote_types`` over two
+    supported or integer dtypes (int64 x float32 is float64, int8 x
+    float16 float16, int64 x int32 int64).  Pairs with no common
+    precision raise, as numpy refuses them: bfloat16 x float16, where
+    torch would silently widen to float32, and bfloat16 with an integer
+    wider than 8 bits (ml_dtypes' table)."""
+    da, db = storage_dtype(a), storage_dtype(b)
     if da == db:
         return da
-    if {da, db} == {torch.bfloat16, torch.float16}:
-        raise ValueError(
-            f"no common precision between {_NAMES[da]} and {_NAMES[db]} "
-            f"operands; pass an explicit dtype=")
-    return torch.promote_types(da, db)
+    pair = {da, db}
+    if torch.bfloat16 in pair:
+        other = (pair - {torch.bfloat16}).pop()
+        if other in (torch.float32, torch.float64):
+            return other
+        if other in (torch.int8, torch.uint8):
+            return torch.bfloat16
+    else:
+        return storage_dtype(np.promote_types(dtype_name(da),
+                                              dtype_name(db)).name)
+    raise ValueError(
+        f"no common precision between {dtype_name(da)} and "
+        f"{dtype_name(db)} operands; pass an explicit dtype=")
 
 
 def accumulator_dtype(dtype) -> torch.dtype:
-    """float64 accumulates in float64, everything narrower in float32."""
-    dt = canonical_dtype(dtype)
-    return torch.float64 if dt == torch.float64 else torch.float32
+    """float64 and the integers accumulate in float64, every narrower
+    float in float32."""
+    dt = storage_dtype(dtype)
+    return torch.float64 if dt == torch.float64 or dt in _INT_NAMES \
+        else torch.float32

@@ -71,6 +71,13 @@ DEFAULT_PEAK_FLOPS = 1.43e12  # K40c double-precision-ish peak (paper §V-A)
 _METADATA_ONLY = torch.empty(0)
 
 
+def _scalable(x: torch.Tensor) -> torch.Tensor:
+    """An integer tile as float64 before alpha/beta scale it: numpy
+    scales an integer array by a Python float in float64, torch would
+    in float32 (inexact past 2**24)."""
+    return x if x.is_floating_point() else x.to(torch.float64)
+
+
 def _tile_label(key) -> str:
     """Human-readable tile name for trace spans."""
     return f"{key.matrix_id}[{key.i},{key.j}]"
@@ -937,6 +944,7 @@ class BlasxRuntime:
                 h, w = out_grid.grid.tile_shape(t.i, t.j)
                 acc = torch.zeros((h, w), dtype=out_grid.dtype,
                                   device=self.device)
+            acc = _scalable(acc)
             if t.finalize is not None:  # TRSM
                 result = solve_triangular(rec.diag, t.alpha * rec.rhs - acc,
                                           lower=t.finalize.lower,
@@ -944,7 +952,7 @@ class BlasxRuntime:
             else:
                 result = t.alpha * acc
                 if rec.cin is not None:
-                    result = result + t.beta * rec.cin
+                    result = result + t.beta * _scalable(rec.cin)
             if t.out_mask is not None:
                 # diagonal SYRK/SYR2K tile: only the uplo triangle is written
                 orig = out_grid.read_tile(t.i, t.j).to(self.device)

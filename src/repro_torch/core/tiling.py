@@ -9,14 +9,16 @@ views on demand.
 
 In the port a matrix's data is a host (CPU) ``torch.Tensor``.  A numpy
 input is wrapped with ``torch.from_numpy``, which shares its memory,
-so tiling a matrix never copies it; tiles move to the device one at a
-time in the runtime, and ``write_tile`` is the device-to-host
-write-back.
+so tiling a matrix never copies it — except for the layouts torch
+cannot share (negative strides, a non-native byte order), which take
+one native C-contiguous copy.  Tiles move to the device one at a time
+in the runtime, and ``write_tile`` is the device-to-host write-back.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Iterator, Tuple
 
 import numpy as np
@@ -94,15 +96,27 @@ class TileGrid:
 
 
 def host_tensor(data) -> torch.Tensor:
-    """A CPU tensor view of ``data``: numpy arrays are shared, not
-    copied; tensors must already live on the host."""
+    """A CPU tensor of ``data``; tensors must already live on the host.
+    A numpy array is shared, not copied, wherever ``torch.from_numpy``
+    can share it; one with a negative stride or a non-native byte order
+    becomes one native, C-contiguous copy.  A read-only array is shared
+    without torch's "not writable" warning (the reference is silent;
+    the runtime never writes an input: outputs are fresh matrices)."""
     if isinstance(data, torch.Tensor):
         if data.device.type != "cpu":
             raise ValueError(
                 f"matrices live in host memory; got a tensor on "
                 f"{data.device} (pass .cpu() explicitly)")
         return data
-    return torch.from_numpy(np.asarray(data))
+    a = np.asarray(data)
+    if not a.dtype.isnative or any(st < 0 for st in a.strides):
+        a = np.ascontiguousarray(a, dtype=a.dtype.newbyteorder("="))
+    if a.flags.writeable:
+        return torch.from_numpy(a)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The given NumPy array "
+                                "is not writable", category=UserWarning)
+        return torch.from_numpy(a)
 
 
 class TiledMatrix:

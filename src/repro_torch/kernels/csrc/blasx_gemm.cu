@@ -13,18 +13,21 @@
 // with the f32 accumulator parked in VMEM.  Here one block owns one
 // BM x BN output tile of one item g and walks the S * ceil(K / BK)
 // k-steps of that item itself, reading the stacked tiles a (G,S,M,K) and
-// b (G,S,K,N) in place: no transpose, no reshape copy, no pad copy.
+// b (G,S,K,N) in place: no transpose and no reshape copy.
 //
 // What bounds it: at the runtime's shapes (G=4, S=16, 1024^3 tiles) the
 // work is 2*G*S*M*K*N flops against (G*S*(MK+KN) + G*MN) elements moved,
 // hundreds of flops per byte, so it is compute-bound, and the card's
-// compute for these types is in its tensor cores.  Three paths, chosen
-// by the storage type and alignment alone in the wrapper
+// compute for f16/bf16/f64 is in its tensor cores.  Three paths, chosen
+// by the storage type alone in the wrapper
 // (kernels/matmul.py::kernel_path) and passed in as `path`:
 //
-//   wgmma  f16/bf16 with K % 8 == 0, N % 8 == 0 and 16-byte aligned
-//          bases (what TMA takes).  128 x BN tiles (BN 128 or 256), two
-//          consumer warpgroups of 64 rows, BK = 64.  One thread issues
+//   wgmma  f16/bf16, every shape.  TMA reads rows whose byte length is a
+//          multiple of 16 from 16-byte aligned bases; the wrapper stages
+//          any other operand into a zero-padded copy once and passes its
+//          row lengths (lda, ldb) beside the logical K and N.  128 x BN
+//          tiles (BN 128 or 256), two consumer warpgroups of 64 rows,
+//          BK = 64.  One thread issues
 //          TMA loads into a ring of shared-memory stages, completion on
 //          an mbarrier with expect-tx; the warpgroups run wgmma
 //          m64nBNk16 on the stage that has arrived and release it on a
@@ -35,15 +38,15 @@
 //          (IEEE f64 FMA, so f64 stays f64), 32 x 32 warp tiles, a
 //          3-stage cp.async ring of 8-byte copies whose src-size zero-
 //          fills the ragged edges (odd K included).
-//   simt   f32 (no TF32), and f16/bf16 shapes the TMA path cannot take:
-//          the CUDA-core register-blocked loop (256 threads, TM x TN
-//          accumulators each, f32 FMA).
+//   simt   f32 (no TF32), every shape: the CUDA-core loop, 8 x 8 sums a
+//          thread fed by 128-bit shared-memory reads, A prefetched into
+//          registers and B through a cp.async ring (see below).
 //
 // The epilogue is the same on every path: mask the store at ragged M/N,
 // add the optional bias row (one value per column, handed over in the
 // accumulator type, as the reference's bias.astype(f32)), apply the
-// activation none/relu/gelu(tanh form)/silu/tanh, then cast — or write
-// the accumulator type when out_acc is set.  The activation is a
+// activation none/relu/gelu(tanh form)/silu/tanh, then cast (wgmma) — or
+// write the accumulator type when out_acc is set.  The activation is a
 // runtime int and an out-of-line call, so the instantiation count and
 // the build time stay small.  The wrapper passes an epilogue only for
 // G == 1, S == 1 (a plain matmul); the runtime's batched groups pass none.
@@ -67,12 +70,10 @@ enum Path { kPathSimt = 0, kPathWgmma = 1, kPathDmma = 2 };
 
 // The compiled table of each path, X(BM, BN, BK, STAGES): the wrapper's
 // kernels/matmul.py BLOCKS, which holds the stage counts (a CPU test
-// holds the two equal).  simt has no ring: one synchronous stage.
+// holds the two equal).  simt's stages are its B ring's.
 #define BLASX_SIMT_BLOCKS(X)                                      \
-  X(64, 64, 8, 1) X(64, 64, 16, 1) X(64, 64, 32, 1)               \
-  X(64, 128, 8, 1) X(64, 128, 16, 1) X(64, 128, 32, 1)            \
-  X(128, 64, 8, 1) X(128, 64, 16, 1) X(128, 64, 32, 1)            \
-  X(128, 128, 8, 1) X(128, 128, 16, 1) X(128, 128, 32, 1)
+  X(128, 128, 16, 3) X(64, 128, 16, 3) X(128, 64, 16, 3)          \
+  X(64, 64, 16, 3)
 #define BLASX_WGMMA_BLOCKS(X) X(128, 128, 64, 3) X(128, 256, 64, 4)
 #define BLASX_DMMA_BLOCKS(X) X(64, 64, 16, 3) X(128, 64, 16, 3)
 
@@ -109,61 +110,151 @@ __device__ __noinline__ double activate(double x, int act) {
   }
 }
 
+// The f32 sums' cast to a 16-bit storage type (the wgmma epilogue).
 template <typename T> struct Cvt;
-template <> struct Cvt<float> {
-  static __device__ __forceinline__ float load(float x) { return x; }
-  static __device__ __forceinline__ float store(float x) { return x; }
-};
 template <> struct Cvt<__half> {
-  static __device__ __forceinline__ float load(__half x) { return __half2float(x); }
   static __device__ __forceinline__ __half store(float x) { return __float2half_rn(x); }
 };
 template <> struct Cvt<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(__nv_bfloat16 x) { return __bfloat162float(x); }
   static __device__ __forceinline__ __nv_bfloat16 store(float x) { return __float2bfloat16_rn(x); }
 };
 
-// One output element of the epilogue: bias, activation, then the store
-// in the storage type T or, with out_acc, in the accumulator type Acc.
-template <typename T, typename Acc>
-__device__ __forceinline__ void store_out(void* c, int64_t o, Acc r,
-                                          const Acc* bias, int gn,
-                                          int out_acc, int act) {
+// One output element of the simt and dmma epilogues (whose storage type
+// is their accumulator type T): bias, activation, store.
+template <typename T>
+__device__ __forceinline__ void store_out(T* c, int64_t o, T r,
+                                          const T* bias, int gn, int act) {
   if (bias != nullptr) r += bias[gn];
   if (act != kActNone) r = activate(r, act);
-  if constexpr (std::is_same<T, Acc>::value) {
-    reinterpret_cast<Acc*>(c)[o] = r;
-  } else {
-    if (out_acc) reinterpret_cast<Acc*>(c)[o] = r;
-    else reinterpret_cast<T*>(c)[o] = Cvt<T>::store(r);
-  }
+  c[o] = r;
 }
 
 // ============================================================== simt path
-constexpr int kSimtThreads = 256;  // 16 x 16 threads per block
-constexpr int kPad = 4;            // skews the transposed A tile across banks
+// FP32 on the CUDA cores (IEEE FMA, never TF32).  At 8 x 8 sums a
+// thread a k-step reads 16 floats for 64 FMAs, which at 128 FMA a clock
+// is all the 128 B a clock an SM's shared memory delivers, so the design
+// keeps every other cost off that budget (a one-stage loop of scalar
+// loads and outputs at stride 16 spent 16 scalar LDS per 64 FMAs):
+//   * each thread owns TM x TN = (BM/16) x (BN/16) sums (8 x 8 at 128 x
+//     128) as 4 x 4 sub-tiles; a warp's lanes sit 8 along M by 4 along
+//     N, so a k-step's A fragment is TM/4 conflict-free LDS.128 (eight
+//     lanes of a phase read 128 contiguous bytes) and its B fragment
+//     TN/4 broadcast LDS.128: 4 LDS.128 for 64 FFMA at 128 x 128;
+//   * A comes from global memory into registers one slab ahead (128-bit
+//     loads) and is stored k-major, skewed by kPad, after the current
+//     slab's math, into the other of two A buffers;
+//   * B streams through a STAGES-deep cp.async ring;
+//   * __launch_bounds__(256, 2): at most 128 registers, two blocks an SM.
+// VEC = 4: 16-byte A loads and B copies (K % 4 == 0, N % 4 == 0, both
+// bases 16-byte aligned); VEC = 1: 4-byte ones, for every other shape
+// and offset (an f32 element is always 4-byte aligned).  The wrapper
+// picks VEC (kernels/matmul.py::simt_vec) and counts it; the C entry
+// refuses a VEC the operands do not allow.  Out-of-range elements read
+// as zeros (src-size 0 on the copies).
+constexpr int kSimtThreads = 256;
+constexpr int kPad = 4;  // skews the k-major A tile; keeps rows 16-byte aligned
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;"
+                 :: "r"(smem_u32(dst)), "l"(src), "n"(BYTES), "r"(src_bytes)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// Shared memory of one simt block: two k-major A buffers and the B ring.
+template <int BM, int BN, int BK, int STAGES>
+constexpr size_t simt_smem() {
+  return (size_t)(2 * BK * (BM + kPad) + STAGES * BK * BN) * sizeof(float);
+}
 
 // One block: the BM x BN tile (blockIdx.y, blockIdx.x) of item blockIdx.z.
-template <typename T, int BM, int BN, int BK>
-__global__ void __launch_bounds__(kSimtThreads)
-batched_gemm_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                    const float* __restrict__ bias, void* __restrict__ c,
-                    int out_acc, int act, int S, int M, int K, int N) {
-  constexpr int TM = BM / 16;
-  constexpr int TN = BN / 16;
+template <int BM, int BN, int BK, int STAGES, int VEC>
+__global__ void __launch_bounds__(kSimtThreads, 2)
+sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
+             const float* __restrict__ bias, float* __restrict__ c,
+             int act, int S, int M, int K, int N) {
+  constexpr int TM = BM / 16, TN = BN / 16;  // sums a thread owns
   constexpr int LDA = BM + kPad;
+  constexpr int A_PER = BM * BK / kSimtThreads;       // A elements a thread loads
+  constexpr int B_PER = BK * BN / (kSimtThreads * VEC);  // B copies a thread issues
+  static_assert(TM % 4 == 0 && TN % 4 == 0, "4 x 4 sub-tiles");
+  static_assert(A_PER % VEC == 0 && B_PER >= 1, "whole loads a thread");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* As = reinterpret_cast<float*>(smem_raw);  // [BK][LDA], A transposed
-  float* Bs = As + BK * LDA;                       // [BK][BN]
+  float* As = reinterpret_cast<float*>(smem_raw);  // [2][BK][LDA], k-major
+  float* Bs = As + 2 * BK * LDA;                   // [STAGES][BK][BN]
 
   const int tid = threadIdx.x;
-  const int tr = tid / 16;  // thread row: rows tr + 16*i
-  const int tc = tid % 16;  // thread col: cols tc + 16*j
+  const int warp = tid / 32, lane = tid % 32;
+  // 2 x 4 warps of (BM/2) x (BN/4); lanes 8 (M) x 4 (N), 4 x 4 each
+  const int wm = (warp / 4) * (BM / 2) + (lane % 8) * 4;
+  const int wn = (warp % 4) * (BN / 4) + (lane / 8) * 4;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
   const int64_t g = blockIdx.z;
-  const int64_t a_step = (int64_t)M * K;
-  const int64_t b_step = (int64_t)K * N;
+  const int ksteps = (K + BK - 1) / BK;
+  const int steps = S * ksteps;  // the s loop and the k loop, flattened
+
+  float ra[A_PER];  // the next A slab, in flight in registers
+  auto load_a = [&](int t) {
+    const float* as = a + (g * S + t / ksteps) * (int64_t)M * K;
+    const int k0 = (t % ksteps) * BK;
+#pragma unroll
+    for (int i = 0; i < A_PER / VEC; ++i) {
+      const int f = tid + i * kSimtThreads;
+      const int r = f / (BK / VEC), kk = (f % (BK / VEC)) * VEC;
+      const int gm = m0 + r, gk = k0 + kk;
+      const bool ok = gm < M && gk < K;  // VEC = 4: K % 4 == 0, all or none
+      if constexpr (VEC == 4) {
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (ok) v = __ldg(reinterpret_cast<const float4*>(
+                    as + (int64_t)gm * K + gk));
+        ra[4 * i] = v.x; ra[4 * i + 1] = v.y;
+        ra[4 * i + 2] = v.z; ra[4 * i + 3] = v.w;
+      } else {
+        ra[i] = ok ? __ldg(as + (int64_t)gm * K + gk) : 0.0f;
+      }
+    }
+  };
+  auto store_a = [&](int buf) {
+    float* dst = As + buf * BK * LDA;
+#pragma unroll
+    for (int i = 0; i < A_PER / VEC; ++i) {
+      const int f = tid + i * kSimtThreads;
+      const int r = f / (BK / VEC), kk = (f % (BK / VEC)) * VEC;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) dst[(kk + j) * LDA + r] = ra[VEC * i + j];
+    }
+  };
+  auto load_b = [&](int t) {
+    const float* bs = b + (g * S + t / ksteps) * (int64_t)K * N;
+    const int k0 = (t % ksteps) * BK;
+    float* dst = Bs + (t % STAGES) * BK * BN;
+#pragma unroll
+    for (int i = 0; i < B_PER; ++i) {
+      const int f = tid + i * kSimtThreads;
+      const int r = f / (BN / VEC), cc = (f % (BN / VEC)) * VEC;
+      const int gk = k0 + r, gn = n0 + cc;
+      const bool ok = gk < K && gn < N;  // VEC = 4: N % 4 == 0, all or none
+      cp_async<4 * VEC>(dst + r * BN + cc,
+                        ok ? bs + (int64_t)gk * N + gn : b, ok ? 4 * VEC : 0);
+    }
+  };
 
   float acc[TM][TN];
 #pragma unroll
@@ -171,63 +262,70 @@ batched_gemm_kernel(const T* __restrict__ a, const T* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
-  for (int s = 0; s < S; ++s) {
-    const T* as = a + (g * S + s) * a_step;
-    const T* bs = b + (g * S + s) * b_step;
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      // A sub-tile (BM x BK): consecutive threads walk k, the
-      // contiguous axis of row-major A; stored transposed.
-      for (int idx = tid; idx < BM * BK; idx += kSimtThreads) {
-        const int r = idx / BK, kk = idx % BK;
-        const int gm = m0 + r, gk = k0 + kk;
-        As[kk * LDA + r] = (gm < M && gk < K)
-            ? Cvt<T>::load(as[(int64_t)gm * K + gk]) : 0.0f;
-      }
-      // B sub-tile (BK x BN): consecutive threads walk n.
-      for (int idx = tid; idx < BK * BN; idx += kSimtThreads) {
-        const int kk = idx / BN, cc = idx % BN;
-        const int gk = k0 + kk, gn = n0 + cc;
-        Bs[kk * BN + cc] = (gk < K && gn < N)
-            ? Cvt<T>::load(bs[(int64_t)gk * N + gn]) : 0.0f;
-      }
-      __syncthreads();
 #pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float ra[TM], rb[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) ra[i] = As[kk * LDA + tr + 16 * i];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) rb[j] = Bs[kk * BN + tc + 16 * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] += ra[i] * rb[j];
-      }
-      __syncthreads();
-    }
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < steps) load_b(t);
+    cp_async_commit();
   }
+  if (steps > 0) {
+    load_a(0);
+    store_a(0);
+  }
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<STAGES - 2>();  // slab t of B has landed
+    __syncthreads();  // ... for every thread; A slab t stored; t-1 read
+    if (t + STAGES - 1 < steps) load_b(t + STAGES - 1);
+    cp_async_commit();
+    if (t + 1 < steps) load_a(t + 1);
+    const float* sa = As + (t % 2) * BK * LDA + wm;
+    const float* sb = Bs + (t % STAGES) * BK * BN + wn;
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float fa[TM], fb[TN];
+#pragma unroll
+      for (int i = 0; i < TM / 4; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(sa + kk * LDA + 32 * i);
+        fa[4 * i] = v.x; fa[4 * i + 1] = v.y;
+        fa[4 * i + 2] = v.z; fa[4 * i + 3] = v.w;
+      }
+#pragma unroll
+      for (int j = 0; j < TN / 4; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(sb + kk * BN + 16 * j);
+        fb[4 * j] = v.x; fb[4 * j + 1] = v.y;
+        fb[4 * j + 2] = v.z; fb[4 * j + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(fa[i], fb[j], acc[i][j]);
+    }
+    // the other A buffer was read at step t-1, which every thread
+    // finished before this step's barrier
+    if (t + 1 < steps) store_a((t + 1) % 2);
+  }
+  cp_async_wait<0>();
 
+  // sum (i, j) is row wm + 32*(i/4) + i%4, column wn + 16*(j/4) + j%4
   const int64_t c_off = g * (int64_t)M * N;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + tr + 16 * i;
+    const int gm = m0 + wm + 32 * (i / 4) + i % 4;
     if (gm >= M) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tc + 16 * j;
+      const int gn = n0 + wn + 16 * (j / 4) + j % 4;
       if (gn >= N) continue;
-      store_out<T, float>(c, c_off + (int64_t)gm * N + gn, acc[i][j], bias,
-                          gn, out_acc, act);
+      store_out(c, c_off + (int64_t)gm * N + gn, acc[i][j], bias, gn, act);
     }
   }
 }
 
-template <typename T, int BM, int BN, int BK>
-cudaError_t launch_simt(const void* a, const void* b, const void* bias,
-                        void* c, int out_acc, int act, int G, int S, int M,
-                        int K, int N, cudaStream_t stream) {
-  const size_t smem = (size_t)BK * (BM + kPad + BN) * sizeof(float);
-  auto kern = batched_gemm_kernel<T, BM, BN, BK>;
+template <int BM, int BN, int BK, int STAGES, int VEC>
+cudaError_t launch_simt_vec(const void* a, const void* b, const void* bias,
+                            void* c, int act, int G, int S, int M, int K,
+                            int N, cudaStream_t stream) {
+  constexpr size_t smem = simt_smem<BM, BN, BK, STAGES>();
+  auto kern = sgemm_kernel<BM, BN, BK, STAGES, VEC>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -235,30 +333,44 @@ cudaError_t launch_simt(const void* a, const void* b, const void* bias,
   }
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, G);
   kern<<<grid, kSimtThreads, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<const float*>(bias), c, out_acc, act, S, M, K, N);
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const float*>(bias), static_cast<float*>(c), act, S, M, K,
+      N);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_simt(int bm, int bn, int bk, int stages, const void* a,
-                  const void* b, const void* bias, void* c, int out_acc,
-                  int act, int G, int S, int M, int K, int N,
-                  cudaStream_t stream) {
-#define BLASX_CASE(BM_, BN_, BK_, ST_)                                    \
-  if (bm == BM_ && bn == BN_ && bk == BK_ && stages == ST_)               \
-    return (int)launch_simt<T, BM_, BN_, BK_>(a, b, bias, c, out_acc, act, \
-                                              G, S, M, K, N, stream);
+// Whether the 16-byte variant can read a and b: rows of K and N floats
+// that are multiples of 4, from 16-byte aligned bases.
+bool simt_vec4_readable(const void* a, const void* b, int K, int N) {
+  return K % 4 == 0 && N % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 16 == 0;
+}
+
+template <int BM, int BN, int BK, int STAGES>
+cudaError_t launch_simt(int vec, const void* a, const void* b,
+                        const void* bias, void* c, int act, int G, int S,
+                        int M, int K, int N, cudaStream_t stream) {
+  return vec == 4 ? launch_simt_vec<BM, BN, BK, STAGES, 4>(
+                        a, b, bias, c, act, G, S, M, K, N, stream)
+                  : launch_simt_vec<BM, BN, BK, STAGES, 1>(
+                        a, b, bias, c, act, G, S, M, K, N, stream);
+}
+
+int dispatch_simt(int bm, int bn, int bk, int stages, int vec, const void* a,
+                  const void* b, const void* bias, void* c, int act, int G,
+                  int S, int M, int K, int N, cudaStream_t stream) {
+#define BLASX_CASE(BM_, BN_, BK_, ST_)                                   \
+  if (bm == BM_ && bn == BN_ && bk == BK_ && stages == ST_)              \
+    return (int)launch_simt<BM_, BN_, BK_, ST_>(vec, a, b, bias, c, act, G, \
+                                                S, M, K, N, stream);
   BLASX_SIMT_BLOCKS(BLASX_CASE)
 #undef BLASX_CASE
   return -1;  // block shape outside the compiled table
 }
 
 // ============================================================= wgmma path
-// Shared-memory and barrier helpers (PTX; sm_90).
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// Barrier helpers (PTX; sm_90).
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
                :: "r"(smem_u32(bar)), "r"(count) : "memory");
@@ -554,15 +666,16 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 3-D map of 16-bit elements, innermost first, boxes of box0 x box1 x
-// 1 in the 128-byte swizzle; out-of-bounds elements read as zero.
+// A 3-D map of 16-bit elements, innermost first, rows of ld >= d0
+// elements, boxes of box0 x box1 x 1 in the 128-byte swizzle;
+// out-of-bounds elements (d0 <= x < ld included) read as zero.
 CUresult make_map(CUtensorMap* map, CUtensorMapDataType type, const void* p,
-                  uint64_t d0, uint64_t d1, uint64_t d2, uint32_t box0,
-                  uint32_t box1) {
+                  uint64_t d0, uint64_t d1, uint64_t d2, uint64_t ld,
+                  uint32_t box0, uint32_t box1) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};  // bytes, dims 1, 2
+  const cuuint64_t strides[2] = {ld * 2, ld * d1 * 2};  // bytes, dims 1, 2
   const cuuint32_t box[3] = {box0, box1, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   return fn(map, type, 3, const_cast<void*>(p), dims, strides, box, estr,
@@ -574,15 +687,17 @@ CUresult make_map(CUtensorMap* map, CUtensorMapDataType type, const void* p,
 template <typename T, int BM, int BN, int BK, int STAGES>
 int launch_wgmma(const void* a, const void* b, const void* bias, void* c,
                  int out_acc, int act, int G, int S, int M, int K, int N,
-                 cudaStream_t stream) {
+                 int lda, int ldb, cudaStream_t stream) {
   static_assert(BM == kWgBM && BK == kWgBK, "wgmma tiles are 128 x BN x 64");
   const CUtensorMapDataType type = std::is_same<T, __half>::value
       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap ma, mb;
-  // A (G,S,M,K) as (K, M, G*S); B (G,S,K,N) as (N, K, G*S)
-  CUresult r = make_map(&ma, type, a, K, M, (uint64_t)G * S, kWgBK, kWgBM);
+  // A (G,S,M,lda) as (K, M, G*S); B (G,S,K,ldb) as (N, K, G*S): the
+  // staged copies' pad columns are never read
+  CUresult r = make_map(&ma, type, a, K, M, (uint64_t)G * S, lda, kWgBK,
+                        kWgBM);
   if (r == CUDA_SUCCESS)
-    r = make_map(&mb, type, b, N, K, (uint64_t)G * S, kWgBox, kWgBK);
+    r = make_map(&mb, type, b, N, K, (uint64_t)G * S, ldb, kWgBox, kWgBK);
   if (r != CUDA_SUCCESS) return 1000 + (int)r;  // 1000 + the CUresult
   auto kern = wgmma_gemm_kernel<T, BN, STAGES>;
   const int smem = WgCfg<BN, STAGES>::kSmem;
@@ -598,12 +713,13 @@ int launch_wgmma(const void* a, const void* b, const void* bias, void* c,
 template <typename T>
 int dispatch_wgmma(int bm, int bn, int bk, int stages, const void* a,
                    const void* b, const void* bias, void* c, int out_acc,
-                   int act, int G, int S, int M, int K, int N,
-                   cudaStream_t stream) {
+                   int act, int G, int S, int M, int K, int N, int lda,
+                   int ldb, cudaStream_t stream) {
 #define BLASX_CASE(BM_, BN_, BK_, ST_)                                     \
   if (bm == BM_ && bn == BN_ && bk == BK_ && stages == ST_)                \
     return launch_wgmma<T, BM_, BN_, BK_, ST_>(a, b, bias, c, out_acc, act, \
-                                               G, S, M, K, N, stream);
+                                               G, S, M, K, N, lda, ldb,    \
+                                               stream);
   BLASX_WGMMA_BLOCKS(BLASX_CASE)
 #undef BLASX_CASE
   return -1;  // block shape outside the compiled table
@@ -614,18 +730,6 @@ int dispatch_wgmma(int bm, int bn, int bk, int stages, const void* a,
 // measured slower
 constexpr int kDmPad = 4;  // rows of 20 / BN+4 doubles: conflict-free fragments
 
-__device__ __forceinline__ void cp_async8(void* dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
 
 // D(16 x 8) += A(16 x 4) @ B(4 x 8) in f64 on the tensor cores.  Lane
 // l (group q = l/4, t = l%4) holds a = A[q][t], A[q+8][t]; b = B[t][q];
@@ -684,15 +788,15 @@ dmma_gemm_kernel(const double* __restrict__ a, const double* __restrict__ b,
 #pragma unroll
     for (int i = 0; i < BM / A_RSTEP; ++i) {
       const bool ok = a_k_ok && m0 + a_r0 + i * A_RSTEP < M;
-      cp_async8(sa + i * A_RSTEP * LDA, ok ? as + (int64_t)i * A_RSTEP * K : a,
-                ok ? 8 : 0);
+      cp_async<8>(sa + i * A_RSTEP * LDA,
+                  ok ? as + (int64_t)i * A_RSTEP * K : a, ok ? 8 : 0);
     }
     const double* bs = b + item * K * N + (int64_t)(k0 + b_k0) * N + n0 + b_cc;
 #pragma unroll
     for (int i = 0; i < BK / B_KSTEP; ++i) {
       const bool ok = b_col_ok && k0 + b_k0 + i * B_KSTEP < K;
-      cp_async8(sb + i * B_KSTEP * LDB, ok ? bs + (int64_t)i * B_KSTEP * N : b,
-                ok ? 8 : 0);
+      cp_async<8>(sb + i * B_KSTEP * LDB,
+                  ok ? bs + (int64_t)i * B_KSTEP * N : b, ok ? 8 : 0);
     }
   };
 
@@ -745,8 +849,8 @@ dmma_gemm_kernel(const double* __restrict__ a, const double* __restrict__ b,
         const int gm = m0 + wm + 16 * i + q + 8 * (r / 2);
         const int gn = n0 + wn + 8 * j + 2 * tq + (r % 2);
         if (gm < M && gn < N)
-          store_out<double, double>(c, c_off + (int64_t)gm * N + gn,
-                                    acc[i][j][r], bias, gn, 0, act);
+          store_out(c, c_off + (int64_t)gm * N + gn, acc[i][j][r], bias,
+                    gn, act);
       }
 }
 
@@ -783,10 +887,12 @@ int dispatch_dmma(int bm, int bn, int bk, int stages, const void* a,
   return -1;  // block shape outside the compiled table
 }
 
-// Whether the wgmma path can read the operands through TMA: row strides
-// (K * 2 and N * 2 bytes) multiples of 16 and 16-byte aligned bases.
-bool tma_readable(const void* a, const void* b, int K, int N) {
-  return K % 8 == 0 && N % 8 == 0 &&
+// Whether the wgmma path can read the operands through TMA: rows of
+// lda >= K and ldb >= N elements whose byte lengths are multiples of 16,
+// and 16-byte aligned bases.
+bool tma_readable(const void* a, const void* b, int K, int N, int lda,
+                  int ldb) {
+  return lda >= K && ldb >= N && lda % 8 == 0 && ldb % 8 == 0 &&
          reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(b) % 16 == 0;
 }
@@ -794,46 +900,50 @@ bool tma_readable(const void* a, const void* b, int K, int N) {
 }  // namespace
 
 // path: a Path code, picked by the wrapper.  dtype: 0 float64, 1
-// float32, 2 float16, 3 bfloat16.  bias: N values of the accumulator
-// type (f64 for f64, else f32), or null; act: an Act code.  (bm, bn, bk,
-// stages) must be in the path's compiled table.  Returns the launch's
+// float32, 2 float16, 3 bfloat16.  a is (G,S,M,lda) and b (G,S,K,ldb)
+// with lda >= K and ldb >= N (wgmma only: the other paths read dense
+// rows, lda == K and ldb == N).  bias: N values of the accumulator type
+// (f64 for f64, else f32), or null; act: an Act code.  (bm, bn, bk,
+// stages) must be in the path's compiled table.  vec (simt only; the
+// other paths ignore it): the floats one copy moves, 4 (16-byte) or 1
+// (4-byte), as the wrapper picked it.  Returns the launch's
 // cudaGetLastError() (0 on success), 1000 + the CUresult of building the
 // tensor maps, -1 for a block shape, dtype or activation the library
-// was not built for, or -2 for operands the path cannot take (f64 off
-// dmma, another type on it, 16-bit operands TMA cannot read on wgmma).
+// was not built for, or -2 for operands the path cannot take (another
+// type than f64 on dmma, than f32 on simt, than f16/bf16 on wgmma;
+// rows or bases TMA cannot read on wgmma; rows or bases the 16-byte
+// variant cannot read on simt; padded rows off wgmma).
 extern "C" int blasx_batched_gemm(int path, int dtype, int out_acc,
                                   const void* a, const void* b,
                                   const void* bias, int act, void* c, int G,
-                                  int S, int M, int K, int N, int bm, int bn,
-                                  int bk, int stages, void* stream) {
+                                  int S, int M, int K, int N, int lda,
+                                  int ldb, int bm, int bn, int bk,
+                                  int stages, int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (act < kActNone || act > kActTanh) return -1;
   if (dtype < 0 || dtype > 3) return -1;
+  if (path != kPathWgmma && (lda != K || ldb != N)) return -2;
   switch (path) {
     case kPathDmma:
       if (dtype != 0) return -2;
       return dispatch_dmma(bm, bn, bk, stages, a, b, bias, c, act, G, S, M,
                            K, N, st);
     case kPathWgmma:
-      if (dtype < 2 || !tma_readable(a, b, K, N)) return -2;
+      if (dtype < 2 || !tma_readable(a, b, K, N, lda, ldb)) return -2;
       return dtype == 2
           ? dispatch_wgmma<__half>(bm, bn, bk, stages, a, b, bias, c,
-                                   out_acc, act, G, S, M, K, N, st)
+                                   out_acc, act, G, S, M, K, N, lda, ldb,
+                                   st)
           : dispatch_wgmma<__nv_bfloat16>(bm, bn, bk, stages, a, b, bias, c,
-                                          out_acc, act, G, S, M, K, N, st);
+                                          out_acc, act, G, S, M, K, N, lda,
+                                          ldb, st);
     case kPathSimt:
-      break;
+      if (dtype != 1) return -2;
+      if (vec != 4 && vec != 1) return -1;
+      if (vec == 4 && !simt_vec4_readable(a, b, K, N)) return -2;
+      return dispatch_simt(bm, bn, bk, stages, vec, a, b, bias, c, act, G, S,
+                           M, K, N, st);
     default:
       return -1;
   }
-#define BLASX_DISPATCH(T_)                                                 \
-  dispatch_simt<T_>(bm, bn, bk, stages, a, b, bias, c, out_acc, act, G, S, \
-                    M, K, N, st)
-  switch (dtype) {
-    case 1: return BLASX_DISPATCH(float);
-    case 2: return BLASX_DISPATCH(__half);
-    case 3: return BLASX_DISPATCH(__nv_bfloat16);
-    default: return -2;  // f64 takes dmma
-  }
-#undef BLASX_DISPATCH
 }

@@ -32,7 +32,10 @@ Each path has its compiled ``(block_q, block_k)`` in ``BLOCKS``.
 
 The kernel or its plain version is chosen by the tensors' device: CPU
 tensors take ``kernels.ref.flash_attention_ref``; CUDA tensors launch
-the kernel or raise.  Nothing falls back.
+the kernel or raise.  Nothing falls back.  The kernel has no backward
+(neither has the reference's Pallas kernel): on the card a call whose
+inputs require grad, with grad mode on, raises (``models.attention``
+sends training through its plain chunked path instead).
 """
 from __future__ import annotations
 
@@ -186,6 +189,12 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention_fwd has no backward (nor has the reference's "
+            "Pallas kernel): call it on tensors that do not require grad, "
+            "or under torch.no_grad()")
     b, sq, h, _ = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     o = out if out is not None else torch.empty_like(

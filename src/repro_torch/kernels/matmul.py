@@ -22,32 +22,38 @@ It replaces three pieces of the reference's TPU path:
 What bounds it on the card: at the runtime's shapes (G=4, S=16, 1024^3
 tiles) the work is hundreds of flops per byte moved, so it is
 compute-bound, and for f16/bf16/f64 the card's compute is in its tensor
-cores.  :func:`kernel_path` picks one of three paths by dtype and
-alignment alone:
+cores.  :func:`kernel_path` picks one of three paths by dtype alone:
 
-* ``"wgmma"`` — f16/bf16 with K and N multiples of 8 and 16-byte aligned
-  operands (what TMA takes): TMA loads into a ring of shared-memory
-  stages, ``wgmma`` on two warpgroups, f32 accumulators;
+* ``"wgmma"`` — f16/bf16, every shape: TMA loads into a ring of
+  shared-memory stages, ``wgmma`` on two warpgroups, f32 accumulators.
+  TMA reads rows whose byte length is a multiple of 16 from 16-byte
+  aligned bases; an operand that is not so (K or N not a multiple of 8,
+  or a base off 16 bytes) is first staged by :func:`stage`;
 * ``"dmma"`` — f64, every shape: ``mma.sync`` on the FP64 tensor cores
   (IEEE f64 FMA) fed by a ``cp.async`` ring;
-* ``"simt"`` — f32 (never TF32) and the 16-bit shapes TMA cannot read:
-  the CUDA-core register-blocked loop.
+* ``"simt"`` — f32 (IEEE FMA, never TF32), every shape: the CUDA-core
+  loop, 8 x 8 sums a thread fed by 128-bit shared-memory reads, A
+  prefetched into registers and B through a ``cp.async`` ring (16-byte
+  copies where K, N and the bases allow, else 4-byte ones: the wrapper
+  picks the variant, :func:`simt_vec`, and counts it).
 
 Each path has its own table of compiled block shapes; ``blocks=`` must
-come from the table of the path the call takes.  Every path reads the
-stacked tiles in place (no transpose, reshape or pad copies: ragged
-edges read as zeros).
+come from the table of the path the call takes.  The simt and dmma paths
+read the stacked tiles in place (no transpose, reshape or pad copies:
+ragged edges read as zeros), as does wgmma wherever TMA can.
 
 The kernel or its plain version is chosen by the tensors' device:
 CPU tensors take ``kernels.ref.batched_contract_ref``; CUDA tensors
-launch the kernel or raise.  Nothing falls back.
+launch the kernel or raise.  Nothing falls back.  The kernel has no
+backward (neither has the reference's Pallas kernel): on the card a call
+whose operands require grad, with grad mode on, raises.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -60,16 +66,18 @@ PATHS: Tuple[str, ...] = ("wgmma", "dmma", "simt")
 PATH_CODES = {"simt": 0, "wgmma": 1, "dmma": 2}  # csrc/blasx_gemm.cu Path
 # the blocks compiled into the library, by path: (block_m, block_n,
 # block_k) -> stages of its shared-memory ring (the .cu's BLASX_*_BLOCKS
-# lists; simt has no ring).  wgmma 128 x 128 tiles take 3 stages (two
-# blocks on an SM), 128 x 256 tiles 4 (one block).
+# lists).  wgmma 128 x 128 tiles take 3 stages (two blocks on an SM),
+# 128 x 256 tiles 4 (one block).  simt (f32 only) rings B; its narrow
+# tiles are for outputs 64 wide or less.
 BLOCKS: Dict[str, Dict[Tuple[int, int, int], int]] = {
-    "simt": {(bm, bn, bk): 1 for bm in (64, 128) for bn in (64, 128)
-             for bk in (8, 16, 32)},
+    "simt": {(128, 128, 16): 3, (64, 128, 16): 3, (128, 64, 16): 3,
+             (64, 64, 16): 3},
     "wgmma": {(128, 128, 64): 3, (128, 256, 64): 4},
     "dmma": {(64, 64, 16): 3, (128, 64, 16): 3},
 }
 SMEM_PAD = 4          # elements of skew in the simt and dmma stages
 SMEM_BUDGET = 232448  # bytes of shared memory one block may use (227 KB)
+TMA_ROW = 8           # a 16-bit row TMA reads is a multiple of 8 elements
 
 _DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.float16: 2,
                 torch.bfloat16: 3}
@@ -78,56 +86,92 @@ _DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.float16: 2,
 ACTIVATION_CODES = {None: 0, "none": 0, "relu": 1, "gelu": 2, "silu": 3,
                     "tanh": 4}
 
+# the simt path's copy variants, by the floats one copy moves
+SIMT_COPIES = {4: "16-byte", 1: "4-byte"}
+
 # launches of the kernel in this process, in all, by storage dtype, by
-# path and dtype ({"wgmma": {"bfloat16": n}, ...}), and those with an
-# epilogue (plain-version calls never count)
+# path and dtype ({"wgmma": {"bfloat16": n}, ...}), those with an
+# epilogue, those on staged operands, by dtype, and simt's by copy
+# variant ({"16-byte": n, "4-byte": n}); plain-version calls never count
 LAUNCHES = 0
 LAUNCHES_BY_DTYPE: Dict[str, int] = {}
 LAUNCHES_BY_PATH: Dict[str, Dict[str, int]] = {}
 LAUNCHES_EPILOGUE = 0
+LAUNCHES_STAGED: Dict[str, int] = {}
+LAUNCHES_SIMT_COPY: Dict[str, int] = {}
 # the counts are bumped from every thread that launches (one worker per
 # pooled context in a BlasxServer), so each bump is one locked update
 _count_lock = threading.Lock()
 
 
-def count_launch(path: str, dtype: torch.dtype, epilogue: bool) -> None:
-    """Add one launch of ``path`` in ``dtype`` to every count."""
+def count_launch(path: str, dtype: torch.dtype, epilogue: bool,
+                 staged: bool = False, vec: int = 0) -> None:
+    """Add one launch of ``path`` in ``dtype`` to every count (``vec``:
+    a simt launch's :func:`simt_vec`, counted by variant when given)."""
     global LAUNCHES, LAUNCHES_EPILOGUE
     name = dtype_name(dtype)
     with _count_lock:
         LAUNCHES += 1
         LAUNCHES_EPILOGUE += int(epilogue)
+        if staged:
+            LAUNCHES_STAGED[name] = LAUNCHES_STAGED.get(name, 0) + 1
+        if vec:
+            copy = SIMT_COPIES[vec]
+            LAUNCHES_SIMT_COPY[copy] = LAUNCHES_SIMT_COPY.get(copy, 0) + 1
         LAUNCHES_BY_DTYPE[name] = LAUNCHES_BY_DTYPE.get(name, 0) + 1
         by_dtype = LAUNCHES_BY_PATH.setdefault(path, {})
         by_dtype[name] = by_dtype.get(name, 0) + 1
 
 
-def _path(itemsize: int, k: int, n: int, aligned: bool = True) -> str:
-    if itemsize == 8:
-        return "dmma"
-    if itemsize == 2 and k % 8 == 0 and n % 8 == 0 and aligned:
-        return "wgmma"
-    return "simt"
+def _path(itemsize: int) -> str:
+    return {8: "dmma", 2: "wgmma"}.get(itemsize, "simt")
 
 
-def kernel_path(dtype, m: int, k: int, n: int, *,
-                aligned: bool = True) -> str:
-    """The path a ``(M, K) x (K, N)`` product of ``dtype`` takes on the
-    card: ``"dmma"`` for f64, ``"wgmma"`` for f16/bf16 whose row strides
-    TMA can read (K and N multiples of 8) from 16-byte aligned bases
-    (``aligned``), else ``"simt"`` (f32 and the other 16-bit shapes).
-    M never matters.  The kernel is told the path; it only refuses
-    operands the path cannot read."""
-    return _path(canonical_dtype(dtype).itemsize, k, n, aligned)
+def kernel_path(dtype) -> str:
+    """The path a product of ``dtype`` takes on the card: ``"dmma"`` for
+    f64, ``"wgmma"`` for f16/bf16, ``"simt"`` for f32, whatever the
+    shape (:func:`operand_staging` says which 16-bit operands are staged
+    first); the kernel is told the path and only refuses operands the
+    path cannot read."""
+    return _path(canonical_dtype(dtype).itemsize)
 
 
 def operand_path(a: torch.Tensor, b: torch.Tensor) -> str:
-    """:func:`kernel_path` of ``a (..., M, K) @ b (..., K, N)``, alignment
-    read from the tensors' addresses (a view at another storage offset
-    may take another path)."""
-    return kernel_path(a.dtype, a.shape[-2], a.shape[-1], b.shape[-1],
-                       aligned=a.data_ptr() % 16 == 0
-                       and b.data_ptr() % 16 == 0)
+    """:func:`kernel_path` of ``a (..., M, K) @ b (..., K, N)``."""
+    return kernel_path(a.dtype)
+
+
+def operand_staging(a: torch.Tensor, b: torch.Tensor) -> Tuple[bool, bool]:
+    """Whether the wgmma path reads ``a (..., M, K)`` and ``b (..., K, N)``
+    through a staged copy: a 16-bit operand whose row is not a multiple
+    of 8 elements, or whose base is off 16 bytes, is one TMA cannot read
+    in place.  Other dtypes are never staged."""
+    if a.element_size() != 2:
+        return (False, False)
+    return tuple(x.shape[-1] % TMA_ROW != 0 or x.data_ptr() % 16 != 0
+                 for x in (a, b))
+
+
+def simt_vec(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The floats one copy of the f32 simt kernel moves for ``a (..., M,
+    K)`` and ``b (..., K, N)``: 4 (16-byte A loads and B copies) where K
+    and N are multiples of 4 and both bases 16-byte aligned, else 1
+    (4-byte ones, which take every shape and offset)."""
+    aligned = all(x.shape[-1] % 4 == 0 and x.data_ptr() % 16 == 0
+                  for x in (a, b))
+    return 4 if aligned else 1
+
+
+def stage(x: torch.Tensor) -> torch.Tensor:
+    """One zero-padded copy of ``x (..., R, C)`` into a fresh buffer
+    ``(..., R, C8)``, C8 being C rounded up to a multiple of 8: rows TMA
+    can read, from the allocator's (16-byte aligned) base.  Its first C
+    columns are ``x``; the kernel never reads the others."""
+    c = x.shape[-1]
+    out = x.new_empty((*x.shape[:-1], -(-c // TMA_ROW) * TMA_ROW))
+    out[..., :c] = x
+    out[..., c:] = 0  # fewer than 8 columns a row: not a second full pass
+    return out
 
 
 def compiled_blocks(path: str) -> Tuple[Tuple[int, int, int], ...]:
@@ -140,37 +184,35 @@ def compiled_blocks(path: str) -> Tuple[Tuple[int, int, int], ...]:
 def smem_bytes(bm: int, bn: int, bk: int, itemsize: int,
                path: str = "simt") -> int:
     """Shared memory of one block of ``path``, ``itemsize`` being the
-    bytes of one staged element: simt stages the transposed A sub-tile
-    (skewed by ``SMEM_PAD``) and the B sub-tile in f32; dmma a ring of
-    padded f64 stages; wgmma a ring of 16-bit stages, a full and an
-    empty barrier per stage, and 1 KB of slack to align the tiles for
-    the 128-byte swizzle.  The stages are the compiled table's."""
+    bytes of one staged element: simt two k-major A slabs (skewed by
+    ``SMEM_PAD``) and a ring of B slabs in f32; dmma a ring of padded
+    f64 stages; wgmma a ring of 16-bit stages, a full and an empty
+    barrier per stage, and 1 KB of slack to align the tiles for the
+    128-byte swizzle.  The stages are the compiled table's."""
+    if path not in BLOCKS:
+        raise ValueError(f"unknown path {path!r}; choose from {PATHS}")
+    stages = BLOCKS[path][(bm, bn, bk)]
     if path == "simt":
-        return bk * (bm + SMEM_PAD + bn) * itemsize
-    stages = BLOCKS[path][(bm, bn, bk)] if path in BLOCKS else 0
+        return (2 * bk * (bm + SMEM_PAD) + stages * bk * bn) * itemsize
     if path == "dmma":
         return stages * (bm * (bk + SMEM_PAD) + bk * (bn + SMEM_PAD)) \
             * itemsize
-    if path == "wgmma":
-        return stages * (bm * bk + bk * bn) * itemsize + 2 * stages * 8 + 1024
-    raise ValueError(f"unknown path {path!r}; choose from {PATHS}")
+    return stages * (bm * bk + bk * bn) * itemsize + 2 * stages * 8 + 1024
 
 
 def default_blocks(m: int, n: int, k: int, itemsize: int,
                    path: Optional[str] = None) -> Tuple[int, int, int]:
     """Pick ``(block_m, block_n, block_k)`` from the compiled table of
-    ``path`` (default: the path the shape takes from aligned operands).
-    wgmma: 128 x 256 tiles once N > 128, else 128 x 128.  dmma: 64 rows
-    where M is narrow, else 128, by 64 columns.  simt: 128-wide tiles
-    unless the output is narrow, BK = 16 (8 for K <= 8); every simt
-    block stages f32 and fits the budget many times over."""
-    path = path or _path(itemsize, k, n)
+    ``path`` (default: the path of ``itemsize``).  wgmma: 128 x 256
+    tiles once N > 128, else 128 x 128.  dmma: 64 rows where M is
+    narrow, else 128, by 64 columns.  simt: 128 x 128 x 16, 64 rows or
+    columns where the output is that narrow."""
+    path = path or _path(itemsize)
     if path == "wgmma":
         return (128, 256, 64) if n > 128 else (128, 128, 64)
     if path == "dmma":
         return (128 if m > 64 else 64, 64, 16)
-    return (128 if m > 64 else 64, 128 if n > 64 else 64,
-            16 if k > 8 else 8)
+    return (128 if m > 64 else 64, 128 if n > 64 else 64, 16)
 
 
 def check_blocks(bm: int, bn: int, bk: int, path: str = "simt") -> None:
@@ -221,15 +263,44 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.load("blasx_gemm").blasx_batched_gemm
-    # path, dtype, out_acc, a, b, bias, act, c, G, S, M, K, N, bm, bn, bk,
-    # stages, stream
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    # path, dtype, out_acc, a, b, bias, act, c, G, S, M, K, N, lda, ldb,
+    # bm, bn, bk, stages, vec, stream
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 12
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+class Operands(NamedTuple):
+    """What a launch reads: ``a (G, S, M, lda)`` and ``b (G, S, K, ldb)``
+    holding the logical ``(..., M, K)`` and ``(..., K, N)`` operands in
+    their first K and N columns (lda = K and ldb = N unless staged)."""
+
+    a: torch.Tensor
+    b: torch.Tensor
+    k: int
+    n: int
+    staged: bool = False  # whether either is a stage() copy
+
+
+def stage_operands(a: torch.Tensor, b: torch.Tensor) -> Operands:
+    """The operands a launch reads: each 16-bit operand TMA cannot read
+    in place (:func:`operand_staging`) as a :func:`stage` copy, the
+    others as they are."""
+    k, n = a.shape[-1], b.shape[-1]
+    stage_a, stage_b = operand_staging(a, b)
+    return Operands(stage(a) if stage_a else a, stage(b) if stage_b else b,
+                    k, n, stage_a or stage_b)
+
+
+def _no_grad_check(*xs: Optional[torch.Tensor]) -> None:
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad
+                                       for x in xs):
+        raise RuntimeError(
+            "blasx_batched_gemm has no backward (nor has the reference's "
+            "Pallas kernel): call it on tensors that do not require grad, "
+            "or under torch.no_grad()")
 
 
 def batched_contract(a: torch.Tensor, b: torch.Tensor,
@@ -243,7 +314,12 @@ def batched_contract(a: torch.Tensor, b: torch.Tensor,
     and must come from the compiled table of the call's
     :func:`kernel_path`.
     The epilogue (``bias`` of N values, ``activation`` from
-    ``ACTIVATIONS``) is taken for G = 1, S = 1 only."""
+    ``ACTIVATIONS``) is taken for G = 1, S = 1 only.
+
+    On the card a 16-bit operand TMA cannot read in place is staged
+    first (:func:`stage_operands`): one extra read and write of it, and
+    a transient copy of its size with rows rounded up to 8 elements,
+    held until the launch is queued.  f32 and f64 are never copied."""
     _check(a, b)
     g, s, m, k = a.shape
     n = b.shape[3]
@@ -251,8 +327,8 @@ def batched_contract(a: torch.Tensor, b: torch.Tensor,
     if blocks is not None:
         check_blocks(*blocks, path=path)
     check_epilogue(bias, activation, n)
-    epilogue = bias is not None or ACTIVATION_CODES[activation] != 0
-    if epilogue and (g != 1 or s != 1):
+    if (bias is not None or ACTIVATION_CODES[activation] != 0) and \
+            (g != 1 or s != 1):
         raise ValueError(f"the epilogue is for a plain matmul (G = S = 1), "
                          f"got G={g} S={s}")
     if bias is not None:
@@ -267,9 +343,27 @@ def batched_contract(a: torch.Tensor, b: torch.Tensor,
         return batched_contract_ref(a, b, out_dtype, bias, activation)
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {a.device}")
+    return _launch(stage_operands(a, b), out_dtype, blocks=blocks,
+                   bias=bias, activation=activation)
+
+
+def _launch(ops: Operands, out_dtype: Optional[torch.dtype] = None, *,
+            blocks: Optional[Tuple[int, int, int]] = None,
+            bias: Optional[torch.Tensor] = None,
+            activation: Optional[str] = None) -> torch.Tensor:
+    """The kernel's launch on CUDA operands as :func:`batched_contract`
+    has checked and staged them (``bias`` contiguous in the accumulator
+    type); counts it."""
+    a, b = ops.a, ops.b
+    g, s, m, _ = a.shape
+    k, n = ops.k, ops.n
+    path = operand_path(a, b)
+    vec = simt_vec(a, b) if path == "simt" else 0
+    _no_grad_check(a, b, bias)
     bm, bn, bk = blocks or default_blocks(m, n, k, a.element_size(), path)
     # the kernel writes the storage type or the accumulator type; any
     # other requested type is one cast of the result
+    out_dtype = out_dtype or a.dtype
     acc = accumulator_dtype(a.dtype)
     out_acc = out_dtype == acc and acc != a.dtype
     c = torch.empty((g, m, n), device=a.device,
@@ -282,12 +376,15 @@ def batched_contract(a: torch.Tensor, b: torch.Tensor,
                       a.data_ptr(), b.data_ptr(),
                       None if bias is None else bias.data_ptr(),
                       ACTIVATION_CODES[activation], c.data_ptr(), g, s, m, k,
-                      n, bm, bn, bk, BLOCKS[path][(bm, bn, bk)], stream)
+                      n, a.shape[3], b.shape[3], bm, bn, bk,
+                      BLOCKS[path][(bm, bn, bk)], vec, stream)
     if rc != 0:
         raise RuntimeError(f"blasx_batched_gemm launch failed: error {rc} "
                            f"(G={g} S={s} M={m} K={k} N={n} "
-                           f"blocks={bm}x{bn}x{bk} path={path} "
+                           f"lda={a.shape[3]} ldb={b.shape[3]} "
+                           f"blocks={bm}x{bn}x{bk} path={path} vec={vec} "
                            f"dtype={a.dtype} "
                            f"activation={activation})")
-    count_launch(path, a.dtype, epilogue)
+    count_launch(path, a.dtype, bias is not None
+                 or ACTIVATION_CODES[activation] != 0, ops.staged, vec)
     return c if c.dtype == out_dtype else c.to(out_dtype)

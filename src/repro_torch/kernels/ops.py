@@ -35,11 +35,11 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     none/relu/gelu (tanh form)/silu/tanh.
 
     ``block_m``/``block_n``/``block_k`` override the blocks of the path
-    the call takes (``kernel_path`` of the converted operands, their
-    alignment included): wgmma takes (128, 128 or 256, 64), dmma (64 or
-    128, 64, 16), simt {64, 128}^2 x {8, 16, 32} (``compiled_blocks``).
-    A block outside that path's table raises ``ValueError``; the sizes
-    not given come from that path's default."""
+    the call takes (``kernel_path`` of the converted operands): wgmma
+    takes (128, 128 or 256, 64), dmma (64 or 128, 64, 16), simt {64,
+    128}^2 x {16} (``compiled_blocks``).  A block
+    outside that path's table raises ``ValueError``; the sizes not given
+    come from that path's default."""
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"matmul expects 2-D operands, got "
                          f"{tuple(a.shape)} {tuple(b.shape)}")

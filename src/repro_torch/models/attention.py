@@ -3,8 +3,8 @@ and query-chunked computation for long prefills.
 
 The counterpart of the GQA part of the reference's
 ``models/attention.py``.  Softmax/score math in f32; weights and
-activations in the config dtype.  MLA (DeepSeek) is not ported yet
-(ROADMAP Queue 1 item 11).
+activations in the config dtype.  MLA (DeepSeek) is not ported yet: it
+comes with the slice of the other model families.
 """
 from __future__ import annotations
 
@@ -24,7 +24,9 @@ DEFAULT_Q_CHUNK = 1024
 #   "flash" — the hand-written flash-attention kernel (the reference's
 #             "pallas", its TPU target; the reference's _FLASH_INTERPRET
 #             = False is that setting on a real TPU).  On CPU tensors the
-#             kernel's plain version runs.
+#             kernel's plain version runs.  The kernel is forward-only, as
+#             the reference's is, so inputs that require grad (training)
+#             take the "sdpa" path whatever this says.
 # Decode and cross-attention always take the "sdpa" path: in the
 # reference they are einsums, not a Pallas kernel.
 ATTENTION_BACKEND = "flash"
@@ -165,8 +167,10 @@ def gqa_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         qpos = positions
         causal_eff = causal and kv_input is None
 
+    wants_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
     if (ATTENTION_BACKEND == "flash" and cache is None
-            and kv_input is None and kv_valid is None):
+            and kv_input is None and kv_valid is None and not wants_grad):
         from ..kernels.flash_attention import flash_attention
         out = flash_attention(q, k, v, causal=causal_eff, scale=scale)
     else:

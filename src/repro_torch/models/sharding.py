@@ -29,7 +29,7 @@ def rules_for_mesh(mesh, *, seq_axis: Optional[str] = None) -> MeshRules:
         return NO_MESH
     raise NotImplementedError(
         "the port runs the model stack on one card; meshes come with the "
-        "tensor-parallel slice (ROADMAP Queue 1 item 11)")
+        "slice of the other model families")
 
 
 NO_MESH = MeshRules()

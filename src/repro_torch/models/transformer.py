@@ -27,7 +27,7 @@ from .attention import gqa_attention, make_attn_params
 from .layers import Maker, apply_norm, make_mlp_params, mlp
 from .sharding import MeshRules, NO_MESH
 
-_NOT_PORTED = "ROADMAP Queue 1 item 11"
+_NOT_PORTED = "it comes with the slice of the other model families"
 
 
 class _Stacked:

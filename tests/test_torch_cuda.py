@@ -61,7 +61,7 @@ def test_tensor_core_paths_match_plain_version(card, dtype, shape):
     from repro_torch.core.dtypes import dtype_name
     g, s, m, k, n = shape
     path = "dmma" if dtype == torch.float64 else "wgmma"
-    assert kmm.kernel_path(dtype, m, k, n) == path
+    assert kmm.kernel_path(dtype) == path
     gen = torch.Generator(device=card).manual_seed(sum(shape))
     a = torch.randn((g, s, m, k), generator=gen, device=card).to(dtype)
     b = torch.randn((g, s, k, n), generator=gen, device=card).to(dtype)
@@ -82,27 +82,195 @@ def test_tensor_core_paths_match_plain_version(card, dtype, shape):
 
 
 def test_entry_refuses_operands_the_path_cannot_read(card):
-    """The wrapper picks the path; the C entry still refuses what that
-    path cannot read (rc -2) rather than reading past it: another type
-    on dmma or wgmma, and 16-bit operands off TMA's 16-byte alignment."""
-    def call(path, a, b, blocks):
-        g, s, m, k = a.shape
-        n = b.shape[3]
+    """The wrapper picks the path and stages what wgmma cannot read in
+    place; the C entry still refuses what the path cannot read (rc -2)
+    rather than reading past it: another type on dmma, wgmma or simt
+    (16-bit is never simt's), 16-bit operands off TMA's 16-byte
+    alignment or rows, 16-byte simt copies off their rows or bases, and
+    padded rows off wgmma; a copy width simt does not have is rc -1."""
+    def call(path, a, b, blocks, k=None, n=None, vec=1):
+        g, s, m, lda = a.shape
+        ldb = b.shape[3]
+        k, n = k or lda, n or ldb
         c = torch.empty((g, m, n), device=card, dtype=torch.float32)
         stream = torch.cuda.current_stream().cuda_stream
         return kmm._entry()(kmm.PATH_CODES[path], kmm._DTYPE_CODES[a.dtype],
                             1, a.data_ptr(), b.data_ptr(), None, 0,
-                            c.data_ptr(), g, s, m, k, n, *blocks,
-                            kmm.BLOCKS[path][blocks], stream)
+                            c.data_ptr(), g, s, m, k, n, lda, ldb, *blocks,
+                            kmm.BLOCKS[path][blocks], vec, stream)
     wg, dm = kmm.compiled_blocks("wgmma")[0], kmm.compiled_blocks("dmma")[0]
+    sm = kmm.compiled_blocks("simt")[0]
     f32 = torch.ones((1, 1, 64, 64), device=card)
     bf = f32.bfloat16()
     assert call("wgmma", f32, f32, wg) == -2
     assert call("dmma", bf, bf, dm) == -2
-    assert call("simt", f32.double(), f32.double(), (64, 64, 8)) == -2
+    assert call("simt", f32.double(), f32.double(), sm) == -2
+    assert call("simt", bf, bf, sm) == -2
+    assert call("simt", f32, f32, sm, k=60) == -2  # padded rows off wgmma
+    assert call("simt", f32, f32, sm, vec=2) == -1
+    f32_62 = torch.ones((1, 1, 64, 62), device=card)
+    assert call("simt", f32_62, f32[:, :, :62], sm, vec=4) == -2
+    f32_off = torch.ones(64 * 64 + 1, device=card)[1:].view(1, 1, 64, 64)
+    assert call("simt", f32_off, f32, sm, vec=4) == -2
+    assert call("simt", f32_off, f32, sm, vec=1) == 0
     off = torch.ones(64 * 64 + 1, device=card, dtype=torch.bfloat16)[1:]
     assert call("wgmma", off.view(1, 1, 64, 64), bf, wg) == -2
+    rows60 = torch.ones((1, 1, 64, 60), device=card, dtype=torch.bfloat16)
+    assert call("wgmma", rows60, bf[:, :, :60], wg) == -2
     torch.cuda.synchronize()
+
+
+# ------------------------------------------- f32 simt and 16-bit staging
+def _normwise(got, want):
+    return float(torch.linalg.norm((got - want).double())
+                 / torch.linalg.norm(want.double()))
+
+
+# (G,S,M,K,N) by copy variant: 16-byte (K, N multiples of 4, aligned
+# bases) and 4-byte (K % 4, N % 4, or an A base 4 bytes off 16)
+SIMT_SHAPES = {"16-byte": [(2, 3, 200, 96, 136), (4, 2, 256, 128, 256)],
+               "4-byte": [(2, 3, 65, 33, 129), (1, 2, 100, 64, 130),
+                          (3, 1, 70, 30, 44)]}
+
+
+@pytest.mark.parametrize("variant", list(SIMT_SHAPES))
+@pytest.mark.parametrize("blocks", list(kmm.BLOCKS["simt"]), ids=str)
+def test_f32_simt_on_every_block_and_copy_variant(card, blocks, variant):
+    """The redesigned f32 kernel on each compiled block and both copy
+    variants, against the plain version at the f32 limit; every launch
+    on simt.  The shifted-base case puts A 4 bytes past a 16-byte
+    boundary with K and N multiples of 4."""
+    gen = torch.Generator(device=card).manual_seed(sum(blocks))
+    cases = []
+    for g, s, m, k, n in SIMT_SHAPES[variant]:
+        cases.append((torch.randn((g, s, m, k), generator=gen, device=card),
+                      torch.randn((g, s, k, n), generator=gen, device=card)))
+    if variant == "4-byte":
+        g, s, m, k, n = 2, 2, 96, 64, 128
+        buf = torch.randn(g * s * m * k + 1, generator=gen, device=card)
+        a = buf[1:].view(g, s, m, k)
+        assert a.data_ptr() % 16 == 4
+        cases.append((a, torch.randn((g, s, k, n), generator=gen,
+                                     device=card)))
+    for a, b in cases:
+        before = kmm.LAUNCHES_BY_PATH.get("simt", {}).get("float32", 0)
+        copies = kmm.LAUNCHES_SIMT_COPY.get(variant, 0)
+        got = kmm.batched_contract(a, b, blocks=blocks)
+        torch.cuda.synchronize()
+        assert kmm.LAUNCHES_BY_PATH["simt"]["float32"] == before + 1
+        assert kmm.LAUNCHES_SIMT_COPY[variant] == copies + 1
+        assert _normwise(got, batched_contract_ref(a, b)) <= 1e-4
+
+
+# 16-bit shapes and offsets TMA cannot read in place: K % 8, N % 8, both,
+# and an aligned shape whose A base sits 2 bytes off 16
+STAGED_SHAPES = [(2, 3, 65, 33, 129), (1, 1, 100, 70, 128),
+                 (1, 2, 64, 64, 60), (3, 2, 1000, 997, 1003),
+                 (4, 16, 1024, 1020, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_staged_16bit_shapes_take_wgmma(card, dtype):
+    """Every 16-bit shape runs on wgmma: operands TMA cannot read in
+    place are staged into a zero-padded copy first.  Within 2e-2 of the
+    plain version, f32 sums too, and no 16-bit launch on simt."""
+    from repro_torch.core.dtypes import dtype_name
+    name = dtype_name(dtype)
+    gen = torch.Generator(device=card).manual_seed(11)
+    cases = []
+    for g, s, m, k, n in STAGED_SHAPES:
+        cases.append((torch.randn((g, s, m, k), generator=gen,
+                                  device=card).to(dtype),
+                      torch.randn((g, s, k, n), generator=gen,
+                                  device=card).to(dtype)))
+    buf = torch.randn(64 * 64 + 1, generator=gen, device=card).to(dtype)
+    cases.append((buf[1:].view(1, 1, 64, 64),
+                  torch.randn((1, 1, 64, 64), generator=gen,
+                              device=card).to(dtype)))
+    for a, b in cases:
+        assert kmm.operand_path(a, b) == "wgmma"
+        assert any(kmm.operand_staging(a, b))
+        before = kmm.LAUNCHES_BY_PATH.get("wgmma", {}).get(name, 0)
+        simt = kmm.LAUNCHES_BY_PATH.get("simt", {}).get(name, 0)
+        got = kmm.batched_contract(a, b)
+        wide = kmm.batched_contract(a, b, torch.float32)
+        torch.cuda.synchronize()
+        assert kmm.LAUNCHES_BY_PATH["wgmma"][name] == before + 2
+        assert kmm.LAUNCHES_BY_PATH.get("simt", {}).get(name, 0) == simt
+        assert _normwise(got, batched_contract_ref(a, b)) <= 2e-2
+        assert _normwise(wide, batched_contract_ref(a, b, torch.float32)) \
+            <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("activation", [None, "relu", "gelu", "silu",
+                                        "tanh"])
+def test_epilogue_on_staged_16bit_shapes(card, dtype, activation):
+    """The bias row and each activation on shapes that are staged (K
+    and N off a multiple of 8), against the plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import matmul_ref
+    gen = torch.Generator(device=card).manual_seed(5)
+    for m, k, n in [(100, 70, 130), (513, 129, 257)]:
+        a = torch.randn((m, k), generator=gen, device=card).to(dtype)
+        b = torch.randn((k, n), generator=gen, device=card).to(dtype)
+        bias = torch.randn((n,), generator=gen, device=card)
+        assert kmm.operand_staging(a, b) == (True, True)
+        before = kmm.LAUNCHES_EPILOGUE
+        got = ops.matmul(a, b, bias, activation=activation)
+        torch.cuda.synchronize()
+        assert kmm.LAUNCHES_EPILOGUE == before + 1
+        assert _normwise(got, matmul_ref(a, b, bias, activation)) <= 2e-2
+
+
+def test_kernels_refuse_inputs_that_require_grad(card):
+    """Neither hand kernel has a backward (nor has the reference's), so
+    a CUDA call whose inputs require grad raises with grad mode on, and
+    runs under ``torch.no_grad()``."""
+    from repro_torch.kernels import flash_attention as kfa
+    a = torch.randn((1, 1, 64, 32), device=card, requires_grad=True)
+    b = torch.randn((1, 1, 32, 48), device=card)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kmm.batched_contract(a, b)
+    with torch.no_grad():
+        assert kmm.batched_contract(a, b).shape == (1, 64, 48)
+    q = torch.randn((1, 16, 4, 64), device=card, requires_grad=True)
+    kv = torch.randn((1, 16, 2, 64), device=card)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kfa.flash_attention(q, kv, kv)
+    with torch.no_grad():
+        assert kfa.flash_attention(q, kv, kv).shape == q.shape
+
+
+def test_train_mode_attention_on_the_card_keeps_grad_fn(card):
+    """A train-mode forward of the reduced Qwen3 on the card under the
+    default "flash" backend takes the plain chunked path (no flash
+    launch) and keeps its gradients; without grad the kernel runs."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn
+    cfg = get_config("qwen3_0_6b").reduced()
+    model = Model(cfg)
+    params = model.init(seed=0, device="cuda")
+
+    def trainable(tree):
+        if isinstance(tree, dict):
+            return {k: trainable(v) for k, v in tree.items()}
+        return tree.detach().clone().requires_grad_(True)
+
+    train = trainable(params)
+    tok = torch.randint(0, cfg.vocab_size, (2, 16), device=card)
+    assert attn.ATTENTION_BACKEND == "flash"
+    before = kfa.LAUNCHES
+    logits, _ = model.train_logits(train, tokens=tok)
+    assert kfa.LAUNCHES == before and logits.grad_fn is not None
+    logits.float().square().mean().backward()
+    assert train["blocks"]["attn"]["wq"].grad is not None
+    with torch.no_grad():
+        model.train_logits(train, tokens=tok)
+    torch.cuda.synchronize()
+    assert kfa.LAUNCHES == before + cfg.n_layers
 
 
 def test_context_launches_take_the_tensor_core_paths(card):
@@ -172,7 +340,7 @@ def test_epilogue_on_the_wgmma_path(card, dtype, activation):
     a = torch.randn((1024, 1024), generator=gen, device=card).to(dtype)
     b = torch.randn((1024, 3072), generator=gen, device=card).to(dtype)
     bias = torch.randn((3072,), generator=gen, device=card)
-    assert ops.kernel_path(dtype, 1024, 1024, 3072) == "wgmma"
+    assert ops.kernel_path(dtype) == "wgmma"
     before = kmm.LAUNCHES_BY_PATH.get("wgmma", {}).get(dtype_name(dtype), 0)
     got = ops.matmul(a, b, bias, activation=activation)
     torch.cuda.synchronize()

@@ -9,6 +9,8 @@ same numpy inputs go to both.  The CUDA kernel itself is held against
 the plain version on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``).
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -178,16 +180,16 @@ def test_gelu_is_the_tanh_form():
 def test_matmul_explicit_blocks():
     a, b = _np_pair(256, 256, 256, seed=5)
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
-    for bm, bn, bk in [(128, 128, 16), (64, 128, 32), (128, 64, 8)]:
+    for bm, bn, bk in kmm.compiled_blocks("simt"):  # the f32 table
         out = ops.matmul(ta, tb, block_m=bm, block_n=bn, block_k=bk)
         np.testing.assert_allclose(out.numpy(), a @ b, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 def test_matmul_block_override_follows_the_path(dtype):
-    """A 16-bit block override is checked against the table of the path
-    the converted operands take, their alignment included, and the sizes
-    not given come from that path's default."""
+    """A 16-bit block override is checked against the wgmma table, the
+    path of every 16-bit shape and alignment (those TMA cannot read in
+    place are staged), and the sizes not given come from its default."""
     dt = getattr(torch, dtype)
     a, b = _np_pair(64, 64, 128, seed=6)
     ta, tb = torch.from_numpy(a).to(dt), torch.from_numpy(b).to(dt)
@@ -199,21 +201,23 @@ def test_matmul_block_override_follows_the_path(dtype):
     for kw in ({"block_k": 16}, {"block_m": 64}, {"block_n": 64}):
         with pytest.raises(ValueError, match="compiled table of the wgmma"):
             ops.matmul(ta, tb, **kw)
-    # K off the 8 TMA needs: simt's table and defaults
+    # K off the 8 TMA needs: still wgmma's table and defaults (A staged)
     tk, tkb = ta[:, :60].contiguous(), tb[:60].contiguous()
-    assert kmm.operand_path(tk, tkb) == "simt"
-    assert torch.equal(ops.matmul(tk, tkb, block_k=16), matmul_ref(tk, tkb))
-    with pytest.raises(ValueError, match="compiled table of the simt"):
-        ops.matmul(tk, tkb, block_n=256)
-    # the same shape two bytes off a 16-byte boundary is simt's too
+    assert kmm.operand_path(tk, tkb) == "wgmma"
+    assert kmm.operand_staging(tk, tkb) == (True, False)
+    assert torch.equal(ops.matmul(tk, tkb, block_n=256), matmul_ref(tk, tkb))
+    with pytest.raises(ValueError, match="compiled table of the wgmma"):
+        ops.matmul(tk, tkb, block_k=16)
+    # the same shape two bytes off a 16-byte boundary is wgmma's too
     base = torch.zeros(64 * 64 + 1, dtype=dt)
     off = base[1:].view(64, 64)
     off.copy_(ta)
     assert off.data_ptr() % 16 != 0
-    assert kmm.operand_path(off, tb) == "simt"
-    assert torch.equal(ops.matmul(off, tb, block_m=64), want)
-    with pytest.raises(ValueError, match="compiled table of the simt"):
-        ops.matmul(off, tb, block_n=256)
+    assert kmm.operand_path(off, tb) == "wgmma"
+    assert kmm.operand_staging(off, tb) == (True, False)
+    assert torch.equal(ops.matmul(off, tb, block_m=128), want)
+    with pytest.raises(ValueError, match="compiled table of the wgmma"):
+        ops.matmul(off, tb, block_m=64)
 
 
 def test_matmul_shape_errors():
@@ -255,13 +259,16 @@ def test_block_heuristic_respects_smem():
                          (33, 100000, 7, 4), (1024, 1024, 16384, 8),
                          (1, 1, 1, 8), (1024, 3072, 1024, 2),
                          (100, 130, 70, 2), (1, 8, 8, 2)]:
-        path = kmm._path(isz, k, n)
+        path = kmm._path(isz)
         bm, bn, bk = ops.default_blocks(m, n, k, isz)
         assert (bm, bn, bk) in kmm.compiled_blocks(path)
         staged = {"simt": 4, "dmma": 8, "wgmma": 2}[path]
         assert ops.smem_bytes(bm, bn, bk, staged, path) <= ops.SMEM_BUDGET
-    for bm, bn, bk in kmm.compiled_blocks("simt"):
-        assert ops.smem_bytes(bm, bn, bk, 4) <= ops.SMEM_BUDGET
+    for (bm, bn, bk), stages in kmm.BLOCKS["simt"].items():
+        # two k-major A slabs skewed by 4, a ring of B slabs, in f32
+        need = ops.smem_bytes(bm, bn, bk, 4)
+        assert need == (2 * bk * (bm + 4) + stages * bk * bn) * 4
+        assert need <= ops.SMEM_BUDGET
     for bm, bn, bk in kmm.compiled_blocks("dmma"):
         assert ops.smem_bytes(bm, bn, bk, 8, "dmma") <= ops.SMEM_BUDGET
     for (bm, bn, bk), stages in kmm.BLOCKS["wgmma"].items():
@@ -274,14 +281,78 @@ def test_block_heuristic_respects_smem():
     assert 2 * (ops.smem_bytes(128, 128, 64, 2, "wgmma") + 1024) <= 233472
 
 
+def test_simt_table_is_f32_with_a_ring_that_fits_two_blocks():
+    """The simt path is f32 only: its table holds each block's B-ring
+    stages, every block fits the budget with room for a second block on
+    the SM (``__launch_bounds__(256, 2)``), 256 threads own 16 x 16
+    positions of 4 x 4 sub-tiles, and the default picks from the table:
+    128 x 128 x 16, 64 rows or columns where the output is that narrow."""
+    assert kmm.kernel_path("float32") == "simt"
+    for name in ("float64", "bfloat16", "float16"):
+        assert kmm.kernel_path(name) != "simt"
+    for (bm, bn, bk), stages in kmm.BLOCKS["simt"].items():
+        assert stages >= 3
+        need = ops.smem_bytes(bm, bn, bk, 4, "simt")
+        assert 2 * (need + 1024) <= 233472  # 228 KB, 1 KB kept a block
+        assert (bm // 16) % 4 == 0 and (bn // 16) % 4 == 0
+        assert bm * bk % (256 * 4) == 0  # whole 16-byte A loads a thread
+    for m, n, k, want in [(1024, 1024, 1024, (128, 128, 16)),
+                          (64, 1024, 4096, (64, 128, 16)),
+                          (1024, 33, 7, (128, 64, 16)),
+                          (1, 1, 1, (64, 64, 16))]:
+        assert ops.default_blocks(m, n, k, 4) == want
+        assert want in kmm.compiled_blocks("simt")
+
+
+@pytest.mark.parametrize("g,s,m,k,n", [(2, 3, 5, 7, 13), (1, 1, 4, 8, 8),
+                                       (3, 2, 9, 33, 1)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_staging_copy_pads_with_zeros_and_keeps_the_product(g, s, m, k, n,
+                                                            dtype):
+    """:func:`kmm.stage` makes one zero-padded copy whose rows are a
+    multiple of 8 elements on a 16-byte aligned base; the plain version
+    on the staged operands (their logical columns, or B padded with zero
+    rows to A's padded K) equals the unstaged one."""
+    dt = getattr(torch, dtype)
+    r = np.random.default_rng(g * 100 + k)
+    a = torch.from_numpy(r.standard_normal((g, s, m, k))).to(dt)
+    b = torch.from_numpy(r.standard_normal((g, s, k, n))).to(dt)
+    want = batched_contract_ref(a, b)
+    ops_ = kmm.stage_operands(a, b)
+    assert (ops_.k, ops_.n) == (k, n)
+    assert ops_.staged == (k % 8 != 0 or n % 8 != 0)
+    for x, st, width in ((a, ops_.a, k), (b, ops_.b, n)):
+        staged = width % 8 != 0
+        assert (st is not x) == staged
+        assert st.shape[-1] == -(-width // 8) * 8
+        assert st.data_ptr() % 16 == 0 and st.is_contiguous()
+        assert torch.equal(st[..., :width], x)
+        assert not st[..., width:].any()  # zeros in the pad
+    got = batched_contract_ref(ops_.a[..., :k].contiguous(),
+                               ops_.b[..., :n].contiguous())
+    assert torch.equal(got, want)
+    # the pad columns of A meet zero rows of B: the sums are exact
+    kp = ops_.a.shape[-1]
+    b_rows = torch.zeros((g, s, kp, n), dtype=dt)
+    b_rows[:, :, :k] = b
+    got = batched_contract_ref(ops_.a, b_rows)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               rtol=1e-2, atol=1e-2)
+    # f32 and f64 are never staged, whatever their rows and bases
+    for wide in (torch.float32, torch.float64):
+        assert kmm.operand_staging(_shifted((g, s, m, k), wide),
+                                   _shifted((g, s, k, n), wide)) == (
+            False, False)
+
+
 @pytest.mark.parametrize("dtype,m,k,n,path", [
     ("bfloat16", 1024, 1024, 1024, "wgmma"),
     ("float16", 1024, 1024, 3072, "wgmma"),
     ("bfloat16", 1, 8, 8, "wgmma"),
     ("float16", 1000, 64, 1000, "wgmma"),      # ragged M/N, aligned strides
-    ("bfloat16", 100, 70, 130, "simt"),        # K % 8 != 0
-    ("float16", 1000, 997, 1003, "simt"),
-    ("bfloat16", 64, 64, 60, "simt"),          # N % 8 != 0
+    ("bfloat16", 100, 70, 130, "wgmma"),       # K % 8 != 0: A staged
+    ("float16", 1000, 997, 1003, "wgmma"),     # both staged
+    ("bfloat16", 64, 64, 60, "wgmma"),         # N % 8 != 0: B staged
     ("float64", 1024, 1024, 1024, "dmma"),
     ("float64", 1, 7, 5, "dmma"),              # odd K stays on dmma
     ("float64", 1000, 997, 1003, "dmma"),
@@ -289,14 +360,84 @@ def test_block_heuristic_respects_smem():
     ("float32", 8, 8, 8, "simt"),
 ])
 def test_kernel_path_by_dtype_and_alignment(dtype, m, k, n, path):
-    """The path is a function of dtype and alignment alone: wgmma for
-    f16/bf16 whose rows TMA can read, dmma for every f64 shape, simt for
-    f32 and unaligned 16-bit shapes."""
-    assert kmm.kernel_path(dtype, m, k, n) == path
-    assert kmm.kernel_path(getattr(torch, dtype), m, k, n) == path
-    # an operand base off 16 bytes takes the 16-bit shape off TMA
-    want = "simt" if path == "wgmma" else path
-    assert kmm.kernel_path(dtype, m, k, n, aligned=False) == want
+    """The path is a function of dtype alone: wgmma for every f16/bf16
+    shape, dmma for every f64 shape, simt for every f32 one.  A 16-bit
+    operand whose rows or base TMA cannot read is staged first: A for K
+    off a multiple of 8, B for N, either for a base off 16 bytes."""
+    dt = getattr(torch, dtype)
+    assert kmm.kernel_path(dtype) == path
+    assert kmm.kernel_path(dt) == path
+    a, b = torch.zeros((m, k), dtype=dt), torch.zeros((k, n), dtype=dt)
+    assert kmm.operand_path(a, b) == path
+    half = path == "wgmma"
+    assert kmm.operand_staging(a, b) == (half and k % 8 != 0,
+                                         half and n % 8 != 0)
+    assert kmm.operand_staging(_shifted((m, k), dt), b) == (
+        half, half and n % 8 != 0)
+    assert kmm.operand_staging(a, _shifted((k, n), dt)) == (
+        half and k % 8 != 0, half)
+
+
+@pytest.mark.parametrize("k,n,shift,vec", [
+    (1024, 1024, None, 4),   # the runtime's tiles: 16-byte copies
+    (96, 136, None, 4),
+    (1020, 1024, None, 4),   # K off 8 but a multiple of 4: still 16-byte
+    (1020, 1024, "a", 1),    # A 4 bytes past 16: 4-byte copies
+    (64, 128, "b", 1),       # B 4 bytes past 16
+    (33, 128, None, 1),      # K % 4
+    (64, 130, None, 1),      # N % 4
+])
+def test_simt_copy_variant_follows_rows_and_bases(k, n, shift, vec):
+    """The wrapper, not the C entry, picks f32 simt's copy variant: 16-byte
+    where K and N are multiples of 4 and both bases 16-byte aligned, else
+    4-byte; ``SIMT_COPIES`` names the variant a launch is counted under."""
+    a = _shifted((3, k)) if shift == "a" else torch.zeros((3, k))
+    b = _shifted((k, n)) if shift == "b" else torch.zeros((k, n))
+    assert kmm.simt_vec(a, b) == vec
+    assert kmm.SIMT_COPIES[vec] == ("16-byte" if vec == 4 else "4-byte")
+
+
+def _shifted(shape, dtype=torch.float32):
+    """A zero tensor of ``shape`` one element past an allocation's
+    (16-byte aligned) base."""
+    numel = int(np.prod(shape))
+    x = torch.zeros(numel + 1, dtype=dtype)[1:].view(shape)
+    assert x.data_ptr() % 16 != 0
+    return x
+
+
+def test_simt_block_sweep_rewrites_only_the_table_and_bounds():
+    """``tools/simt_block_sweep.py`` builds a copy of the GEMM source
+    whose simt table is the compiled one plus its candidates, tiles
+    past 128 x 128 at one block an SM; the rest of the source is the
+    library's, and a moved table or bound is an error, not a silent
+    sweep of the shipped blocks."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / "simt_block_sweep.py"
+    spec = importlib.util.spec_from_file_location("simt_block_sweep", path)
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    blocks = sweep.sweep_blocks()
+    assert blocks[:len(kmm.BLOCKS["simt"])] == [
+        (*b, st) for b, st in kmm.BLOCKS["simt"].items()]
+    assert (128, 256, 16, 3) in blocks
+    src = (build.CSRC / "blasx_gemm.cu").read_text()
+    out = sweep.with_blocks(src, blocks)
+    table = re.search(r"#define BLASX_SIMT_BLOCKS\(X\)([^\n]*)\n", out)
+    assert re.findall(r"X\((\d+), (\d+), (\d+), (\d+)\)",
+                      table.group(1)) == [tuple(map(str, b)) for b in blocks]
+    assert "BM * BN > 128 * 128 ? 1 : 2" in out
+    # everything but the table and the bound is the library's source
+    strip = [(r"#define BLASX_SIMT_BLOCKS\(X\)(?:[^\n]*\\\n)*[^\n]*\n", ""),
+             (r"__launch_bounds__\(kSimtThreads, [^)]*\)", "")]
+    a, b = src, out
+    for pat, rep in strip:
+        a, b = re.sub(pat, rep, a), re.sub(pat, rep, b)
+    assert a == b
+    with pytest.raises(ValueError, match="moved"):
+        sweep.with_blocks(src.replace("__launch_bounds__(kSimtThreads, 2)",
+                                      "__launch_bounds__(256, 2)"), blocks)
 
 
 def test_blocks_outside_the_paths_table_raise():

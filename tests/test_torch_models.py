@@ -112,10 +112,11 @@ def test_init_shapes_equal_the_reference_tree(pair):
 def test_unported_families_and_meshes_raise():
     for arch in ("olmoe_1b_7b", "mamba2_780m", "zamba2_2_7b",
                  "seamless_m4t_medium", "deepseek_v3_671b"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        with pytest.raises(NotImplementedError,
+                           match="the other model families"):
             build_params(get_config(arch).reduced(), "init", NO_MESH,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="the other model families"):
         rules_for_mesh(object())
     assert rules_for_mesh(None) is NO_MESH
 
@@ -263,6 +264,43 @@ def test_flash_backend_matches_sdpa_backend(pair):
     _close(flash, sdpa)
     _close(flash, ref_pallas)
     _close(sdpa, ref_xla)
+
+
+def test_train_mode_forward_keeps_grad_fn_off_the_flash_kernel(
+        pair, monkeypatch):
+    """The flash kernel has no backward (nor has the reference's), so a
+    forward whose inputs require grad takes the plain chunked path under
+    the default "flash" backend: its logits keep a ``grad_fn``, every
+    weight gets a gradient, and the kernel's wrapper is never reached.
+    Under ``torch.no_grad()`` the same call goes to the wrapper."""
+    import repro_torch.kernels.flash_attention as kfa
+    cfg, _, _, model, params = pair
+    tok = torch.from_numpy(_tokens(cfg, 2, 16, seed=5))
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    real = kfa.flash_attention
+    monkeypatch.setattr(kfa, "flash_attention", counted)
+    assert attn.ATTENTION_BACKEND == "flash"
+
+    def trainable(tree):
+        if isinstance(tree, dict):
+            return {k: trainable(v) for k, v in tree.items()}
+        return tree.detach().clone().requires_grad_(True)
+
+    train = trainable(params)
+    logits, _ = model.train_logits(train, tokens=tok)
+    assert logits.grad_fn is not None and calls == []
+    logits.square().mean().backward()
+    wq = train["blocks"]["attn"]["wq"]
+    assert wq.grad is not None and bool(wq.grad.abs().sum() > 0)
+    with torch.no_grad():
+        want, _ = model.train_logits(train, tokens=tok)
+    assert calls  # no grad: the kernel's wrapper (its plain version here)
+    _close(logits.detach(), want)
 
 
 def test_prefill_decode_matches_train_logits(pair):
