@@ -48,15 +48,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    as short as their host side, which the events include).
 6. attention — the flash-attention kernel against its plain version on
    the reference's test cases, the serving path's prefill shape (B=1,
-   S=1024, H=16, Hkv=8, D=128) and the tensor-core path's hazards (D = 8
-   and 16, Sq = 1, Sk = 65, non-causal Sq != Sk, a bhsd view), in f32
-   (max abs) and bf16/f16 (max abs and normwise), on the path
-   ``flash_path`` names (mma for aligned 16-bit operands, simt for f32
-   and a 16-bit seq stride off a multiple of 8), each launch checked in
-   ``LAUNCHES_BY_PATH``; timed at the prefill shape on each
-   (path, dtype) beside its bound and ``scaled_dot_product_attention`` (a
-   yardstick only: the port never calls it), by CUDA events and by the
-   device time ``torch.profiler`` records.
+   S=1024, H=16, Hkv=8, D=128) and the hazards (D = 8 and 16, Sq = 1,
+   Sk = 65, non-causal Sq != Sk, a bhsd view), in f32 (max abs) and
+   bf16/f16 (max abs and normwise), on the path ``flash_path`` names
+   (mma for 16-bit, simt for f32), each launch checked in
+   ``LAUNCHES_BY_PATH``; then each dtype with a seq stride off the
+   16-byte copies (one element of padding a row), staged into contiguous
+   copies (``LAUNCHES_STAGED``).  Timed at the prefill shape on each
+   (path, dtype), and staged (the staging copies and the kernel apart),
+   beside its bound and ``scaled_dot_product_attention`` (a yardstick
+   only: the port never calls it), by CUDA events and by the device time
+   ``torch.profiler`` records.
 7. serve — ``repro_torch.launch.serve.run`` at Qwen3-0.6B's full width in
    bf16 (random weights from a seed): 16 requests of 1024-token prompts,
    32 new tokens each, 8 slots.  Checks every request and token, every
@@ -320,7 +322,7 @@ def _timed_build(name):
 
 def _kernel_label(mangled: str) -> str:
     """``wgmma_gemm bf16 128`` from a mangled template kernel's name."""
-    t = re.search(r"(sgemm|wgmma_gemm|dmma_gemm|flash_fwd|flash_mma)"
+    t = re.search(r"(sgemm|wgmma_gemm|dmma_gemm|flash_simt|flash_mma)"
                   r"_kernelI"
                   r"((?:\d+\w+?|[df])?)((?:Li\d+E)+)", mangled)
     if not t:
@@ -353,7 +355,8 @@ def phase_build():
                 print(f"[build] ptxas {_kernel_label(fn)}: "
                       f"{line.split(':', 1)[1].strip()}")
             if "spill" in line and not re.search(r"\b0 bytes spill stores", line):
-                print(f"[build] ptxas spill: {line.strip()}")
+                print(f"[build] ptxas spill "
+                      f"{_kernel_label(fn) if fn else ''}: {line.strip()}")
     print(f"[build] both sources in {secs:.1f} s", flush=True)
     return secs
 
@@ -1053,11 +1056,11 @@ def _flash_qkv(gen, case, dt, pad=0):
 
 def phase_attention(card: str):
     """The flash kernel against its plain version in f32, bf16 and f16
-    on the reference's cases, the mma path's hazards, a bhsd view and an
-    unaligned 16-bit layout, each on the path ``flash_path`` names; timed
-    at the serving path's prefill shape on each (path, dtype) beside its
-    bound and SDPA (a yardstick: the port never calls it), by CUDA events
-    and by profiler device time."""
+    on the reference's cases, the hazards, a bhsd view and a layout off
+    the 16-byte copies (staged), each on the path ``flash_path`` names;
+    timed at the serving path's prefill shape on each (path, dtype) and
+    staged route beside its bound and SDPA (a yardstick: the port never
+    calls it), by CUDA events and by profiler device time."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
@@ -1067,15 +1070,20 @@ def phase_attention(card: str):
     gen = torch.Generator(device="cuda").manual_seed(99)
     results = {}
 
-    def held(label, name, path, fn, want):
-        """Run ``fn()``, check its launch landed on ``path`` and its
-        error; returns (max abs, normwise)."""
+    def held(label, name, path, fn, want, staged=False):
+        """Run ``fn()``, check its launch landed on ``path``, staged or
+        not as ``staged`` says, and its error; returns (max abs,
+        normwise)."""
         before = kfa.LAUNCHES_BY_PATH.get(path, {}).get(name, 0)
+        staged_before = kfa.LAUNCHES_STAGED.get(name, 0)
         got = fn()
         torch.cuda.synchronize()
         after = kfa.LAUNCHES_BY_PATH.get(path, {}).get(name, 0)
         check(after == before + 1, f"flash {name} {label}: launch not on "
               f"the {path} path ({kfa.LAUNCHES_BY_PATH})")
+        check(kfa.LAUNCHES_STAGED.get(name, 0) == staged_before
+              + int(staged), f"flash {name} {label}: staged "
+              f"{kfa.LAUNCHES_STAGED}, want {'one' if staged else 'none'}")
         max_abs = float((got.float() - want.float()).abs().max())
         check(max_abs <= FLASH_TOL[name], f"flash {name} {path} {label}: "
               f"max abs {max_abs:.3e} > {FLASH_TOL[name]:.0e}")
@@ -1088,10 +1096,23 @@ def phase_attention(card: str):
         return max_abs, err
 
     def timed(name, path, case, q, k, v, max_abs, err):
+        """The entry of ``path`` (with " staged" where q, k and v are
+        staged: then also the staging copies and the kernel on the
+        staged copies apart)."""
         b, sq, sk, h, hkv, d, causal = case
         reps = 20
         kern = lambda: kfa.flash_attention(q, k, v, causal=causal)
         ms = time_ms(kern, reps)
+        apart = {}
+        if path.endswith("staged"):
+            copies = lambda: [kfa.stage(x) for x in (q, k, v)]
+            qs, ks, vs = copies()
+            on_copies = lambda: kfa.flash_attention(qs, ks, vs,
+                                                    causal=causal)
+            apart = dict(stage_ms=time_ms(copies, reps),
+                         kernel_ms=time_ms(on_copies, reps),
+                         stage_device_ms=device_ms(copies, reps),
+                         kernel_device_ms=device_ms(on_copies, reps))
         plain = lambda: flash_attention_ref(q, k, v, causal=causal)
         plain_ms = time_ms(plain, 5)
         # SDPA wants (B, H, S, D) and as many kv heads as q heads
@@ -1107,46 +1128,51 @@ def phase_attention(card: str):
                    library_device_ms=device_ms(sdpa, reps))
         bound_ms, bound_by, flops = flash_bound(case, name)
         shown = {key: "not measured" if x is None else f"{x:.4f} ms"
-                 for key, x in dev.items()}
+                 for key, x in {**dev, **apart}.items()}
+        staged = (f" = staging copies {shown['stage_ms']} + kernel "
+                  f"{shown['kernel_ms']}" if apart else "")
+        staged_dev = (f" = staging copies {shown['stage_device_ms']} + "
+                      f"kernel {shown['kernel_device_ms']}" if apart else "")
         print(f"[attention] {name} {path} {case}: CUDA events: kernel "
-              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
-              f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms; device time: "
-              f"kernel {shown['device_ms']}, plain "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s){staged}, "
+              f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms; device "
+              f"time: kernel {shown['device_ms']}{staged_dev}, plain "
               f"{shown['plain_device_ms']}, SDPA "
               f"{shown['library_device_ms']}; bound {bound_ms:.4f} ms "
               f"({bound_by}; {PEAK_NAME[name]}); max abs {max_abs:.3e}, "
               f"normwise {err:.3e} | {card}", flush=True)
         return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                     bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_abs,
-                    **dev)
+                    **dev, **apart)
 
     def layouts(name, dt, worst):
-        """16-bit only: the reference kernel's bhsd layout (permuted
-        views, read in place: mma), then a seq stride off a multiple of 8
-        (simt), checked on a hazard and timed at the prefill shape."""
+        """The reference kernel's bhsd layout (permuted views, read in
+        place), then a seq stride off the 16-byte copies (staged), checked
+        on a hazard and timed at the prefill shape."""
+        path = kfa.flash_path(dt)
         view = lambda x: x.permute(1, 0, 2)[None]
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
                    for shape in ((8, 150, 64), (2, 150, 64), (2, 150, 64)))
-        check(kfa.flash_path(dt, 64, view(q), view(k), view(v)) == "mma",
-              "the bhsd views should take mma")
+        check(not any(kfa.operand_staging(view(q), view(k), view(v))),
+              "the bhsd views should be read in place")
         want = flash_attention_ref(view(q), view(k), view(v))[0]
-        w = held("bhsd (8,150,64)/(2,150,64)", name, "mma",
+        w = held("bhsd (8,150,64)/(2,150,64)", name, path,
                  lambda: kfa.flash_attention_bhsd(q, k, v),
                  want.permute(1, 0, 2))
-        worst["mma"] = tuple(map(max, zip(worst["mma"], w)))
+        worst[path] = tuple(map(max, zip(worst[path], w)))
+        route = f"{path} staged"
         for case in ((1, 200, 200, 4, 2, 64, True), FLASH_MAIN):
             q, k, v = _flash_qkv(gen, case, dt, pad=1)
-            check(kfa.flash_path(dt, case[5], q, k, v) == "simt",
-                  f"{case} with a ragged seq stride should take simt")
+            check(kfa.operand_staging(q, k, v) == (True,) * 3,
+                  f"{case} with a ragged seq stride should be staged")
             want = flash_attention_ref(q, k, v, causal=case[6])
-            w = held(f"{case} seq stride {q.stride(1)}", name, "simt",
+            w = held(f"{case} seq stride {q.stride(1)}", name, path,
                      lambda: kfa.flash_attention(q, k, v, causal=case[6]),
-                     want)
-            worst["simt"] = tuple(map(max, zip(worst.get("simt", (0, 0)),
-                                               w)))
+                     want, staged=True)
+            worst[route] = tuple(map(max, zip(worst.get(route, (0, 0)), w)))
             if case == FLASH_MAIN:
-                results[(name, "simt")] = timed(name, "simt", case, q, k, v,
-                                                *w)
+                results[(name, route)] = timed(name, route, case, q, k, v,
+                                               *w)
 
     for name in FLASH_DTYPES:
         dt = getattr(torch, name)
@@ -1154,9 +1180,11 @@ def phase_attention(card: str):
         for case in FLASH_CASES + FLASH_HAZARDS:
             causal, d = case[6], case[5]
             q, k, v = _flash_qkv(gen, case, dt)
-            path = kfa.flash_path(dt, d, q, k, v)
-            check(path == ("simt" if name == "float32" else "mma"),
-                  f"flash {name} {case} takes {path}")
+            path = kfa.flash_path(dt)
+            check(path == ("simt" if name == "float32" else "mma")
+                  and not any(kfa.operand_staging(q, k, v)),
+                  f"flash {name} {case} takes {path}, staging "
+                  f"{kfa.operand_staging(q, k, v)}")
             want = flash_attention_ref(q, k, v, causal=causal)
             w = held(str(case), name, path, lambda: kfa.flash_attention(
                 q, k, v, causal=causal), want)
@@ -1164,8 +1192,7 @@ def phase_attention(card: str):
             if case == FLASH_MAIN:
                 results[(name, path)] = timed(name, path, case, q, k, v, *w)
             del q, k, v, want
-        if name != "float32":
-            layouts(name, dt, worst)
+        layouts(name, dt, worst)
         for path, (max_abs, err) in sorted(worst.items()):
             nw = (f", worst normwise {err:.3e} (tol "
                   f"{FLASH_NORMWISE_TOL[name]:.0e})"
@@ -1312,6 +1339,7 @@ def _reset_counts():
     kfa.LAUNCHES = 0
     kfa.LAUNCHES_BY_DTYPE.clear()
     kfa.LAUNCHES_BY_PATH.clear()
+    kfa.LAUNCHES_STAGED.clear()
 
 
 def _read_counts():
@@ -1323,14 +1351,19 @@ def _read_counts():
             "simt_copy": dict(kmm.LAUNCHES_SIMT_COPY),
             "epilogue": kmm.LAUNCHES_EPILOGUE,
             "flash_path": {p: dict(d)
-                           for p, d in kfa.LAUNCHES_BY_PATH.items()}}
+                           for p, d in kfa.LAUNCHES_BY_PATH.items()},
+            "flash_staged": dict(kfa.LAUNCHES_STAGED)}
 
 
 def _check_simt_is_f32(where: str, counts) -> None:
-    """The simt path is f32's alone: no 16-bit launch takes it."""
+    """The simt paths are f32's alone: no 16-bit GEMM or flash launch
+    takes one."""
     simt = counts["gemm_path"].get("simt", {})
     check(set(simt) <= {"float32"},
           f"{where}: simt launches by dtype {simt}; 16-bit must take wgmma")
+    simt = counts["flash_path"].get("simt", {})
+    check(set(simt) <= {"float32"}, f"{where}: flash simt launches by "
+          f"dtype {simt}; 16-bit must take mma")
 
 
 def main() -> int:
@@ -1437,15 +1470,28 @@ def main() -> int:
                          KERNEL_SOURCE, EPILOGUE_REPLACES,
                          blas["epilogue"] + api["epilogue"]
                          + serve["epilogue"], epi))
-    # one flash entry per path and dtype; the simt entries keep their
-    # earlier names, the mma path adds its own
-    kernels += [entry(f"flash_attention<{name}>" if path == "simt"
-                      else f"flash_attention<{name},{path}>", path,
+    def flash_launches(route, name):
+        """Main-path launches of a flash route: the staged launches of
+        the dtype for "<path> staged", the others for "<path>"."""
+        path = route.split()[0]
+        n = sum(run["flash_path"].get(path, {}).get(name, 0)
+                for run in (blas, api, serve))
+        staged = sum(run["flash_staged"].get(name, 0)
+                     for run in (blas, api, serve))
+        return staged if route.endswith("staged") else n - staged
+
+    # one flash entry per route and dtype; f32 simt keeps its first
+    # name, the mma path and the staged routes add theirs
+    kernels += [entry(f"flash_attention<{name}>" if route == "simt"
+                      else f"flash_attention<{name},"
+                           f"{route.replace(' ', ',')}>", route.split()[0],
                       FLASH_SOURCE, FLASH_REPLACES,
-                      sum(run["flash_path"].get(path, {}).get(name, 0)
-                          for run in (blas, api, serve)),
-                      flash[(name, path)])
-                 for name, path in flash]
+                      flash_launches(route, name), flash[(name, route)])
+                for name, route in flash]
+    for e, r in zip(kernels[-len(flash):], flash.values()):
+        e.update({k: r[k] for k in ("stage_ms", "kernel_ms",
+                                    "stage_device_ms", "kernel_device_ms")
+                  if k in r})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

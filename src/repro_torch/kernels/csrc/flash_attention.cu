@@ -16,22 +16,27 @@
 // from one step to the next.  Blocks on Hopper run in parallel, so here
 // one block owns one (batch*head, q-block) and walks the k-blocks itself,
 // with m, l and the accumulator in registers.  q, k, v and o are read and
-// written in place through their strides (any (B, S, H, D) layout with a
-// contiguous last axis): no transpose and no pad copy; ragged rows read
-// as zeros and are masked.  GQA maps head h to kv head h / (H / Hkv).
+// written in place through their strides (any (B, S, H, D) layout whose
+// last axis is contiguous, whose bases are 16-byte aligned and whose
+// batch, seq and head strides are whole 16-byte chunks: the wrapper
+// stages any other operand into a contiguous copy first); ragged rows
+// read as zeros and are masked.  GQA maps head h to kv head
+// h / (H / Hkv).  Both paths load through 16-byte zero-filling cp.async
+// copies and balance the causal work (a q-block near the end of the
+// sequence needs every key, one near the start almost none).  Scores are
+// kept in log2 units (scale * log2(e) folded in) and exponentiated with
+// exp2; the masked value stays finite (-1e30 * log2(e)).
 //
 // What bounds it: at the serving path's prefill (B*H = 16, S = 1024,
 // D = 128, causal) the work is ~4.3 GFLOP against ~16 MB moved, so it is
-// bound by operations, and for bf16/f16 the card's operations are in its
-// tensor cores.  The wrapper picks one of two paths by dtype and
-// alignment alone and passes it here (Path):
+// bound by operations: the tensor cores' for bf16/f16, the CUDA cores'
+// FP32 FMAs for f32.  The wrapper picks the path by dtype alone and
+// passes it here (Path):
 //
-// * mma  - f16/bf16 with 16-byte aligned bases and batch/seq/head strides
-//   that are multiples of 8 elements (what 16-byte cp.async reads).  Each
-//   warp owns 16 q rows; both products are mma.sync.m16n8k16 with f32
-//   accumulators, fed by ldmatrix from shared-memory tiles kept in the
-//   input type (q once, K and V through a two-stage cp.async ring of
-//   zero-filling copies).  The score accumulator fragment is the A
+// * mma  - f16/bf16.  Each warp owns 16 q rows; both products are
+//   mma.sync.m16n8k16 with f32 accumulators, fed by ldmatrix from
+//   shared-memory tiles kept in the input type (q once, K and V through
+//   a two-stage cp.async ring).  The score accumulator fragment is the A
 //   fragment of the PV product, so P never goes to shared memory.
 //   P is carried as two terms of the input type, p_hi (bf16: p with its
 //   low 16 bits cut; f16: rn(p)) and p_lo = rn(p - p_hi), and PV is two
@@ -39,16 +44,28 @@
 //   practice) reads ~2e-3 normwise at the prefill shape, above the 1e-3
 //   check this port holds bf16 to; the two terms keep ~16 bits of P
 //   (~1e-4) for 1.5x the tensor work of the function's 4*D flops per
-//   (q, k) pair.  exp2 with scale*log2(e)
-//   folded in; the masked value stays finite (-1e30 * log2(e)).  Blocks
-//   take the heaviest causal q-blocks first, and in a grid of one wave
-//   an SM's second block is a light one (heavy/light pairs).
-// * simt - f32 (never TF32: the reference holds f32 to 2e-5) and 16-bit
-//   operands the mma path cannot read: both products as FMAs on the CUDA
-//   cores, a TM x TN register tile per thread, tiles staged in f32.
+//   (q, k) pair.  exp2 is ex2.approx.ftz.  Blocks take the heaviest
+//   causal q-blocks first, and in a grid of one wave an SM's second
+//   block is a light one (heavy/light pairs).
+// * simt - f32 alone (never TF32 or 3xTF32: the reference holds f32 to
+//   2e-5), both products as IEEE FP32 FMAs on the CUDA cores.  An SM
+//   issues 128 FMAs a clock and its shared memory delivers 128 B a clock
+//   to the lanes (whether or not they read the same word), so each
+//   thread keeps register tiles of both products, 4 x 4 scores and 8 x 8
+//   outputs at D = 128, and reads q, k, p and v as 16-byte LDS.128: half
+//   a float a FMA in q k^T, a quarter in p v.  q loads once; K and V
+//   come through a two-stage cp.async ring with one barrier a k-step.
+//   Two 64 x 32 blocks of 4 warps fit an SM (110,592 B each at D = 128).
+//   Blocks take the heaviest causal q-tiles first; a causal grid too
+//   small to balance that way (the prefill's 256 tiles against 264
+//   slots) splits each tile's keys over two blocks, combined by the
+//   second to finish, so that no block is left walking a q-tile's whole
+//   key range alone at the end (the time of a k-step hardly falls when
+//   an SM holds fewer warps: it is the chain of k-steps that sets the
+//   end).
 //
 // Left for later: wgmma with TMA, warp specialisation and a persistent
-// grid for the mma path; the simt path stays the f32 path.
+// grid for the mma path.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (see kernels/build.py); bound by ctypes.
@@ -57,204 +74,29 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 // the paths (kernels/flash_attention.py PATH_CODES)
 enum Path { kPathSimt = 0, kPathMma = 1 };
 
 // what the library compiles: head dims, and the (BQ, BK) block of each
-// path (kernels/flash_attention.py HEAD_DIMS and BLOCKS).  mma: 4 warps
-// of 16 q rows; 8 warps (BQ 128) were no faster on an H100 (PERF.md)
+// path (kernels/flash_attention.py HEAD_DIMS and BLOCKS).  simt: f32
+// only, kSimtThreads threads; mma: 16-bit only, 4 warps of 16 q rows
+// (8 warps, BQ 128, were no faster on an H100: PERF.md)
 #define FLASH_HEAD_DIMS(X) X(8) X(16) X(32) X(64) X(128)
-#define FLASH_SIMT_BLOCKS(X) X(64, 64)
+#define FLASH_SIMT_BLOCKS(X) X(64, 32)
 #define FLASH_MMA_BLOCKS(X) X(64, 64)
 
 namespace {
 
-constexpr int kThreads = 256;      // simt: 16 x 16 threads per block
 constexpr float kNegInf = -1e30f;  // the reference's finite NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
-
-template <typename T> struct Cvt;
-template <> struct Cvt<float> {
-  static __device__ __forceinline__ float load(float x) { return x; }
-  static __device__ __forceinline__ float store(float x) { return x; }
-};
-template <> struct Cvt<__half> {
-  static __device__ __forceinline__ float load(__half x) { return __half2float(x); }
-  static __device__ __forceinline__ __half store(float x) { return __float2half_rn(x); }
-};
-template <> struct Cvt<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(__nv_bfloat16 x) { return __bfloat162float(x); }
-  static __device__ __forceinline__ __nv_bfloat16 store(float x) { return __float2bfloat16_rn(x); }
-};
+constexpr int kSmemPerSm = 233472;  // shared memory of one SM (228 KB)
+constexpr int kSmemPerBlock = 1024;  // of which the system takes per block
 
 // element strides of q, k, v, o viewed as (B, S, H, D), D contiguous
 struct Strides {
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
 };
 
-template <int D, int BK, int BQ>
-constexpr size_t smem_floats() {
-  return (size_t)D * (BQ + 1) + (size_t)D * (BK + 1) + (size_t)BK * D +
-         (size_t)BK * (BQ + 1);
-}
-
-// One block: q rows [blockIdx.x * BQ, +BQ) of (batch, head) blockIdx.y.
-// Thread (tr, tc) = (tid / 16, tid % 16) owns q rows tr + 16 i (i < TM):
-// score columns tc + 16 j (j < TN) and output columns tc + 16 t (t < TD,
-// those below D: at D = 8 half the threads hold no output column), so a
-// row's max and sum reduce over the 16 lanes of one half-warp.
-template <typename T, int D, int BK, int BQ>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H,
-                 int group, int Sq, int Sk, float scale, int causal,
-                 Strides st) {
-  constexpr int TM = BQ / 16;
-  constexpr int TN = BK / 16;
-  constexpr int TD = (D + 15) / 16;
-  constexpr int LDQ = BQ + 1;  // +1 skews the transposed tiles over banks
-  constexpr int LDK = BK + 1;
-  constexpr int LDP = BQ + 1;
-  extern __shared__ float smem[];
-  float* Qt = smem;          // [D][LDQ]  q tile, transposed
-  float* Kt = Qt + D * LDQ;  // [D][LDK]  k tile, transposed
-  float* Vs = Kt + D * LDK;  // [BK][D]   v tile
-  float* Ps = Vs + BK * D;   // [BK][LDP] probabilities, transposed
-
-  const int tid = threadIdx.x;
-  const int tr = tid / 16;
-  const int tc = tid % 16;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int hk = h / group;
-  const int q0 = blockIdx.x * BQ;
-  const T* qp = q + b * st.qb + h * st.qh;
-  const T* kp = k + b * st.kb + hk * st.kh;
-  const T* vp = v + b * st.vb + hk * st.vh;
-  T* op = o + b * st.ob + h * st.oh;
-
-  // q tile: consecutive threads walk d, the contiguous axis
-  for (int idx = tid; idx < BQ * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D;
-    Qt[d * LDQ + r] = (q0 + r < Sq)
-        ? Cvt<T>::load(qp[(int64_t)(q0 + r) * st.qs + d]) : 0.0f;
-  }
-
-  float m[TM], l[TM], acc[TM][TD];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int t = 0; t < TD; ++t) acc[i][t] = 0.0f;
-  }
-
-  // causal: k-blocks wholly above the last valid q row are skipped
-  int n_kb = (Sk + BK - 1) / BK;
-  if (causal) {
-    const int q_last = min(q0 + BQ, Sq) - 1;
-    n_kb = min(n_kb, q_last / BK + 1);
-  }
-
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // the previous step is done with Kt, Vs and Ps
-    for (int idx = tid; idx < BK * D; idx += kThreads) {
-      const int r = idx / D, d = idx % D;
-      const bool ok = k0 + r < Sk;
-      Kt[d * LDK + r] = ok ? Cvt<T>::load(kp[(int64_t)(k0 + r) * st.ks + d])
-                           : 0.0f;
-      Vs[r * D + d] = ok ? Cvt<T>::load(vp[(int64_t)(k0 + r) * st.vs + d])
-                         : 0.0f;
-    }
-    __syncthreads();
-
-    float s[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[TM], kr[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) qa[i] = Qt[d * LDQ + tr + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) kr[j] = Kt[d * LDK + tc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) s[i][j] = fmaf(qa[i], kr[j], s[i][j]);
-    }
-
-    // online softmax, one row at a time
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int qpos = q0 + tr + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int kpos = k0 + tc + 16 * j;
-        const bool valid = kpos < Sk && (!causal || kpos <= qpos);
-        s[i][j] = valid ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = corr * l[i] + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int t = 0; t < TD; ++t) acc[i][t] *= corr;
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        Ps[(tc + 16 * j) * LDP + tr + 16 * i] = s[i][j];
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[TM], vv[TD];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) p[i] = Ps[kk * LDP + tr + 16 * i];
-#pragma unroll
-      for (int t = 0; t < TD; ++t)
-        vv[t] = (tc + 16 * t < D) ? Vs[kk * D + tc + 16 * t] : 0.0f;
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int t = 0; t < TD; ++t) acc[i][t] = fmaf(p[i], vv[t], acc[i][t]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = q0 + tr + 16 * i;
-    if (row >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int t = 0; t < TD; ++t)
-      if (tc + 16 * t < D)
-        op[(int64_t)row * st.os + tc + 16 * t] =
-            Cvt<T>::store(acc[i][t] / denom);
-  }
-}
-
-// ------------------------------------------------------------- mma path
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -271,6 +113,331 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ------------------------------------------------------------ simt path
+constexpr int kSimtThreads = 128;  // 4 warps of BQ / 4 q rows
+
+// Shared memory of one simt block, in floats: the q tile and two stages
+// of K, rows skewed by 4 floats (16 B, so the 4 or 8 rows one LDS.128
+// reads fall on distinct banks), two stages of V, and the probability
+// tile, rows skewed by 8 floats (a warp's scalar stores of 4 rows x 8
+// columns fall on distinct banks).
+template <int D, int BQ, int BK>
+constexpr size_t simt_smem_floats() {
+  return (size_t)(BQ + 2 * BK) * (D + 4) + (size_t)2 * BK * D +
+         (size_t)BQ * (BK + 8);
+}
+// two blocks an SM where their shared memory allows
+template <int D, int BQ, int BK>
+constexpr int simt_blocks_per_sm() {
+  return 2 * (simt_smem_floats<D, BQ, BK>() * 4 + kSmemPerBlock) <= kSmemPerSm
+             ? 2 : 1;
+}
+
+// 4 floats of shared or global memory as one 16-byte access
+__device__ __forceinline__ void ld4(float* r, const float* p) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  r[0] = x.x; r[1] = x.y; r[2] = x.z; r[3] = x.w;
+}
+__device__ __forceinline__ void st4(float* p, const float* r) {
+  *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+}
+
+// One block: one unit of work, launch position blockIdx.x.  A unit is
+// the q-tile of BQ rows (batch*head bh, q-block qb) over a range of its
+// k-blocks; units run heaviest first (q-block major, descending, heads
+// inner).  Without a workspace a unit is a whole tile.  With one (causal
+// grids too small to balance by order alone) every tile is two adjacent
+// units, each over half of the tile's k-blocks, so no unit is a serial
+// chain much longer than the average (a q-tile near the end of a causal
+// sequence needs every key, one near the start almost none; three or
+// four parts were slower on an H100: PERF.md).  Each writes its
+// unnormalised rows and their max and sum to ws[unit]; the second to
+// finish (counts[tile]) combines the two and writes o.
+// Warp w owns rows w * RW .. +RW-1 of the tile, so a row's max and sum
+// never leave the warp and P goes to shared memory only to be read back
+// by the warp that wrote it.  In q k^T and the softmax lane (ty, tx) =
+// (lane / 8, lane % 8) owns rows ty + 4 i (i < TM) of those and score
+// columns tx + 8 j (j < TN): 4 x 4 scores, the 8 lanes of a row reading
+// one q float4 and the 4 lanes of a column one k float4.  In p v lane
+// (py, px) = (lane / LC, lane % LC) owns rows py + LR i (i < TP) and
+// output columns 4 px + 4 LC g + e (g < GP, e < 4): 8 x 8 sums at
+// D = 128, whose rows' rescale factors, maxima and sums come through Cs,
+// Ms and Ls.
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(kSimtThreads,
+                                  simt_blocks_per_sm<D, BQ, BK>())
+flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  int BH, int H, int group, int Sq, int Sk, float scale,
+                  int causal, Strides st, float* __restrict__ ws,
+                  int* __restrict__ counts) {
+  constexpr int NW = kSimtThreads / 32;
+  constexpr int RW = BQ / NW;               // q rows a warp owns
+  constexpr int TM = RW / 4;                // q rows a thread owns
+  constexpr int TN = BK / 8;                // score columns a thread owns
+  constexpr int LC = D >= 64 ? 16 : D / 4;  // p v: lanes across columns
+  constexpr int LR = 32 / LC;               // p v: lanes across rows
+  constexpr int TP = RW / LR;               // p v: rows a thread owns
+  constexpr int GP = D / (4 * LC);          // p v: its float4s of columns
+  constexpr int LDQ = D + 4;                // q and k rows, skewed
+  constexpr int LDP = BK + 8;               // p rows, skewed
+  constexpr int CH = D / 4;                 // 16-byte chunks of a row
+  static_assert(RW % 4 == 0 && BK % 8 == 0 && D % 8 == 0, "tile shape");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // [BQ][LDQ]
+  float* Ks = Qs + BQ * LDQ;                       // [2][BK][LDQ]
+  float* Vs = Ks + 2 * BK * LDQ;                   // [2][BK][D]
+  float* Ps = Vs + 2 * BK * D;                     // [BQ][LDP]
+  __shared__ float Cs[BQ], Ls[BQ], Ms[BQ];  // rows' rescale, sum, max
+  __shared__ int last;  // whether this unit combines its tile's two
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ty = lane >> 3, tx = lane & 7;
+  const int py = lane / LC, px = lane % LC;
+  const int split = ws != nullptr;
+  const int unit = blockIdx.x;
+  const int tile = unit >> split;  // heaviest first
+  const int bh = tile % BH;
+  const int q0 = ((Sq + BQ - 1) / BQ - 1 - tile / BH) * BQ;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int hk = h / group;
+  const float* qp = q + b * st.qb + h * st.qh;
+  const float* kp = k + b * st.kb + hk * st.kh;
+  const float* vp = v + b * st.vb + hk * st.vh;
+  float* op = o + b * st.ob + h * st.oh;
+  const int r0 = warp * RW + ty;  // this thread's rows: r0 + 4 i
+  const int p0 = warp * RW + py;  // ... and in p v: p0 + LR i
+
+  // causal: k-blocks wholly above the last valid q row are skipped; a
+  // split tile's first unit takes the first half of the rest
+  int kb_end = (Sk + BK - 1) / BK;
+  if (causal) kb_end = min(kb_end, (min(q0 + BQ, Sq) - 1) / BK + 1);
+  int kb_begin = 0;
+  if (split) {
+    const int mid = (kb_end + 1) / 2;
+    if (unit & 1) kb_begin = mid; else kb_end = mid;
+  }
+
+  for (int c = tid; c < BQ * CH; c += kSimtThreads) {
+    const int r = c / CH, cc = c % CH;
+    const bool ok = q0 + r < Sq;
+    cp_async16(Qs + r * LDQ + cc * 4,
+               ok ? qp + (int64_t)(q0 + r) * st.qs + cc * 4 : qp, ok);
+  }
+  auto load_kv = [&](int stage, int kb) {
+    float* kd = Ks + stage * BK * LDQ;
+    float* vd = Vs + stage * BK * D;
+    const int k0 = kb * BK;
+    for (int c = tid; c < BK * CH; c += kSimtThreads) {
+      const int r = c / CH, cc = c % CH;
+      const bool ok = k0 + r < Sk;
+      cp_async16(kd + r * LDQ + cc * 4,
+                 ok ? kp + (int64_t)(k0 + r) * st.ks + cc * 4 : kp, ok);
+      cp_async16(vd + r * D + cc * 4,
+                 ok ? vp + (int64_t)(k0 + r) * st.vs + cc * 4 : vp, ok);
+    }
+  };
+  if (kb_begin < kb_end) load_kv(0, kb_begin);
+  cp_async_commit();
+
+  const float sl2 = scale * kLog2e;
+  const float masked = kNegInf * kLog2e;
+  float acc[TP][4 * GP];
+  float m[TM], l[TM];  // l: this lane's share of the row's sum
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m[i] = masked;
+    l[i] = 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < TP; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * GP; ++c) acc[i][c] = 0.0f;
+
+  for (int kb = kb_begin; kb < kb_end; ++kb) {
+    const int stage = (kb - kb_begin) & 1;
+    const int k0 = kb * BK;
+    cp_async_wait<0>();  // this thread's copies of stage kb (and q) landed
+    __syncthreads();     // ... every thread's; every warp is done with kb - 1
+    if (kb + 1 < kb_end) load_kv(stage ^ 1, kb + 1);
+    cp_async_commit();
+    const float* Kt = Ks + stage * BK * LDQ;
+    const float* Vt = Vs + stage * BK * D;
+
+    // s = q k^T over d, 4 at a time
+    float s[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) s[i][j] = 0.0f;
+#pragma unroll 8
+    for (int d = 0; d < D; d += 4) {
+      float qa[TM][4], kr[TN][4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) ld4(qa[i], Qs + (r0 + 4 * i) * LDQ + d);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) ld4(kr[j], Kt + (tx + 8 * j) * LDQ + d);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][j] = fmaf(qa[i][e], kr[j][e], s[i][j]);
+    }
+
+    // scale (log2 units), mask, online softmax over the row's 8 lanes;
+    // p goes to this warp's rows of Ps
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int qpos = q0 + r0 + 4 * i;
+      float mx = masked;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int kpos = k0 + tx + 8 * j;
+        const bool keep = kpos < Sk && (!causal || kpos <= qpos);
+        s[i][j] = keep ? s[i][j] * sl2 : masked;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      float rs = 0.0f;
+      float* prow = Ps + (r0 + 4 * i) * LDP + tx;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float p = exp2f(s[i][j] - m_new);
+        rs += p;
+        prow[8 * j] = p;
+      }
+      l[i] = l[i] * corr + rs;
+      if (tx == 0) Cs[r0 + 4 * i] = corr;
+    }
+    __syncwarp();  // the warp's p rows and rescale factors are written
+
+    // acc = acc * corr + p v, keys 4 at a time
+#pragma unroll
+    for (int i = 0; i < TP; ++i) {
+      const float corr = Cs[p0 + LR * i];
+#pragma unroll
+      for (int c = 0; c < 4 * GP; ++c) acc[i][c] *= corr;
+    }
+#pragma unroll
+    for (int j = 0; j < BK; j += 4) {
+      float p[TP][4];
+#pragma unroll
+      for (int i = 0; i < TP; ++i) ld4(p[i], Ps + (p0 + LR * i) * LDP + j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float vv[4 * GP];
+#pragma unroll
+        for (int g = 0; g < GP; ++g)
+          ld4(vv + 4 * g, Vt + (j + e) * D + 4 * px + 4 * LC * g);
+#pragma unroll
+        for (int i = 0; i < TP; ++i)
+#pragma unroll
+          for (int c = 0; c < 4 * GP; ++c)
+            acc[i][c] = fmaf(p[i][e], vv[c], acc[i][c]);
+      }
+    }
+  }
+
+  // each row's max and sum, into p v's layout
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    if (tx == 0) {
+      Ms[r0 + 4 * i] = m[i];
+      Ls[r0 + 4 * i] = l[i];
+    }
+  }
+  __syncwarp();
+  float mp[TP], lp[TP];
+#pragma unroll
+  for (int i = 0; i < TP; ++i) {
+    mp[i] = Ms[p0 + LR * i];
+    lp[i] = Ls[p0 + LR * i];
+  }
+
+  if (split) {
+    // this unit's rows: acc [BQ][D], then m [BQ] and l [BQ]
+    constexpr int UNIT = BQ * (D + 2);
+    float* mine = ws + (int64_t)unit * UNIT;
+#pragma unroll
+    for (int i = 0; i < TP; ++i) {
+      const int r = p0 + LR * i;
+#pragma unroll
+      for (int g = 0; g < GP; ++g)
+        st4(mine + r * D + 4 * px + 4 * LC * g, acc[i] + 4 * g);
+      if (px == 0) {
+        mine[BQ * D + r] = mp[i];
+        mine[BQ * D + BQ + r] = lp[i];
+      }
+    }
+    __threadfence();  // these writes before the count
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(counts + tile, 1);
+    __syncthreads();
+    if (!last) return;  // the other unit combines
+    if (tid == 0) counts[tile] = 0;  // ready for the next launch
+    __threadfence();
+    // rescale both to their joint max and add the other's (read from L2)
+    const float* other = ws + (int64_t)(unit ^ 1) * UNIT;
+#pragma unroll
+    for (int i = 0; i < TP; ++i) {
+      const int r = p0 + LR * i;
+      const float m2 = __ldcg(other + BQ * D + r);
+      const float l2 = __ldcg(other + BQ * D + BQ + r);
+      const float m_new = fmaxf(mp[i], m2);
+      const float c1 = exp2f(mp[i] - m_new), c2 = exp2f(m2 - m_new);
+      lp[i] = lp[i] * c1 + l2 * c2;
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+        const float4 x = __ldcg(reinterpret_cast<const float4*>(
+            other + r * D + 4 * px + 4 * LC * g));
+        float* a = acc[i] + 4 * g;
+        a[0] = a[0] * c1 + x.x * c2;
+        a[1] = a[1] * c1 + x.y * c2;
+        a[2] = a[2] * c1 + x.z * c2;
+        a[3] = a[3] * c1 + x.w * c2;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TP; ++i) {
+    const int row = q0 + p0 + LR * i;
+    if (row >= Sq) continue;
+    const float denom = fmaxf(lp[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < 4 * GP; ++c) acc[i][c] /= denom;
+    float* orow = op + (int64_t)row * st.os + 4 * px;
+#pragma unroll
+    for (int g = 0; g < GP; ++g) st4(orow + 4 * LC * g, acc[i] + 4 * g);
+  }
+}
+
+// ------------------------------------------------------------- mma path
+// The (batch*head, first q row) of this block's tile.  Launch positions
+// map to ranks in heaviest-first order (q-block major, descending, heads
+// inner).  pair > 0: the first `pair` positions take the heaviest ranks
+// and the rest the lightest upwards, so the second block an SM takes in
+// a one-wave grid is a light one.
+__device__ __forceinline__ int2 causal_tile(int pair, int bq) {
+  const long long n_tiles = (long long)gridDim.x * gridDim.y;
+  const long long pos = blockIdx.x + (long long)blockIdx.y * gridDim.x;
+  const long long rank =
+      (pair > 0 && pos >= pair) ? n_tiles - 1 - (pos - pair) : pos;
+  return make_int2((int)(rank % gridDim.y),
+                   (int)(gridDim.x - 1 - rank / gridDim.y) * bq);
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -363,8 +530,8 @@ constexpr size_t mma_smem_bytes() {
   return (size_t)(BQ + 4 * BK) * ((D < 16 ? 16 : D) + 8) * 2;
 }
 
-// One block: q rows [q0, q0 + BQ) of one (batch, head), the tile its
-// launch position maps to (below).  Warp w owns rows q0 + 16 w .. +15;
+// One block: q rows [q0, q0 + BQ) of one (batch, head), the tile
+// causal_tile names.  Warp w owns rows q0 + 16 w .. +15;
 // lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8 of them,
 // columns 2t, 2t + 1 of each n8 tile (the m16n8 accumulator layout).
 template <typename T, int D, int BQ, int BK>
@@ -389,16 +556,8 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  // launch position -> rank in heaviest-first order (q-block major,
-  // descending, heads inner).  pair > 0: the first `pair` positions take
-  // the heaviest ranks and the rest the lightest upwards, so the second
-  // block an SM takes in a one-wave grid is a light one
-  const long long n_tiles = (long long)gridDim.x * gridDim.y;
-  const long long pos = blockIdx.x + (long long)blockIdx.y * gridDim.x;
-  const long long rank =
-      (pair > 0 && pos >= pair) ? n_tiles - 1 - (pos - pair) : pos;
-  const int bh = (int)(rank % gridDim.y);
-  const int q0 = (int)(gridDim.x - 1 - rank / gridDim.y) * BQ;
+  const int2 tile = causal_tile(pair, BQ);
+  const int bh = tile.x, q0 = tile.y;
   const int b = bh / H;
   const int h = bh % H;
   const int hk = h / group;
@@ -577,12 +736,15 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+
 // ------------------------------------------------------------- dispatch
 struct Args {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* ws;    // simt split: per-unit partials, or null (no split)
+  int* counts;  // simt split: per-tile finish counts, zeroed
   int B, H, Hkv, Sq, Sk;
   float scale;
   int causal;
@@ -597,17 +759,41 @@ cudaError_t allow_smem(Kern kern, size_t smem) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int D, int BQ, int BK>
+// SMs, and the blocks of `kern` one SM holds (the cards of one process
+// are taken to be alike)
+template <typename Kern>
+int2 card_of(Kern kern, int threads, size_t smem) {
+  int dev = 0, nsm = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                smem);
+  return make_int2(nsm, per_sm);
+}
+
+// causal_tile's pair: a causal grid of one wave that gives some SMs a
+// second block pairs the heaviest tiles with the lightest
+int pair_of(int2 card, dim3 grid, int causal) {
+  const long long n_tiles = (long long)grid.x * grid.y;
+  return (causal && n_tiles <= (long long)card.x * card.y &&
+          n_tiles > card.x) ? card.x : 0;
+}
+
+template <int D, int BQ, int BK>
 cudaError_t launch_simt(const Args& a) {
-  const size_t smem = smem_floats<D, BK, BQ>() * sizeof(float);
-  auto kern = flash_fwd_kernel<T, D, BK, BQ>;
+  constexpr size_t smem = simt_smem_floats<D, BQ, BK>() * sizeof(float);
+  auto kern = flash_simt_kernel<D, BQ, BK>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
-  kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.H, a.H / a.Hkv,
-      a.Sq, a.Sk, a.scale, a.causal, a.st);
+  // one block a unit: a tile, or half of one where split
+  const long long units = (long long)a.B * a.H * ((a.Sq + BQ - 1) / BQ)
+                          << (a.ws != nullptr);
+  if (units > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  kern<<<(unsigned)units, kSimtThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.B * a.H,
+      a.H, a.H / a.Hkv, a.Sq, a.Sk, a.scale, a.causal, a.st, a.ws,
+      a.counts);
   return cudaGetLastError();
 }
 
@@ -617,59 +803,55 @@ cudaError_t launch_mma(const Args& a) {
   auto kern = flash_mma_kernel<T, D, BQ, BK>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  // SMs and the blocks of this kernel one SM holds (read once; the cards
-  // of one process are taken to be alike)
-  static const int2 card = [&] {
-    int dev = 0, nsm = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, BQ * 2,
-                                                  smem);
-    return make_int2(nsm, per_sm);
-  }();
+  static const int2 card = card_of(kern, BQ * 2, smem);
   dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
-  // a causal grid of one wave that gives some SMs a second block: the
-  // kernel pairs the heaviest tiles with the lightest
-  const long long n_tiles = (long long)grid.x * grid.y;
-  const int pair = (a.causal &&
-                    n_tiles <= (long long)card.x * card.y &&
-                    n_tiles > card.x) ? card.x : 0;
   kern<<<grid, BQ * 2, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o), a.H, a.H / a.Hkv,
-      a.Sq, a.Sk, a.scale, a.causal, a.st, pair);
+      a.Sq, a.Sk, a.scale, a.causal, a.st, pair_of(card, grid, a.causal));
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-int dispatch_blocks(int path, int bq, int bk, const Args& a) {
-#define FLASH_SIMT_CASE(BQ_, BK_)                         \
-  if (path == kPathSimt && bq == BQ_ && bk == BK_)        \
-    return (int)launch_simt<T, D, BQ_, BK_>(a);
+template <int D>
+int dispatch_simt(int bq, int bk, const Args& a) {
+#define FLASH_SIMT_CASE(BQ_, BK_) \
+  if (bq == BQ_ && bk == BK_) return (int)launch_simt<D, BQ_, BK_>(a);
   FLASH_SIMT_BLOCKS(FLASH_SIMT_CASE)
 #undef FLASH_SIMT_CASE
-  if constexpr (!std::is_same<T, float>::value) {
-#define FLASH_MMA_CASE(BQ_, BK_)                          \
-  if (path == kPathMma && bq == BQ_ && bk == BK_)         \
-    return (int)launch_mma<T, D, BQ_, BK_>(a);
-    FLASH_MMA_BLOCKS(FLASH_MMA_CASE)
-#undef FLASH_MMA_CASE
-  }
   return -1;  // a block outside the path's compiled table
 }
 
-template <typename T>
-int dispatch_d(int path, int d, int bq, int bk, const Args& a) {
+template <typename T, int D>
+int dispatch_mma(int bq, int bk, const Args& a) {
+#define FLASH_MMA_CASE(BQ_, BK_) \
+  if (bq == BQ_ && bk == BK_) return (int)launch_mma<T, D, BQ_, BK_>(a);
+  FLASH_MMA_BLOCKS(FLASH_MMA_CASE)
+#undef FLASH_MMA_CASE
+  return -1;  // a block outside the path's compiled table
+}
+
+// dtype: 1 float32 (simt), 2 float16, 3 bfloat16 (mma)
+template <int D>
+int dispatch_blocks(int dtype, int bq, int bk, const Args& a) {
+  switch (dtype) {
+    case 1: return dispatch_simt<D>(bq, bk, a);
+    case 2: return dispatch_mma<__half, D>(bq, bk, a);
+    default: return dispatch_mma<__nv_bfloat16, D>(bq, bk, a);
+  }
+}
+
+int dispatch_d(int dtype, int d, int bq, int bk, const Args& a) {
 #define FLASH_D_CASE(D_) \
-  if (d == D_) return dispatch_blocks<T, D_>(path, bq, bk, a);
+  if (d == D_) return dispatch_blocks<D_>(dtype, bq, bk, a);
   FLASH_HEAD_DIMS(FLASH_D_CASE)
 #undef FLASH_D_CASE
   return -1;  // head dim outside the compiled table
 }
 
-// what the mma path's 16-byte copies read: 16-byte aligned bases and
-// strides of whole 8-element chunks (a size-1 axis's stride comes as 0)
-bool mma_readable(const Args& a) {
+// what both paths' 16-byte copies read: 16-byte aligned bases and
+// strides of whole 16-byte chunks, `chunk` elements (a size-1 axis's
+// stride comes as 0)
+bool readable(const Args& a, int chunk) {
   const uintptr_t bases = reinterpret_cast<uintptr_t>(a.q) |
                           reinterpret_cast<uintptr_t>(a.k) |
                           reinterpret_cast<uintptr_t>(a.v) |
@@ -679,7 +861,7 @@ bool mma_readable(const Args& a) {
                                s.vb, s.vs, s.vh, s.ob, s.os, s.oh};
   if (bases % 16 != 0) return false;
   for (long long x : strides)
-    if (x % 8 != 0) return false;
+    if (x % chunk != 0) return false;
   return true;
 }
 
@@ -689,27 +871,32 @@ bool mma_readable(const Args& a) {
 // flash_path); dtype: 1 float32, 2 float16, 3 bfloat16; (bq, bk) the
 // path's compiled block.  q, o: (B, Sq, H, D) and k, v:
 // (B, Sk, Hkv, D) through the given element strides (batch, seq, head),
-// D contiguous.  Returns the launch's cudaGetLastError() (0 on success),
+// D contiguous.  ws, counts: null, or (causal simt only: the wrapper's
+// simt_split) 2 * B * H * ceil(Sq / bq) units of bq * (d + 2) floats and
+// B * H * ceil(Sq / bq) zeroed ints, and each q-tile's keys are split
+// over two blocks.  Returns the launch's cudaGetLastError() (0 on success),
 // -1 for a dtype, head dim or block the library was not built for, or
-// -2 for operands the path cannot read (f32 on mma, or mma operands off
-// its 16-byte alignment).
+// -2 for operands the path cannot read (16-bit on simt, f32 on mma, or
+// operands off the 16-byte copies' alignment, which the wrapper stages).
 extern "C" int flash_attention_fwd(
     int path, int dtype, int d, int bq, int bk, const void* q,
-    const void* k, const void* v, void* o, int B, int H, int Hkv, int Sq,
+    const void* k, const void* v, void* o, void* ws, void* counts, int B,
+    int H, int Hkv, int Sq,
     int Sk, float scale, int causal, long long qb, long long qs,
     long long qh, long long kb, long long ks, long long kh, long long vb,
     long long vs, long long vh, long long ob, long long os, long long oh,
     void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return -1;
   if (path != kPathSimt && path != kPathMma) return -1;
-  const Args a{q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal,
+  if (dtype < 1 || dtype > 3) return -1;
+  if ((ws == nullptr) != (counts == nullptr) ||
+      (ws != nullptr && (path != kPathSimt || !causal)))
+    return -1;
+  const Args a{q, k, v, o, static_cast<float*>(ws),
+               static_cast<int*>(counts), B, H, Hkv, Sq, Sk, scale, causal,
                Strides{qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh},
                static_cast<cudaStream_t>(stream)};
-  if (path == kPathMma && (dtype == 1 || !mma_readable(a))) return -2;
-  switch (dtype) {
-    case 1: return dispatch_d<float>(path, d, bq, bk, a);
-    case 2: return dispatch_d<__half>(path, d, bq, bk, a);
-    case 3: return dispatch_d<__nv_bfloat16>(path, d, bq, bk, a);
-    default: return -1;
-  }
+  const bool f32 = dtype == 1;
+  if ((path == kPathSimt) != f32 || !readable(a, f32 ? 4 : 8)) return -2;
+  return dispatch_d(dtype, d, bq, bk, a);
 }

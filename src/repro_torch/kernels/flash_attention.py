@@ -12,21 +12,24 @@ scores -1e30, the causal mask top-left aligned, the output in q's type.
 
 The (B, S, H, D) wrapper does not transpose: the kernel reads q, k and v
 and writes o in place through their strides, so any layout whose last
-axis is contiguous is taken as it is (``flash_attention_bhsd`` passes
-permuted views of its operands).  There is no pad copy either: ragged
-rows are masked loads.
+axis is contiguous, whose bases are 16-byte aligned and whose batch, seq
+and head strides are whole 16-byte chunks is taken as it is
+(``flash_attention_bhsd`` passes permuted views of its operands).  An
+operand off that (:func:`operand_staging` says which) is first copied
+by :func:`stage` into one contiguous tensor; a staged output is written
+there and copied into the caller's.  There is no pad copy: ragged rows
+are masked loads.
 
 What bounds it on the card: at the serving path's prefill (B*H = 16,
 S = 1024, D = 128, causal) it is bound by operations (~4.3 GFLOP
-against ~16 MB).  :func:`flash_path` picks one of two paths by dtype and
-alignment alone, and the wrapper passes it to the kernel:
+against ~16 MB).  :func:`flash_path` picks one of two paths by dtype
+alone, and the wrapper passes it to the kernel:
 
-* ``"mma"`` — f16/bf16 whose operands have 16-byte aligned bases and
-  batch, seq and head strides that are multiples of 8 elements:
-  ``mma.sync`` tensor-core products with f32 accumulators, P carried as
-  two 16-bit terms so bf16 keeps ~16 bits of it;
-* ``"simt"`` — f32 (never TF32) and the other 16-bit operands: both
-  products on the CUDA cores in f32.
+* ``"mma"`` — f16/bf16: ``mma.sync`` tensor-core products with f32
+  accumulators, P carried as two 16-bit terms so bf16 keeps ~16 bits of
+  it;
+* ``"simt"`` — f32 (never TF32): both products as FP32 FMAs on the CUDA
+  cores, register tiles read with 16-byte shared-memory loads.
 
 Each path has its compiled ``(block_q, block_k)`` in ``BLOCKS``.
 
@@ -52,52 +55,69 @@ from .ref import flash_attention_ref
 
 # what the library compiles (csrc/flash_attention.cu FLASH_HEAD_DIMS and
 # FLASH_<PATH>_BLOCKS): head dims, and each path's (block_q, block_k).
-# simt: at the serving prefill's shape (D = 128) 64-row k steps beat
-# 32-row ones on an H100 (PERF.md), though only one 113 KB block then
-# fits on an SM.  mma: 4 warps of 16 q rows (8 warps, BQ = 128, were no
-# faster: PERF.md)
+# simt: 4 warps of 16 q rows and 32-key steps, so two 108 KB blocks fit
+# an SM (tools/flash_simt_sweep.py times the other blocks: PERF.md).
+# mma: 4 warps of 16 q rows (8 warps, BQ = 128, were no faster: PERF.md)
 HEAD_DIMS: Tuple[int, ...] = (8, 16, 32, 64, 128)
 PATHS: Tuple[str, ...] = ("mma", "simt")
 PATH_CODES = {"simt": 0, "mma": 1}  # csrc/flash_attention.cu Path
-BLOCKS: Dict[str, Tuple[int, int]] = {"simt": (64, 64), "mma": (64, 64)}
+BLOCKS: Dict[str, Tuple[int, int]] = {"simt": (64, 32), "mma": (64, 64)}
 SMEM_BUDGET = 232448  # bytes of shared memory one block may use (227 KB)
+# simt blocks an SM holds at every compiled head dim (108 KB each at
+# D = 128 of the SM's 228 KB; test_compiled_blocks_fit_shared_memory)
+SIMT_BLOCKS_PER_SM = 2
 
 _DTYPE_CODES = {torch.float32: 1, torch.float16: 2, torch.bfloat16: 3}
 
-# launches of the kernel in this process, in all, by dtype, and by path
-# and dtype ({"mma": {"bfloat16": n}, ...}); plain-version calls never
-# count
+# launches of the kernel in this process, in all, by dtype, by path and
+# dtype ({"mma": {"bfloat16": n}, ...}), and those that read or wrote a
+# staged operand, by dtype; plain-version calls never count
 LAUNCHES = 0
 LAUNCHES_BY_DTYPE: Dict[str, int] = {}
 LAUNCHES_BY_PATH: Dict[str, Dict[str, int]] = {}
+LAUNCHES_STAGED: Dict[str, int] = {}
 # bumped from every thread that launches, so each bump is one locked
 # update
 _count_lock = threading.Lock()
 
 
-def count_launch(path: str, dtype: torch.dtype) -> None:
+def count_launch(path: str, dtype: torch.dtype,
+                 staged: bool = False) -> None:
     """Add one launch of ``path`` in ``dtype`` to every count."""
     global LAUNCHES
     name = dtype_name(dtype)
     with _count_lock:
         LAUNCHES += 1
         LAUNCHES_BY_DTYPE[name] = LAUNCHES_BY_DTYPE.get(name, 0) + 1
+        if staged:
+            LAUNCHES_STAGED[name] = LAUNCHES_STAGED.get(name, 0) + 1
         by_path = LAUNCHES_BY_PATH.setdefault(path, {})
         by_path[name] = by_path.get(name, 0) + 1
 
 
 def smem_bytes(path: str, d: int) -> int:
     """Shared memory of one block of ``path`` at head dim ``d``.  simt
-    stages f32: the transposed q and k tiles and the probability tile,
-    each skewed by one column, and the v tile.  mma stages the input
-    type: the q tile and two stages each of K and V, rows of max(d, 16)
-    elements skewed by 8."""
+    stages f32: the q tile and two stages of K, rows skewed by 4
+    elements, two stages of V, and the probability tile, rows skewed by
+    8.  mma stages the input type: the q tile and two stages each of K
+    and V, rows of max(d, 16) elements skewed by 8."""
     if path not in BLOCKS:
         raise ValueError(f"unknown path {path!r}; choose from {PATHS}")
     bq, bk = BLOCKS[path]
     if path == "simt":
-        return 4 * (d * (bq + 1) + d * (bk + 1) + bk * d + bk * (bq + 1))
+        return 4 * ((bq + 2 * bk) * (d + 4) + 2 * bk * d + bq * (bk + 8))
     return 2 * (bq + 4 * bk) * (max(d, 16) + 8)
+
+
+def simt_split(b: int, h: int, sq: int, causal: bool, sms: int) -> bool:
+    """Whether a causal f32 call of ``b * h`` heads and ``sq`` q rows on
+    a card of ``sms`` SMs splits each q-tile's keys over two blocks (the
+    kernel combines them): when its tiles are fewer than two waves of
+    the blocks the card holds at once.  Fewer tiles than that cannot be
+    balanced by taking the heaviest first, and the q-tile that needs
+    every key would end the call alone."""
+    tiles = b * h * -(-sq // BLOCKS["simt"][0])
+    return causal and tiles < 2 * SIMT_BLOCKS_PER_SM * sms
 
 
 def _strides(x: torch.Tensor) -> Tuple[int, int, int]:
@@ -106,20 +126,32 @@ def _strides(x: torch.Tensor) -> Tuple[int, int, int]:
     return tuple(x.stride(i) if x.shape[i] > 1 else 0 for i in range(3))
 
 
-def flash_path(dtype, d: int, *operands: torch.Tensor) -> str:
-    """The path a call of ``dtype`` and head dim ``d`` takes on the card:
-    ``"mma"`` for f16/bf16 whose ``operands`` ((B, S, H, D) views: q, k,
-    v and the output) all have 16-byte aligned bases and batch, seq and
-    head strides that are multiples of 8 elements, else ``"simt"`` (f32,
-    and 16-bit operands the mma path's 16-byte copies cannot read).  The
+def flash_path(dtype) -> str:
+    """The path a call of ``dtype`` takes on the card: ``"mma"`` for
+    f16/bf16, ``"simt"`` for f32, whatever the layout
+    (:func:`operand_staging` says which operands are staged first).  The
     kernel is told the path; it only refuses operands the path cannot
     read."""
-    if dtype not in (torch.float16, torch.bfloat16) or d % 8:
-        return "simt"
-    for x in operands:
-        if x.data_ptr() % 16 or any(s % 8 for s in _strides(x)):
-            return "simt"
-    return "mma"
+    return "mma" if dtype in (torch.float16, torch.bfloat16) else "simt"
+
+
+def operand_staging(*operands: torch.Tensor) -> Tuple[bool, ...]:
+    """Whether each of ``operands`` ((B, S, H, D) views: q, k, v and the
+    output) goes through a :func:`stage` copy: both paths read and write
+    16 bytes at a time, so an operand whose base is off 16 bytes, or
+    whose batch, seq or head stride is not a whole number of 16-byte
+    chunks (8 elements in 16 bits, 4 in f32), is one the kernel cannot
+    read or write in place."""
+    return tuple(x.data_ptr() % 16 != 0
+                 or any(s % (16 // x.element_size()) for s in _strides(x))
+                 for x in operands)
+
+
+def stage(x: torch.Tensor) -> torch.Tensor:
+    """One contiguous copy of ``x`` in a fresh (16-byte aligned)
+    buffer."""
+    return torch.empty_like(x, memory_format=torch.contiguous_format
+                            ).copy_(x)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -161,11 +193,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 @functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.load("flash_attention").flash_attention_fwd
-    # path, dtype, d, bq, bk, q, k, v, o, B, H, Hkv, Sq, Sk, scale,
-    # causal, 12 strides (q, k, v, o: batch, seq, head), stream
-    fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+    # path, dtype, d, bq, bk, q, k, v, o, ws, counts, B, H, Hkv, Sq, Sk,
+    # scale, causal, 12 strides (q, k, v, o: batch, seq, head), stream
+    fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
                    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]
                    + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -177,44 +214,70 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             scale: Optional[float]) -> torch.Tensor:
     """Shared body: q (B, Sq, H, D), k/v (B, Sk, Hkv, D) views of any
     strides with a contiguous last axis; the kernel writes ``out`` (a
-    (B, Sq, H, D) view) or a new contiguous tensor."""
+    (B, Sq, H, D) view) or a new contiguous tensor.  Operands the kernel
+    cannot read in place are staged on every device, so the CPU tests
+    cover the staging and the write-back too."""
     d = q.shape[3]
     _check(q, k, v)
     scale = float(scale) if scale is not None else d ** -0.5
-    if q.device.type == "cpu":
-        o = flash_attention_ref(q, k, v, causal=causal, scale=scale)
-        if out is None:
-            return o
-        out.copy_(o)
-        return out
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for tensors on {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    on_card = q.device.type == "cuda"
+    if on_card and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError(
             "flash_attention_fwd has no backward (nor has the reference's "
             "Pallas kernel): call it on tensors that do not require grad, "
             "or under torch.no_grad()")
-    b, sq, h, _ = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
     o = out if out is not None else torch.empty_like(
         q, memory_format=torch.contiguous_format)
     if o.numel() == 0:
         return o
-    path = flash_path(q.dtype, d, q, k, v, o)
+    staging = operand_staging(q, k, v, o)
+    qs, ks, vs = (stage(x) if s else x
+                  for x, s in zip((q, k, v), staging))
+    os_ = torch.empty_like(o, memory_format=torch.contiguous_format) \
+        if staging[3] else o
+    if on_card:
+        _launch(qs, ks, vs, os_, causal, scale)
+        count_launch(flash_path(q.dtype), q.dtype, any(staging))
+    else:
+        os_.copy_(flash_attention_ref(qs, ks, vs, causal=causal,
+                                      scale=scale))
+    if staging[3]:
+        o.copy_(os_)
+    return o
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            o: torch.Tensor, causal: bool, scale: float) -> None:
+    """The kernel's launch on CUDA operands it can read in place; a
+    :func:`simt_split` call gets its partials' workspace and zeroed
+    finish counts."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    path = flash_path(q.dtype)
+    ws = counts = None
+    if path == "simt" and simt_split(b, h, sq, causal,
+                                     _sm_count(q.device.index)):
+        bq = BLOCKS["simt"][0]
+        tiles = b * h * -(-sq // bq)
+        ws = torch.empty(2 * tiles * bq * (d + 2), device=q.device)
+        counts = torch.zeros(tiles, device=q.device, dtype=torch.int32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _entry()(PATH_CODES[path], _DTYPE_CODES[q.dtype], d,
                       *BLOCKS[path], q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), o.data_ptr(), b, h, hkv, sq, sk, scale,
+                      v.data_ptr(), o.data_ptr(),
+                      None if ws is None else ws.data_ptr(),
+                      None if counts is None else counts.data_ptr(),
+                      b, h, hkv, sq, sk, scale,
                       int(causal), *_strides(q), *_strides(k), *_strides(v),
                       *_strides(o), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: error {rc} "
                            f"(path={path} B={b} Sq={sq} Sk={sk} H={h} "
                            f"Hkv={hkv} D={d} dtype={q.dtype})")
-    count_launch(path, q.dtype)
-    return o
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

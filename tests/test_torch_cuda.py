@@ -398,8 +398,9 @@ def test_flash_kernel_matches_plain_version(card, dtype, case):
     from repro_torch.kernels.ref import flash_attention_ref
     causal = case[-1]
     q, k, v = _flash_operands(card, dtype, case)
-    path = kfa.flash_path(dtype, case[5], q, k, v)
+    path = kfa.flash_path(dtype)
     assert path == ("simt" if dtype == torch.float32 else "mma")
+    assert not any(kfa.operand_staging(q, k, v))
     name = dtype_name(dtype)
     before = kfa.LAUNCHES_BY_PATH.get(path, {}).get(name, 0)
     got = kfa.flash_attention(q, k, v, causal=causal)
@@ -411,7 +412,8 @@ def test_flash_kernel_matches_plain_version(card, dtype, case):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 def test_flash_views_take_the_path_their_strides_allow(card, dtype):
     """flash_attention_bhsd's permuted views read in place on the mma
-    path; a seq stride off a multiple of 8 elements takes simt."""
+    path; a seq stride off a multiple of 8 elements is staged onto mma
+    (counted in LAUNCHES_STAGED), never put on simt."""
     from repro_torch.core.dtypes import dtype_name
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels.ref import flash_attention_ref
@@ -432,12 +434,155 @@ def test_flash_views_take_the_path_their_strides_allow(card, dtype):
                                      device=card).to(dtype)[
         ..., :heads * d].unflatten(-1, (heads, d))
     q, k, v = wide(h), wide(hkv), wide(hkv)
-    assert kfa.flash_path(dtype, d, q, k, v) == "simt"
-    before = kfa.LAUNCHES_BY_PATH.get("simt", {}).get(name, 0)
+    assert kfa.operand_staging(q, k, v) == (True, True, True)
+    before = kfa.LAUNCHES_BY_PATH.get("mma", {}).get(name, 0)
+    staged = kfa.LAUNCHES_STAGED.get(name, 0)
+    simt = kfa.LAUNCHES_BY_PATH.get("simt", {}).get(name, 0)
     got = kfa.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert kfa.LAUNCHES_BY_PATH["simt"][name] == before + 1
+    assert kfa.LAUNCHES_BY_PATH["mma"][name] == before + 1
+    assert kfa.LAUNCHES_STAGED[name] == staged + 1
+    assert kfa.LAUNCHES_BY_PATH.get("simt", {}).get(name, 0) == simt
     _flash_close(got, flash_attention_ref(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+def test_f32_simt_kernel_on_every_head_dim(card, d):
+    """The f32 kernel at every compiled head dim, on every case and
+    hazard with its head dim replaced by ``d``, within the reference's
+    2e-5 max abs of the plain version; every launch on simt, none
+    staged."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.ref import flash_attention_ref
+    assert d in kfa.HEAD_DIMS
+    for case in FLASH_CASES + FLASH_HAZARDS:
+        case = (*case[:5], d, case[6])
+        q, k, v = _flash_operands(card, torch.float32, case)
+        before = kfa.LAUNCHES_BY_PATH.get("simt", {}).get("float32", 0)
+        staged = kfa.LAUNCHES_STAGED.get("float32", 0)
+        got = kfa.flash_attention(q, k, v, causal=case[6])
+        torch.cuda.synchronize()
+        assert kfa.LAUNCHES_BY_PATH["simt"]["float32"] == before + 1, case
+        assert kfa.LAUNCHES_STAGED.get("float32", 0) == staged, case
+        want = flash_attention_ref(q, k, v, causal=case[6])
+        err = float((got - want).abs().max())
+        assert err <= FLASH_TOL[torch.float32], (case, err)
+
+
+@pytest.mark.parametrize("case", [(1, 1024, 1024, 16, 8, 128, True),
+                                  (2, 200, 300, 4, 2, 64, True),
+                                  (1, 65, 65, 2, 1, 8, True),
+                                  (3, 1, 40, 2, 2, 32, True)], ids=str)
+def test_f32_simt_split_and_whole_tiles_agree(card, case):
+    """The f32 kernel with whole q-tiles and with each tile's keys split
+    over two blocks (the second to finish combining them; a tile of one
+    k-block has an empty first half), both through the C entry on the
+    same inputs, each within 2e-5 of the plain version; the finish
+    counts are back at 0 after each launch, so a second launch on the
+    same workspace agrees too."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.ref import flash_attention_ref
+    b, sq, sk, h, hkv, d, causal = case
+    q, k, v = _flash_operands(card, torch.float32, case)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    bq = kfa.BLOCKS["simt"][0]
+    tiles = b * h * -(-sq // bq)
+    ws = torch.empty(2 * tiles * bq * (d + 2), device=card)
+    counts = torch.zeros(tiles, device=card, dtype=torch.int32)
+    stream = torch.cuda.current_stream().cuda_stream
+    st = [x.stride(i) if x.shape[i] > 1 else 0
+          for x in (q, k, v, q) for i in range(3)]
+    for split in (False, True, True):
+        o = torch.full_like(q, float("nan"))
+        ptrs = (ws.data_ptr(), counts.data_ptr()) if split else (None, None)
+        rc = kfa._entry()(kfa.PATH_CODES["simt"], 1, d, *kfa.BLOCKS["simt"],
+                          q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          o.data_ptr(), *ptrs, b, h, hkv, sq, sk, d ** -0.5,
+                          int(causal), *st, stream)
+        torch.cuda.synchronize()
+        assert rc == 0
+        err = float((o - want).abs().max())
+        assert err <= FLASH_TOL[torch.float32], (split, err)
+        assert int(counts.abs().sum()) == 0
+
+
+def _off_copies(card, dtype, shape, pad=0, offset=0):
+    """A (B, S, H, D) view of ``dtype`` whose seq stride is H*D + pad and
+    whose base sits ``offset`` elements into its allocation."""
+    b, s, h, d = shape
+    flat = torch.zeros(b * s * (h * d + pad) + offset, dtype=dtype,
+                       device=card)[offset:]
+    return flat.view(b, s, h * d + pad)[..., :h * d].unflatten(-1, (h, d))
+
+
+@pytest.mark.parametrize("dtype", list(FLASH_TOL), ids=str)
+def test_staged_routes_on_the_card(card, dtype):
+    """Operands the 16-byte copies cannot read in place (a seq stride off
+    the chunk, a base off 16 bytes), output included, are staged onto
+    the dtype's path: f32 on simt, 16-bit on mma, each launch counted in
+    LAUNCHES_STAGED; the result lands in the caller's output view, whose
+    padding stays untouched."""
+    from repro_torch.core.dtypes import dtype_name
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.ref import flash_attention_ref
+    name = dtype_name(dtype)
+    path = kfa.flash_path(dtype)
+    gen = torch.Generator(device=card).manual_seed(21)
+    for b, s, sk, h, hkv, d, causal in [(1, 200, 200, 4, 2, 64, True),
+                                        (2, 130, 97, 4, 1, 128, False),
+                                        (1, 65, 65, 2, 2, 8, True)]:
+        q = _off_copies(card, dtype, (b, s, h, d), pad=1)
+        k = _off_copies(card, dtype, (b, sk, hkv, d), offset=1)
+        v = _off_copies(card, dtype, (b, sk, hkv, d), pad=3, offset=1)
+        out = _off_copies(card, dtype, (b, s, h, d), pad=5, offset=3)
+        for x in (q, k, v):
+            x.copy_(torch.randn(x.shape, generator=gen, device=card))
+        out.as_strided((b, s, 5), out.stride()[:2] + (1,),
+                       out.storage_offset() + h * d).fill_(7.0)
+        assert kfa.operand_staging(q, k, v, out) == (True,) * 4
+        before = kfa.LAUNCHES_BY_PATH.get(path, {}).get(name, 0)
+        staged = kfa.LAUNCHES_STAGED.get(name, 0)
+        assert kfa._attend(q, k, v, out, causal, None) is out
+        got = kfa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert kfa.LAUNCHES_BY_PATH[path][name] == before + 2
+        assert kfa.LAUNCHES_STAGED[name] == staged + 2
+        want = flash_attention_ref(q, k, v, causal=causal)
+        _flash_close(out, want, dtype)
+        _flash_close(got, want, dtype)
+        pad = out.as_strided((b, s, 5), out.stride()[:2] + (1,),
+                             out.storage_offset() + h * d)
+        assert bool((pad == 7.0).all())
+    assert set(kfa.LAUNCHES_BY_PATH.get("simt", {})) <= {"float32"}
+
+
+def test_flash_entry_refuses_16_bit_on_simt(card):
+    """The C entry compiles simt for f32 alone: 16-bit operands on simt
+    are refused (rc -2), as are f32 operands off its 16-byte copies; an
+    unknown dtype is rc -1."""
+    from repro_torch.kernels import flash_attention as kfa
+
+    def call(q, kv, o, dtype=None):
+        b, s, h, d = q.shape
+        stream = torch.cuda.current_stream().cuda_stream
+        st = [x.stride(i) for x in (q, kv, kv, o) for i in range(3)]
+        return kfa._entry()(kfa.PATH_CODES["simt"],
+                            dtype or kfa._DTYPE_CODES[q.dtype], d,
+                            *kfa.BLOCKS["simt"], q.data_ptr(),
+                            kv.data_ptr(), kv.data_ptr(), o.data_ptr(), None,
+                            None, b, h, kv.shape[2], s, kv.shape[1], 0.125, 1,
+                            *st, stream)
+    f32 = torch.ones((1, 64, 2, 64), device=card)
+    for half in (torch.bfloat16, torch.float16):
+        x = f32.to(half)
+        assert call(x, x, torch.empty_like(x)) == -2
+    off = torch.ones(f32.numel() + 1, device=card)[1:].view(f32.shape)
+    assert call(off, f32, torch.empty_like(f32)) == -2
+    ragged = _off_copies(card, torch.float32, (1, 64, 2, 64), pad=2)
+    assert call(ragged, f32, torch.empty_like(f32)) == -2
+    assert call(f32, f32, torch.empty_like(f32), dtype=7) == -1
+    assert call(f32, f32, torch.empty_like(f32)) == 0
+    torch.cuda.synchronize()
 
 
 def test_flash_entry_refuses_operands_the_path_cannot_read(card):
@@ -451,8 +596,9 @@ def test_flash_entry_refuses_operands_the_path_cannot_read(card):
         st = [x.stride(i) for x in (q, kv, kv, o) for i in range(3)]
         return kfa._entry()(kfa.PATH_CODES["mma"], kfa._DTYPE_CODES[q.dtype],
                             d, *kfa.BLOCKS["mma"], q.data_ptr(), kv.data_ptr(),
-                            kv.data_ptr(), o.data_ptr(), b, h, kv.shape[2],
-                            s, kv.shape[1], 0.125, 1, *st, stream)
+                            kv.data_ptr(), o.data_ptr(), None, None, b, h,
+                            kv.shape[2], s, kv.shape[1], 0.125, 1, *st,
+                            stream)
     f32 = torch.ones((1, 64, 2, 64), device=card)
     assert call(f32, f32, torch.empty_like(f32)) == -2
     bf = f32.bfloat16()

@@ -170,18 +170,43 @@ def test_wrapper_raises_instead_of_falling_back():
 
 def test_compiled_blocks_fit_shared_memory():
     """Every compiled (path, head dim) fits the shared memory one block
-    may use on the card.  simt stages f32 (113 KB at D = 128); mma stages
-    the input type, the q tile and two K/V stages (85 KB at D = 128, so
-    two blocks share an SM)."""
+    may use on the card, and two blocks of each path share an SM at
+    D = 128.  simt stages f32: the q tile, two K and two V stages and
+    the probability tile (108 KB); mma stages the input type, the q tile
+    and two K/V stages (85 KB)."""
     for path in kfa.PATHS:
         for d in kfa.HEAD_DIMS:
             assert kfa.smem_bytes(path, d) <= kfa.SMEM_BUDGET, (path, d)
-    assert kfa.BLOCKS == {"simt": (64, 64), "mma": (64, 64)}
-    assert kfa.smem_bytes("simt", 128) == 115968
+    assert kfa.BLOCKS == {"simt": (64, 32), "mma": (64, 64)}
+    # (64 + 2*32) q/k rows of 132 floats, 2*32 v rows of 128, 64 p rows
+    # of 40
+    assert kfa.smem_bytes("simt", 128) == 4 * (128 * 132 + 64 * 128
+                                               + 64 * 40) == 110592
     assert kfa.smem_bytes("mma", 128) == 87040
-    assert 2 * kfa.smem_bytes("mma", 128) <= kfa.SMEM_BUDGET
+    # two blocks an SM at every head dim: 228 KB, 1 KB of it the
+    # system's for each block
+    for path in kfa.PATHS:
+        for d in kfa.HEAD_DIMS:
+            assert 2 * (kfa.smem_bytes(path, d) + 1024) <= 233472, (path, d)
     with pytest.raises(ValueError, match="unknown path"):
         kfa.smem_bytes("wgmma", 128)
+
+
+def test_simt_split_policy():
+    """Causal f32 calls whose q-tiles are fewer than two waves of the
+    blocks the card holds at once (two 64-row blocks an SM) split each
+    tile's keys over two blocks; larger grids and non-causal calls keep
+    whole tiles."""
+    assert kfa.SIMT_BLOCKS_PER_SM == 2
+    # the serving prefill: 16 heads x 16 tiles against 132 SMs x 2 blocks
+    assert kfa.simt_split(1, 16, 1024, True, 132)
+    assert not kfa.simt_split(1, 16, 1024, False, 132)
+    assert kfa.simt_split(1, 1, 1, True, 132)
+    # 527 tiles split, 528 (= 2 x 132 x 2) do not
+    assert kfa.simt_split(1, 527, 64, True, 132)
+    assert not kfa.simt_split(1, 528, 64, True, 132)
+    assert not kfa.simt_split(4, 16, 2048, True, 132)
+    assert kfa.simt_split(4, 16, 2048, True, 1024)
 
 
 def test_compiled_tables_match_the_source():
@@ -205,6 +230,11 @@ def test_compiled_tables_match_the_source():
     codes = {name.lower(): int(code)
              for name, code in re.findall(r"kPath(\w+) = (\d)", src)}
     assert codes == kfa.PATH_CODES
+    # simt is compiled for f32 alone, mma for the two 16-bit types
+    assert re.search(r"case 1: return dispatch_simt<D>", src)
+    assert len(re.findall(r"dispatch_simt<", src)) == 1
+    assert re.findall(r"dispatch_mma<(\w+), D>", src) == ["__half",
+                                                         "__nv_bfloat16"]
 
 
 def _bshd(dtype, b=2, s=24, h=4, d=16, pad=0, offset=0):
@@ -220,30 +250,109 @@ def _bshd(dtype, b=2, s=24, h=4, d=16, pad=0, offset=0):
 def test_flash_path_takes_mma_for_aligned_16_bit_operands(dtype, d):
     """Contiguous f16/bf16 operands, the bhsd layout's permuted views and
     a size-1 axis of any stride take the tensor-core path at every
-    compiled head dim."""
+    compiled head dim, read in place (nothing staged)."""
+    assert kfa.flash_path(dtype) == "mma"
     q, kv = _bshd(dtype, d=d), _bshd(dtype, h=2, d=d)
-    assert kfa.flash_path(dtype, d, q, kv, kv) == "mma"
     bhsd = torch.zeros((6, 40, d), dtype=dtype).permute(1, 0, 2)[None]
-    assert kfa.flash_path(dtype, d, bhsd) == "mma"
     one = torch.zeros((1, 1, 4, d), dtype=dtype)
-    assert kfa.flash_path(dtype, d, one.as_strided(one.shape,
-                                                   (3, 5, d, 1))) == "mma"
+    assert kfa.operand_staging(q, kv, kv, bhsd, one.as_strided(
+        one.shape, (3, 5, d, 1))) == (False,) * 5
 
 
 def test_flash_path_takes_simt_where_mma_cannot_read():
-    """f32 at any layout, a 16-bit seq stride off a multiple of 8
-    elements and a 16-bit base off 16 bytes (a view one element in) all
-    take the CUDA-core path."""
-    assert kfa.flash_path(torch.float32, 128, _bshd(torch.float32)) == "simt"
+    """The path follows the dtype alone: f32 takes the CUDA-core path
+    at any layout, and 16-bit operands the mma path cannot read in place
+    (a seq stride off a multiple of 8 elements, a base off 16 bytes) are
+    staged onto it, never put on simt."""
+    assert kfa.flash_path(torch.float32) == "simt"
     for dtype in (torch.bfloat16, torch.float16):
+        assert kfa.flash_path(dtype) == "mma"
         aligned = _bshd(dtype)
-        assert kfa.flash_path(dtype, 16, aligned) == "mma"
         ragged = _bshd(dtype, pad=1)
         assert ragged.stride(1) % 8 and ragged.stride(-1) == 1
-        assert kfa.flash_path(dtype, 16, aligned, ragged) == "simt"
         shifted = _bshd(dtype, offset=1)
         assert shifted.data_ptr() % 16
-        assert kfa.flash_path(dtype, 16, shifted, aligned) == "simt"
+        assert kfa.operand_staging(aligned, ragged, shifted) == (
+            False, True, True)
+
+
+# (dtype, layout) -> whether it is staged: one element of padding a seq
+# row or an element's offset is off the 16-byte copies in every dtype;
+# four elements of padding are whole chunks in f32 but not in 16 bits
+STAGING_CASES = [
+    (dtype, layout, staged)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16)
+    for layout, staged in (
+        ({}, False), ({"pad": 1}, True), ({"offset": 1}, True),
+        ({"pad": 4}, dtype != torch.float32),
+        ({"pad": 8}, False), ({"offset": 4}, dtype != torch.float32))]
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "o"])
+@pytest.mark.parametrize("dtype,layout,staged", STAGING_CASES, ids=str)
+def test_operand_staging_by_operand_and_dtype(dtype, layout, staged,
+                                              operand):
+    """operand_staging flags exactly the operand whose base or strides
+    the path's 16-byte copies cannot read, in each dtype."""
+    ops = {"q": _bshd(dtype), "k": _bshd(dtype, h=2), "v": _bshd(dtype, h=2),
+           "o": _bshd(dtype)}
+    ops[operand] = _bshd(dtype, h=2 if operand in "kv" else 4, **layout)
+    want = tuple(staged and name == operand for name in ops)
+    assert kfa.operand_staging(*ops.values()) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("layout", [{"pad": 1}, {"offset": 1},
+                                    {"pad": 3, "offset": 1}], ids=str)
+def test_stage_is_an_aligned_contiguous_copy(dtype, layout):
+    """stage() gives one contiguous copy from a 16-byte aligned base, in
+    its own storage, with the operand's values; the copy needs no
+    staging itself."""
+    x = _bshd(dtype, **layout)
+    x.copy_(torch.arange(x.numel()).reshape(x.shape).to(dtype))
+    assert kfa.operand_staging(x) == (True,)
+    y = kfa.stage(x)
+    assert y.is_contiguous() and y.data_ptr() % 16 == 0
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert y.untyped_storage().data_ptr() != x.untyped_storage().data_ptr()
+    assert torch.equal(y, x)
+    assert kfa.operand_staging(y) == (False,)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 5e-2)], ids=str)
+def test_staged_call_matches_the_reference(dtype, tol):
+    """A call whose q, k, v and output are all staged (seq strides off
+    the 16-byte copies, bases off 16 bytes) goes through the staging and
+    the write-back into the caller's output view, and equals the
+    reference's Pallas kernel (interpret mode); the output view's
+    padding is untouched."""
+    b, s, h, hkv, d = 1, 70, 4, 2, 32
+    rng = np.random.default_rng(17)
+    q, k, v = _qkv(rng, b, s, s, h, hkv, d)
+    views = [_bshd(dtype, b, s, h, d, pad=1),
+             _bshd(dtype, b, s, hkv, d, pad=3, offset=1),
+             _bshd(dtype, b, s, hkv, d, offset=1),
+             _bshd(dtype, b, s, h, d, pad=5, offset=3)]
+    for view, x in zip(views, (q, k, v)):
+        view.copy_(torch.from_numpy(x).to(dtype))
+    out = views[3]
+    out.fill_(0.0)
+    out.as_strided((b, s, 5), (s * (h * d + 5), h * d + 5, 1),
+                   out.storage_offset() + h * d).fill_(7.0)
+    assert kfa.operand_staging(*views) == (True,) * 4
+    assert kfa._attend(*views, True, None) is out
+    jx = lambda x: jnp.asarray(x, jnp.bfloat16 if dtype == torch.bfloat16
+                               else jnp.float32)
+    want = np.asarray(ref_flash(jx(q), jx(k), jx(v), causal=True,
+                                block_q=64, block_k=64, interpret=True),
+                      np.float32)
+    np.testing.assert_allclose(out.float().numpy(), want, rtol=tol,
+                               atol=tol)
+    pad = out.as_strided((b, s, 5), (s * (h * d + 5), h * d + 5, 1),
+                         out.storage_offset() + h * d)
+    assert bool((pad == 7.0).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
