@@ -85,8 +85,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    on wgmma (bf16), dmma (f64) and simt (f32).  Its numbers go on a
    ``{"api": ...}`` JSON line.
 
-Phases 4, 8 and 7 are the main paths, in that order: each kernel's
-launch count is set to 0 just before each and read just after it.
+9. analysis — runs after phase 7, on the card: the port's static
+   gate (``python -m repro_torch.analysis --strict src/repro_torch``)
+   and its lock-witness smoke (``--witness-smoke``: GEMM, SYRK and TRSM
+   on a 2-device threads-mode context, then a 2-lane server, all on the
+   card), each a subprocess that must exit 0, with its report line
+   printed; then, in this process under ``LockWitness().activate()``, a
+   fresh 2-device threads-mode ``BlasxContext(backend="cuda",
+   device="cuda", work_centric=True)`` runs DGEMM and SGEMM at N=2048
+   (4 owner tasks under 2 devices x 4 streams: every task splits) and
+   N=4608 (the ragged edge tiles split), tile 1024.  Each result must be
+   ``torch.equal`` to an owner-mode sim run of the same inputs on the
+   card and normwise within phase 8's GEMM limits (1e-12 f64, 1e-5 f32)
+   of the f64 product on the card, each call's ledger must show partial
+   tasks, every f64 launch
+   must take dmma and every f32 launch simt, and the witness must
+   report 0 inversions over more than 0 witnessed locks.  Its numbers go
+   on an ``{"analysis": ...}`` JSON line.
+
+Phases 4, 8, 7 and 9 are the main paths, in that order: each kernel's
+launch count is set to 0 just before each and read just after it (in
+phase 9 before the owner-mode comparison runs).
 The last two lines are a
 JSON object describing each kernel and then
 ``{"ok": true, "device": {...}}``.
@@ -94,6 +113,7 @@ JSON object describing each kernel and then
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -212,6 +232,10 @@ CBLAS_TOL = {("d", "gemm"): 1e-12, ("s", "gemm"): 1e-5,
 CBLAS_OTHER_TOL = {"d": 1e-10, "s": 1e-4}
 # four chained f32 products: the f32 limit of a composite routine
 CHAIN_TOL = 1e-4
+# the analysis phase: work-centric GEMMs at the paper's tile, one size
+# where every owner task splits (4 tasks < 2 devices x 4 streams) and
+# one where only the ragged edge tiles do
+ANALYSIS = {"sizes": (2048, 4608), "tile": 1024}
 
 
 class SmokeFailure(Exception):
@@ -954,6 +978,134 @@ def phase_api(card: str, device: str = "cuda", sizes=None):
     return out, delta
 
 
+def phase_analysis(card: str, device: str = "cuda", sizes=None,
+                   tile=None):
+    """The port's static gate and lock-witness smoke as subprocesses,
+    then work-centric (Stream-K) GEMMs in threads mode under the
+    lock-witness, each bitwise against owner mode.  Returns the phase's
+    numbers and the kernel launch counts of the work-centric runs (read
+    before the owner-mode comparison runs)."""
+    import torch
+    from repro_torch.analysis.witness import LockWitness
+    from repro_torch.api import BlasxContext
+    from repro_torch.core.runtime import RuntimeConfig
+
+    t_phase = time.perf_counter()
+    sizes = sizes or ANALYSIS["sizes"]
+    tile = tile or ANALYSIS["tile"]
+    dev = torch.device(device)
+    out = {"device": device, "tile": tile}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # ---- 9a: the CLI on the card, each in a process of its own
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    smoke = ["--witness-smoke"] + ([] if dev.type == "cuda"
+                                   else ["--device", device])
+    for key, args in (("gate", ["--strict", "src/repro_torch"]),
+                      ("witness_smoke", smoke)):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", *args],
+            cwd=str(ROOT), env=env, capture_output=True, text=True,
+            timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        line = lines[-1] if lines else ""
+        print(f"[analysis] {' '.join(args)}: rc {proc.returncode}, "
+              f"{time.perf_counter() - t0:.1f} s | {line} | {card}",
+              flush=True)
+        check(proc.returncode == 0, f"repro_torch.analysis {' '.join(args)} "
+              f"exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+        out[key] = line
+
+    # ---- 9b: Stream-K in threads mode under the witness
+    gen = torch.Generator(device=dev).manual_seed(9)
+    dtypes = (torch.float64, torch.float32)
+    inputs = {(n, dt): tuple(torch.randn((n, n), generator=gen, device=dev,
+                                         dtype=torch.float64).to(dt).cpu()
+                             for _ in range(2))
+              for n in sizes for dt in dtypes}
+    results, runs = {}, []
+    witness = LockWitness()
+    with witness.activate():
+        ctx = BlasxContext(RuntimeConfig(
+            n_devices=2, mode="threads", backend="cuda", device=device,
+            work_centric=True, cache_bytes=8 << 30), tile=tile)
+        rt = ctx.runtime
+        try:
+            for (n, dt), (a, b) in inputs.items():
+                parts = sum(d.ledger.partial_tasks for d in rt.devices)
+                fixups = sum(d.ledger.fixup_tasks for d in rt.devices)
+                sync()
+                t0 = time.perf_counter()
+                c = ctx.gemm(a, b)
+                sync()
+                wall = time.perf_counter() - t0
+                results[(n, dt)] = c.tiled.data.clone()
+                c.invalidate()
+                run = {"n": n, "dtype": str(dt).replace("torch.", ""),
+                       "wall_s": wall,
+                       "partial_tasks": sum(d.ledger.partial_tasks
+                                            for d in rt.devices) - parts,
+                       "fixup_tasks": sum(d.ledger.fixup_tasks
+                                          for d in rt.devices) - fixups}
+                runs.append(run)
+                print(f"[analysis] work-centric {run['dtype']} gemm N={n}: "
+                      f"{wall:.3f} s wall, {run['partial_tasks']} partial "
+                      f"and {run['fixup_tasks']} fix-up tasks | {card}",
+                      flush=True)
+                check(run["partial_tasks"] > 0,
+                      f"work-centric {run['dtype']} N={n}: no partial task")
+        finally:
+            ctx.close()
+    counts = _read_counts() if dev.type == "cuda" else None
+    report = witness.report().splitlines()[0]
+    print(f"[analysis] {report} | {card}", flush=True)
+    check(not witness.inversions(), witness.report())
+    check(witness.witnessed_locks > 0, "the witness wrapped no lock")
+    out.update(runs=runs, witness=report,
+               witnessed_locks=witness.witnessed_locks)
+
+    # owner mode, sim, same inputs on the same card: the reference
+    # schedule every work-centric result must equal bit for bit.  Both
+    # run the same K4, so each result is also held against the f64
+    # product at phase 4's GEMM limits (the ragged N=4608 edges and the
+    # fix-ups' group sizes run nowhere else in this script)
+    owner = BlasxContext(RuntimeConfig(
+        n_devices=2, mode="sim", backend="cuda", device=device,
+        cache_bytes=8 << 30), tile=tile)
+    errs = {}
+    try:
+        for (n, dt), (a, b) in inputs.items():
+            want = owner.gemm(a, b)
+            same = torch.equal(results[(n, dt)], want.tiled.data)
+            want.invalidate()
+            check(same, f"work-centric {dt} N={n} is not bitwise equal to "
+                  "owner mode")
+            fam = "d" if dt == torch.float64 else "s"
+            tol = CBLAS_TOL[(fam, "gemm")]
+            exact = a.to(dev, torch.float64) @ b.to(dev, torch.float64)
+            err = normwise(results[(n, dt)].to(dev), exact)
+            del exact
+            label = f"{str(dt).replace('torch.', '')} N={n}"
+            errs[label] = err
+            print(f"[analysis] work-centric {label} against the f64 product:"
+                  f" normwise {err:.3e} (tol {tol:.0e}) | {card}", flush=True)
+            check(err <= tol, f"work-centric {label} normwise {err:.3e} > "
+                  f"{tol:.0e}")
+    finally:
+        owner.close()
+    out["normwise"] = errs
+    print(f"[analysis] work-centric == owner mode bitwise at N={sizes} "
+          f"f64/f32", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[analysis] phase {out['phase_s']:.1f} s | {card}", flush=True)
+    print(json.dumps({"analysis": out}), flush=True)
+    return out, counts
+
+
 def phase_epilogue(card: str):
     """The GEMM kernel's fused epilogue (bias row + activation) against
     its plain version; timed in bf16 with bias + silu at the MLP shape."""
@@ -1419,6 +1571,19 @@ def main() -> int:
     # main path 3, serving (counted from 0 inside)
     _, serve = phase_serve(card)
     _check_simt_is_f32("serving path", serve)
+    # main path 4, the analysis phase's work-centric GEMMs
+    _reset_counts()
+    _, analysis = phase_analysis(card)
+    print(f"[analysis] GEMM launches by path: {analysis['gemm_path']}, "
+          f"staged {analysis['staged']} | {card}", flush=True)
+    _check_simt_is_f32("analysis path", analysis)
+    for name in ("float64", "float32"):
+        n = analysis["gemm"].get(name, 0)
+        check(n > 0, f"kernel for {name} never launched on the analysis path")
+        on_path = analysis["gemm_path"].get(MAIN_PATH[name], {}).get(name, 0)
+        check(on_path == n, f"{name}: {on_path} of {n} analysis-path "
+              f"launches took the {MAIN_PATH[name]} path")
+    main_runs = (blas, api, serve, analysis)
     print(f"[done] build {build_s:.1f} s, total "
           f"{time.perf_counter() - t_start:.1f} s | {card}")
 
@@ -1427,8 +1592,8 @@ def main() -> int:
         for "wgmma staged", the others for "wgmma"."""
         path = label.split()[0]
         n = sum(run["gemm_path"].get(path, {}).get(name, 0)
-                for run in (blas, api, serve))
-        staged = sum(run["staged"].get(name, 0) for run in (blas, api, serve))
+                for run in main_runs)
+        staged = sum(run["staged"].get(name, 0) for run in main_runs)
         if path == "wgmma":
             return staged if label.endswith("staged") else n - staged
         return n
@@ -1462,22 +1627,21 @@ def main() -> int:
                      a_offset_4byte=SIMT_A_OFFSET,
                      launches_by_copy={
                          v: sum(run["simt_copy"].get(v, 0)
-                                for run in (blas, api, serve))
+                                for run in main_runs)
                          for v in ("16-byte", "4-byte")})
         if "stage_ms" in r:
             e.update(stage_ms=r["stage_ms"], kernel_ms=r["kernel_ms"])
     kernels.append(entry("blasx_gemm_epilogue<bfloat16>", epi["path"],
                          KERNEL_SOURCE, EPILOGUE_REPLACES,
-                         blas["epilogue"] + api["epilogue"]
-                         + serve["epilogue"], epi))
+                         sum(run["epilogue"] for run in main_runs), epi))
     def flash_launches(route, name):
         """Main-path launches of a flash route: the staged launches of
         the dtype for "<path> staged", the others for "<path>"."""
         path = route.split()[0]
         n = sum(run["flash_path"].get(path, {}).get(name, 0)
-                for run in (blas, api, serve))
+                for run in main_runs)
         staged = sum(run["flash_staged"].get(name, 0)
-                     for run in (blas, api, serve))
+                     for run in main_runs)
         return staged if route.endswith("staged") else n - staged
 
     # one flash entry per route and dtype; f32 simt keeps its first

@@ -8,7 +8,10 @@ threaded through ``RuntimeConfig(backend=...)`` and
                 (the reference's ``jax`` backend);
   * ``cuda``  — full-fill groups through the hand-written kernel,
                 everything else via the torch path (the reference's
-                ``pallas`` backend).
+                ``pallas`` backend);
+  * ``numpy`` — one ``np.dot`` a step on the host (the reference's
+                ``numpy`` backend, its numerically authoritative
+                engine; ``device="cpu"`` only).
 """
 from __future__ import annotations
 
@@ -16,11 +19,13 @@ from typing import Dict, Type
 
 from .base import ExecutionBackend, GroupResult, StepGroupKey
 from .cuda_backend import CudaBackend
+from .numpy_backend import NumpyBackend
 from .torch_backend import TorchBackend
 
 BACKENDS: Dict[str, Type[ExecutionBackend]] = {
     "torch": TorchBackend,
     "cuda": CudaBackend,
+    "numpy": NumpyBackend,
 }
 
 
@@ -40,6 +45,6 @@ def create_backend(name: str) -> ExecutionBackend:
 
 __all__ = [
     "ExecutionBackend", "GroupResult", "StepGroupKey",
-    "TorchBackend", "CudaBackend",
+    "TorchBackend", "CudaBackend", "NumpyBackend",
     "BACKENDS", "available_backends", "create_backend",
 ]

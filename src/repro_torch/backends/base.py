@@ -32,6 +32,9 @@ Contract
 * ``launches`` in the returned :class:`GroupResult` is the number of
   kernel dispatches the group cost — the ledger currency behind the
   ``launches saved`` statistic.
+* :meth:`ExecutionBackend.solve_triangular` is the TRSM finalize solve
+  of one tile.  The device backends solve on the tiles' device; the
+  host backend solves as the reference does, with scipy.
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ import dataclasses
 from typing import List, Sequence
 
 import torch
+
+from ..core import tile_kernels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +104,12 @@ class ExecutionBackend(abc.ABC):
         over same-shape tiles (item-major order) — as one logical
         dispatch wherever the engine allows; returns one accumulator
         per item."""
+
+    def solve_triangular(self, a: torch.Tensor, b: torch.Tensor,
+                         lower: bool, unit_diag: bool) -> torch.Tensor:
+        """Tile-level solve ``a @ x = b`` for the TRSM finalize step."""
+        return tile_kernels.solve_triangular(a, b, lower=lower,
+                                             unit_diag=unit_diag)
 
     def __repr__(self) -> str:  # pragma: no cover - debugging nicety
         return f"{type(self).__name__}()"

@@ -12,6 +12,14 @@ the port that is true f64 — the reference narrows it to f32 unless jax
 runs with x64), everything narrower in float32, then a cast back to
 the group's storage type.  Integer groups are staged and summed in
 float64 and rounded back (``core.dtypes``).
+
+Each item's result must not depend on how many items share its group:
+the work-centric fix-ups regroup whole k-loops, and their results are
+held bitwise to owner mode's.  On the card a batch of one would leave
+cuBLAS's batched path for its lone-GEMM path, which splits small f32
+products over k and sums the parts in another order (an H100 read
+another last bit at 64 x 128 x 128 that way), so a lone item runs as a
+batch of two that repeats it.
 """
 from __future__ import annotations
 
@@ -59,5 +67,7 @@ class TorchBackend(ExecutionBackend):
         acc = accumulator_dtype(a.dtype)
         a2 = a.to(acc).transpose(1, 2).reshape(g, m, s * k)
         b2 = b.to(acc).reshape(g, s * k, key.n)
-        out = torch.matmul(a2, b2).to(storage_dtype(key.dtype))
+        if g == 1 and a2.is_cuda:   # stay on cuBLAS's batched path
+            a2, b2 = a2.expand(2, -1, -1), b2.expand(2, -1, -1)
+        out = torch.matmul(a2, b2)[:g].to(storage_dtype(key.dtype))
         return GroupResult(list(out.unbind(0)), launches=1, engine=self.name)

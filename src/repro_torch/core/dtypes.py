@@ -2,8 +2,8 @@
 
 The registry is keyed by the numpy-style names the reference uses
 (``"float64"``, ``"float32"``, ``"float16"``, ``"bfloat16"``) and maps
-each to its ``torch.dtype``.  Every name runs on both backends of the
-port:
+each to its ``torch.dtype``.  Every name runs on the two device
+backends of the port:
 
   * ``torch`` — one batched library matmul per step group (the
     fallback, like the reference's jax backend);
@@ -11,7 +11,10 @@ port:
     ``repro_torch.kernels``.
 
 Both accumulate float64 in float64 and every narrower storage type in
-float32, then cast back to the storage type.  Byte accounting is
+float32, then cast back to the storage type.  The host backend
+``numpy`` (the reference's numpy engine) takes float64 and float32
+only, computed in the storage type; float16/bfloat16 raise on it, as
+in the reference.  Byte accounting is
 storage-dtype accounting (``h * w * itemsize``), exactly as in the
 reference, so the ALRU/heap capacity model and the transfer ledger
 match it byte for byte.
@@ -27,7 +30,11 @@ float32 is float64), and int x int stays integer.  Integer groups are
 computed in float64 and rounded back, so their sums are exact while
 they stay below 2**53 in magnitude (the reference's numpy engine is
 exact in int64; its jax engine stages int32 and sums in float32, exact
-below 2**24).
+below 2**24).  On the ``numpy`` backend integer groups take the
+reference's own route: ``np.dot`` in the group's integer type (then the
+float64 alpha/beta epilogue both packages share), so they give the
+reference's results bit for bit.  The registry gates only what a caller
+may ask for, so integer operands run on every backend.
 """
 from __future__ import annotations
 
@@ -36,13 +43,14 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-_ALL_BACKENDS: Tuple[str, ...] = ("torch", "cuda")
+_ALL_BACKENDS: Tuple[str, ...] = ("numpy", "torch", "cuda")
+_DEVICE_BACKENDS: Tuple[str, ...] = ("torch", "cuda")
 # storage dtype name -> backends allowed to execute it
 SUPPORTED_DTYPES: Dict[str, Tuple[str, ...]] = {
     "float64": _ALL_BACKENDS,
     "float32": _ALL_BACKENDS,
-    "float16": _ALL_BACKENDS,
-    "bfloat16": _ALL_BACKENDS,
+    "float16": _DEVICE_BACKENDS,
+    "bfloat16": _DEVICE_BACKENDS,
 }
 
 TORCH_DTYPES: Dict[str, torch.dtype] = {
@@ -118,7 +126,9 @@ def validate_backend_dtype(dtype, backend: str) -> torch.dtype:
     if backend not in allowed:
         raise ValueError(
             f"dtype {name!r} is not supported on the {backend!r} backend "
-            f"({name} needs one of {list(allowed)})")
+            f"(supported there: "
+            f"{sorted(n for n, b in SUPPORTED_DTYPES.items() if backend in b)}; "
+            f"{name} needs one of {list(allowed)})")
     return dt
 
 

@@ -49,6 +49,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..backends import create_backend
+from ..backends.numpy_backend import DEVICE_ERROR as NUMPY_DEVICE_ERROR
 from ..backends.base import StepGroupKey
 from .alru import Alru
 from .coherence import MesixDirectory
@@ -58,7 +59,7 @@ from .heap import BlasxHeap
 from . import task as taskmod
 from .task import KIND_FIXUP, KIND_PARTIAL, Ledger, Task, TileRef
 from .taskqueue import ReadyQueue, ReservationStation
-from .tile_kernels import materialize, solve_triangular
+from .tile_kernels import materialize
 from .tiling import TiledMatrix, TileKey
 
 # paper Table IV: measured DMA throughputs on Everest
@@ -131,7 +132,8 @@ class RuntimeConfig:
     n_streams: int = 4                    # paper: 4 concurrent tasks/streams
     rs_slots: Optional[int] = None        # RS capacity (default 2*n_streams)
     policy: str = "blasx"
-    # execution backend: torch | cuda (see repro_torch.backends)
+    # execution backend: torch | cuda | numpy (see repro_torch.backends;
+    # numpy is a host engine and needs device="cpu")
     backend: str = "cuda"
     # where tiles are computed: the card unless the caller asks for the
     # CPU (the tests do).  A runtime on "cuda" without a card raises.
@@ -199,10 +201,14 @@ class RuntimeConfig:
         if self.policy not in ("blasx", "parsec", "cublasxt", "static",
                                "supermatrix"):
             raise ValueError(f"unknown policy {self.policy}")
-        if self.backend not in ("torch", "cuda"):
+        if self.backend not in ("torch", "cuda", "numpy"):
             raise ValueError(f"unknown backend {self.backend}")
         if str(self.device).split(":")[0] not in ("cpu", "cuda"):
             raise ValueError(f"unknown device {self.device!r}")
+        if self.backend == "numpy" and \
+                str(self.device).split(":")[0] != "cpu":
+            raise ValueError(f"{NUMPY_DEVICE_ERROR}; got "
+                             f"device={self.device!r}")
         if self.time_model not in ("events", "lump"):
             raise ValueError(f"unknown time_model {self.time_model}")
         if self.record_trace is None:
@@ -946,9 +952,9 @@ class BlasxRuntime:
                                   device=self.device)
             acc = _scalable(acc)
             if t.finalize is not None:  # TRSM
-                result = solve_triangular(rec.diag, t.alpha * rec.rhs - acc,
-                                          lower=t.finalize.lower,
-                                          unit_diag=t.finalize.unit_diag)
+                result = self.backend.solve_triangular(
+                    rec.diag, t.alpha * rec.rhs - acc,
+                    lower=t.finalize.lower, unit_diag=t.finalize.unit_diag)
             else:
                 result = t.alpha * acc
                 if rec.cin is not None:
@@ -1051,8 +1057,14 @@ class BlasxRuntime:
         return materialize(data, ref), secs
 
     def _to_device(self, tile: torch.Tensor) -> torch.Tensor:
-        """A private device copy of a host tile (the H2D fill)."""
-        return tile.to(self.device, copy=True)
+        """A private device copy of a host tile (the H2D fill).  On the
+        host it is row-major, the layout of the reference's
+        ``ndarray.copy()``, so the numpy backend hands ``np.dot`` what
+        the reference's does; onto the card it keeps the tile's
+        layout."""
+        layout = torch.contiguous_format if self.device.type == "cpu" \
+            else torch.preserve_format
+        return tile.to(self.device, memory_format=layout, copy=True)
 
     def _ring_hop(self, d: DeviceSim, key: TileKey, nbytes: int,
                   xfers: List[TimedXfer]) -> float:
@@ -1219,7 +1231,7 @@ class BlasxRuntime:
 
 
 # reference backend name -> the port's counterpart
-_BACKEND_COUNTERPARTS = {"jax": "torch", "pallas": "cuda"}
+_BACKEND_COUNTERPARTS = {"numpy": "numpy", "jax": "torch", "pallas": "cuda"}
 
 
 def config_from_reference(d: Dict[str, object],
@@ -1227,8 +1239,9 @@ def config_from_reference(d: Dict[str, object],
     """Build the port's config from ``dataclasses.asdict`` of a
     reference ``repro.core.runtime.RuntimeConfig``: every field carries
     over unchanged (so the modeled machine, and with it the ledger, is
-    the same), the backend maps ``jax -> torch`` and ``pallas -> cuda``,
-    and ``device`` says where the port computes."""
+    the same), the backend maps ``numpy -> numpy``, ``jax -> torch`` and
+    ``pallas -> cuda``, and ``device`` says where the port computes (the
+    numpy backend only on ``"cpu"``)."""
     fields = dict(d)
     kernel = fields.pop("kernel", None)
     backend = fields.pop("backend", None) or kernel

@@ -260,7 +260,7 @@ def test_backend_selection_and_rejections():
     from repro_torch.api import BlasxContext
     from repro_torch.core.runtime import RuntimeConfig
 
-    assert set(available_backends()) == {"torch", "cuda"}
+    assert set(available_backends()) == {"torch", "cuda", "numpy"}
     with pytest.raises(ValueError, match="unknown backend"):
         create_backend("pallas")
     with pytest.raises(ValueError, match="unknown backend"):
@@ -268,8 +268,11 @@ def test_backend_selection_and_rejections():
     rt = BlasxRuntime(RuntimeConfig(backend="torch", device="cpu"))
     with pytest.raises(ValueError, match="backend"):
         BlasxContext(runtime=rt, backend="cuda")
+    ref_fields = dataclasses.asdict(RefConfig())
+    assert config_from_reference(ref_fields, device="cpu").backend == "numpy"
     with pytest.raises(ValueError, match="no counterpart"):
-        config_from_reference(dataclasses.asdict(RefConfig()), device="cpu")
+        config_from_reference(dict(ref_fields, backend="mosaic"),
+                              device="cpu")
     rng = np.random.default_rng(6)
     A = rng.standard_normal((48, 32))
     B = rng.standard_normal((32, 40))

@@ -702,3 +702,110 @@ def test_two_tenant_server_on_the_card(card):
     assert set(kmm.LAUNCHES_BY_PATH) == {"wgmma", "simt"}
     assert set(kmm.LAUNCHES_BY_PATH["wgmma"]) == {"bfloat16"}
     assert set(kmm.LAUNCHES_BY_PATH["simt"]) == {"float32"}
+
+
+# ---- work-centric (Stream-K) parity on the card: the fix-ups regroup
+# each task's whole k-loop into groups of another size than owner mode
+# launches, so bitwise equality holds only if every item of a launch is
+# independent of the group's size (the twins of test_workcentric.py's
+# parity tests, on the kernel paths)
+WC_ROUTINES = ["gemm", "symm", "syrk", "syr2k", "trmm", "trsm"]
+
+
+def _wc_run(routine, dtype, *, work_centric, time_model="lump",
+            mode="sim"):
+    from repro_torch.core import blas3
+
+    n, tile = 320, 128   # ragged edge tiles included
+    rng = np.random.default_rng(42)  # identical operands per config
+    A = rng.standard_normal((n, n))
+    B = rng.standard_normal((n, n))
+    C = rng.standard_normal((n, n))
+    cfg = RuntimeConfig(n_devices=3, mode=mode, cache_bytes=32 << 20,
+                        backend="cuda", device="cuda",
+                        time_model=time_model, work_centric=work_centric)
+    kw = dict(tile=tile, config=cfg, dtype=dtype)
+    if routine == "gemm":
+        return blas3.gemm(A, B, C, beta=0.5, **kw)
+    if routine == "symm":
+        return blas3.symm(A, B, **kw)
+    if routine == "syrk":
+        return blas3.syrk(A, C, beta=0.5, uplo="L", **kw)
+    if routine == "syr2k":
+        return blas3.syr2k(A, B, **kw)
+    if routine == "trmm":
+        return blas3.trmm(A, B, uplo="L", **kw)
+    return blas3.trsm(A + n * np.eye(n), B, **kw)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("routine", WC_ROUTINES)
+def test_workcentric_bitwise_parity_on_card(card, routine, dtype):
+    before = kmm.LAUNCHES
+    owner = _wc_run(routine, dtype, work_centric=False)
+    wc_lump = _wc_run(routine, dtype, work_centric=True)
+    wc_events = _wc_run(routine, dtype, work_centric=True,
+                        time_model="events")
+    if routine in ("gemm", "syrk", "syr2k", "symm"):
+        assert kmm.LAUNCHES > before       # full-fill groups took K4
+    assert owner.dtype == wc_lump.dtype == wc_events.dtype
+    assert np.isfinite(owner).all()
+    assert np.array_equal(owner, wc_lump)
+    assert np.array_equal(owner, wc_events)
+
+
+def test_workcentric_threads_mode_bitwise_parity_on_card(card):
+    owner = _wc_run("gemm", np.float64, work_centric=False)
+    for _ in range(3):   # racy schedules differ run to run; results can't
+        wc = _wc_run("gemm", np.float64, work_centric=True, mode="threads")
+        assert np.array_equal(owner, wc)
+
+
+def test_numpy_backend_refuses_the_card(card):
+    """The numpy backend is a host engine: on the card it raises, naming
+    the host device, and never copies tiles off the card."""
+    from repro_torch.backends import create_backend
+    from repro_torch.backends.base import StepGroupKey
+
+    with pytest.raises(ValueError, match='device="cpu"'):
+        RuntimeConfig(backend="numpy", device="cuda")
+    with pytest.raises(ValueError, match='device="cpu"'):
+        BlasxContext(RuntimeConfig(device="cuda"), backend="numpy")
+    key = StepGroupKey("gemm", False, False, "full", "full", 4, 4, 4,
+                       "float64")
+    t = torch.ones((4, 4), dtype=torch.float64, device=card)
+    with pytest.raises(ValueError, match='device="cpu"'):
+        create_backend("numpy").run_group(key, [t], [t])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(64, 128, 128), (64, 64, 128),
+                                   (128, 128, 64), (128, 64, 128),
+                                   (64, 128, 64), (1024, 1024, 1024),
+                                   (512, 1024, 1024), (1024, 1024, 512),
+                                   (512, 512, 512)])
+@pytest.mark.parametrize("steps", [1, 3])
+def test_torch_backend_item_independent_of_group_size(card, dtype, shape,
+                                                      steps):
+    """The library fallback gives an item the same bits in a group of any
+    size (the tile shapes of the tile-128 parity twins and of tile 1024):
+    cuBLAS's lone-GEMM path (a batch of one) splits small f32 products
+    over k, which the backend keeps clear of."""
+    from repro_torch.backends.base import StepGroupKey
+    from repro_torch.backends.torch_backend import TorchBackend
+
+    m, k, n = shape
+    key = StepGroupKey("trmm", False, False, "tri_l", "full", m, k, n,
+                       str(dtype).replace("torch.", ""), steps)
+    gen = torch.Generator(device=card).manual_seed(1)
+    a = [torch.randn((m, k), generator=gen, device=card).to(dtype)
+         for _ in range(8 * steps)]
+    b = [torch.randn((k, n), generator=gen, device=card).to(dtype)
+         for _ in range(8 * steps)]
+    be = TorchBackend()
+    lone = be.run_group(key, a[:steps], b[:steps]).products[0]
+    for g in range(2, 9):
+        got = be.run_group(key, a[:g * steps], b[:g * steps]).products[0]
+        assert torch.equal(got, lone), f"group of {g}"
