@@ -58,7 +58,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    (path, dtype), and staged (the staging copies and the kernel apart),
    beside its bound and ``scaled_dot_product_attention`` (a yardstick
    only: the port never calls it), by CUDA events and by the device time
-   ``torch.profiler`` records.
+   ``torch.profiler`` records.  The other families' prefill attention
+   is held and timed the same way in each dtype: Zamba2-2.7B's shared
+   block (B 1, S 1024, H 32, Hkv 32, D 80, causal) and SeamlessM4T's
+   encoder (H 16, D 64, non-causal).
 7. serve — ``repro_torch.launch.serve.run`` at Qwen3-0.6B's full width in
    bf16 (random weights from a seed): 16 requests of 1024-token prompts,
    32 new tokens each, 8 slots.  Checks every request and token, every
@@ -103,9 +106,25 @@ Phases, each printing its own lines; any failure exits non-zero:
    report 0 inversions over more than 0 witnessed locks.  Its numbers go
    on an ``{"analysis": ...}`` JSON line.
 
-Phases 4, 8, 7 and 9 are the main paths, in that order: each kernel's
-launch count is set to 0 just before each and read just after it (in
-phase 9 before the owner-mode comparison runs).
+10. families — runs after phase 9, bf16 at full width, random weights
+   from a seed, one model at a time (each freed, its peak memory
+   printed): OLMoE-1B-7B, Zamba2-2.7B and Mamba2-780M through
+   ``launch.serve.run`` (4 requests of 1024-token prompts, 16 new tokens
+   each, 4 slots); SeamlessM4T-medium through ``Model.prefill`` (128
+   tokens, 1024 encoder frames: the audio frontend is a stub in the
+   reference too) and 16 ``Model.decode`` steps; DeepSeek-V3 at full
+   width with its depth cut to 4 layers (3 dense, 1 MoE of 256 experts)
+   and the MTP block, through ``Server.admit`` / ``step`` (2 requests of
+   1024 tokens, 16 new tokens).  Each checks every request and token,
+   every logit finite, K5's launches exactly self-attention layers x
+   prefills on the mma path in bf16, by shape (``LAUNCHES_BY_SHAPE``),
+   and, where it reaches K5, one prompt's last logits against the plain
+   "sdpa" backend.  Its numbers go on a ``{"families": ...}`` JSON line.
+
+Phases 4, 8, 7, 9 and each model of 10 are the main paths, in that
+order: each kernel's launch count is set to 0 just before each and read
+just after it (in phase 9 before the owner-mode comparison runs, in
+phase 10 before the sdpa comparison).
 The last two lines are a
 JSON object describing each kernel and then
 ``{"ok": true, "device": {...}}``.
@@ -181,9 +200,31 @@ FLASH_HAZARDS = [(2, 37, 37, 4, 2, 8, True), (2, 130, 130, 4, 1, 8, True),
                  (1, 300, 170, 4, 2, 16, True), (1, 1, 1, 4, 2, 128, True),
                  (1, 1, 200, 4, 2, 64, False), (1, 65, 65, 4, 2, 128, True),
                  (1, 100, 65, 4, 2, 32, False), (1, 70, 200, 2, 1, 64, True)]
+# the other families' prefill attention (phase 6): Zamba2-2.7B's shared
+# block (d_model 2560 / 32 heads = D 80, causal) and SeamlessM4T-medium's
+# encoder (D 64, non-causal), at a 1024-token prompt
+FLASH_FAMILY = [(1, 1024, 1024, 32, 32, 80, True),
+                (1, 1024, 1024, 16, 16, 64, False)]
 # the serve phase: Qwen3-0.6B, 28 layers, bf16
 SERVE = dict(arch="qwen3_0_6b", smoke=False, batch_slots=8, prompt_len=1024,
              max_len=1088, requests=16, max_new=32, seed=0, device="cuda")
+# the families phase (10), bf16 at full width, random weights from a
+# seed: (arch, route, config changes).  "serve" goes through
+# launch.serve.run; "model" through Model.prefill / decode with encoder
+# states (the audio frontend is a stub in the reference too; run serves
+# no encdec model); "server" through Server.admit / step at a cut depth
+# (DeepSeek-V3's 3 dense layers, 1 MoE layer of 256 experts and the MTP
+# block: 61 layers do not fit one card)
+FAMILIES = [("olmoe_1b_7b", "serve", {}), ("zamba2_2_7b", "serve", {}),
+            ("mamba2_780m", "serve", {}),
+            ("seamless_m4t_medium", "model", {}),
+            ("deepseek_v3_671b", "server", {"n_layers": 4})]
+FAMILY_SERVE = dict(smoke=False, batch_slots=4, prompt_len=1024,
+                    max_len=1056, requests=4, max_new=16, seed=0,
+                    device="cuda")
+FAMILY_MODEL = {"prompt_len": 128, "enc_len": 1024, "steps": 16}
+FAMILY_SERVER = {"requests": 2, "slots": 2, "prompt_len": 1024,
+                 "max_new": 16}
 # the reference's bf16 flash tolerance; on an H100 the sound kernel read
 # 1.6e-2 and a planted 16-key drop on the last q-block 1.3e-1 (PERF.md)
 SERVE_LOGIT_TOL = 5e-2
@@ -1220,7 +1261,7 @@ def phase_attention(card: str):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(99)
-    results = {}
+    results, family = {}, {}
 
     def held(label, name, path, fn, want, staged=False):
         """Run ``fn()``, check its launch landed on ``path``, staged or
@@ -1345,13 +1386,26 @@ def phase_attention(card: str):
                 results[(name, path)] = timed(name, path, case, q, k, v, *w)
             del q, k, v, want
         layouts(name, dt, worst)
+        # the other families' shapes: D 80 causal, D 64 full, each timed
+        for case in FLASH_FAMILY:
+            causal, d = case[6], case[5]
+            q, k, v = _flash_qkv(gen, case, dt)
+            path = kfa.flash_path(dt)
+            want = flash_attention_ref(q, k, v, causal=causal)
+            w = held(str(case), name, path, lambda: kfa.flash_attention(
+                q, k, v, causal=causal), want)
+            worst[path] = tuple(map(max, zip(worst[path], w)))
+            family[(name, kfa.shape_key(d, causal))] = dict(
+                timed(name, path, case, q, k, v, *w), path=path,
+                case=list(case))
+            del q, k, v, want
         for path, (max_abs, err) in sorted(worst.items()):
             nw = (f", worst normwise {err:.3e} (tol "
                   f"{FLASH_NORMWISE_TOL[name]:.0e})"
                   if name in FLASH_NORMWISE_TOL else "")
             print(f"[attention] {name} {path}: worst max abs {max_abs:.3e} "
                   f"(tol {FLASH_TOL[name]:.0e}){nw}", flush=True)
-    return results
+    return results, family
 
 
 def phase_serve(card: str):
@@ -1420,6 +1474,276 @@ def phase_serve(card: str):
     profile_serving(card, model, params, tokens)
     del model, params
     return out, launches
+
+
+def family_flash_launches(cfg, prefills: int):
+    """K5's launches on a model's main path by shape key: one a
+    self-attention layer and prefill (the hybrid's shared block once a
+    segment; the encoder's non-causal); none for MLA or a pure SSM."""
+    from repro_torch.kernels.flash_attention import shape_key
+    hd = cfg.resolved_head_dim
+    if cfg.use_mla or cfg.family == "ssm":
+        return {}
+    if cfg.family == "hybrid":
+        return {shape_key(hd, True): cfg.n_layers // cfg.attn_every
+                * prefills}
+    if cfg.family == "encdec":
+        return {shape_key(hd, False): cfg.n_encoder_layers * prefills,
+                shape_key(hd, True): cfg.n_layers * prefills}
+    return {shape_key(hd, True): cfg.n_layers * prefills}
+
+
+def _drive_model(cfg, model, params, rng, sizes):
+    """The encdec route: one prompt through Model.prefill with encoder
+    states, then ``sizes["steps"]`` greedy Model.decode steps."""
+    import numpy as np
+    import torch
+    n, steps = sizes["prompt_len"], sizes["steps"]
+    device = params["embed"].device
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))
+                              ).to(device)
+    enc = torch.from_numpy(rng.standard_normal(
+        (1, sizes["enc_len"], cfg.d_model)).astype(np.float32)).to(device)
+    nonfinite = 0
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, tokens=tokens, enc_embeds=enc)
+    cache = model.pad_cache(cache, n + steps + 1)
+    out = [int(torch.argmax(logits[0, -1]))]
+    nonfinite += int(not torch.isfinite(logits).all())
+    prefill_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    for i in range(steps):
+        tok = torch.tensor([out[-1]], device=device)
+        pos = torch.tensor([n + i], device=device)
+        logits, cache = model.decode(params, cache, tok, pos)
+        out.append(int(torch.argmax(logits[0])))
+        nonfinite += int(not torch.isfinite(logits).all())
+    decode_s = time.perf_counter() - t1
+    wall = time.perf_counter() - t0
+    return dict(requests=1, tokens=len(out), steps=steps, wall_s=wall,
+                prefill_s=prefill_s, decode_s=decode_s,
+                tok_per_s=len(out) / wall, nonfinite_logits=nonfinite,
+                outputs={0: out}), dict(tokens=tokens, enc_embeds=enc)
+
+
+def _drive_server(cfg, model, params, rng, fs):
+    """The cut-depth route: launch.serve.run's loop over a Server built
+    here (run builds its config from the arch alone)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import Request, Server
+    queue = [Request(i, rng.integers(0, cfg.vocab_size, (fs["prompt_len"],)
+                                     ).astype(np.int32), fs["max_new"])
+             for i in range(fs["requests"])]
+    first = torch.from_numpy(queue[0].prompt[None].astype(np.int64)
+                             ).to(params["embed"].device)
+    server = Server(cfg, model, params, fs["slots"],
+                    fs["prompt_len"] + fs["max_new"] + 16)
+    finished, steps = [], 0
+    prefill_s = decode_s = 0.0
+    t0 = time.perf_counter()
+    while queue or any(r is not None for r in server.active):
+        for s in range(server.slots):
+            if server.active[s] is None and queue:
+                t = time.perf_counter()
+                server.admit(queue.pop(0), s)
+                prefill_s += time.perf_counter() - t
+        t = time.perf_counter()
+        finished.extend(server.step())
+        decode_s += time.perf_counter() - t
+        steps += 1
+        check(steps < 1000, "the server loop did not converge")
+    wall = time.perf_counter() - t0
+    toks = sum(len(r.out) for r in finished)
+    return dict(requests=len(finished), tokens=toks, steps=steps,
+                wall_s=wall, prefill_s=prefill_s, decode_s=decode_s,
+                tok_per_s=toks / wall,
+                nonfinite_logits=server.nonfinite_logits,
+                outputs={r.rid: r.out for r in finished}), dict(tokens=first)
+
+
+def _family_logits(card, cfg, route, model, params, prompt, out, device,
+                   seed):
+    """One prompt's last logits through the kernel against the plain
+    "sdpa" backend, same weights (same seed): in the model's bf16 and in
+    f32 copies of the same weights (f32 takes the kernel's simt path).
+    The f32 pair is always held to SERVE_LOGIT_TOL; the bf16 pair is
+    where bf16 itself keeps the model within that limit of f32 (the
+    sdpa pair), and otherwise only printed: a bf16 model that amplifies
+    its own rounding past the limit cannot tell a sound kernel from a
+    faulty one.  Returns the normwise errors."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn
+    if route == "serve":
+        model = Model(cfg)
+        params = model.init(seed, device=device)
+
+    def both(m, p):
+        got = {}
+        try:
+            for backend in ("flash", "sdpa"):
+                attn.ATTENTION_BACKEND = backend
+                got[backend], _ = m.prefill(p, **prompt)
+        finally:
+            attn.ATTENTION_BACKEND = "flash"
+        return got
+
+    bf = both(model, params)
+    f32 = lambda t: {k: f32(v) if isinstance(v, dict) else v.float()
+                     for k, v in t.items()}
+    wide = f32(params)
+    del params
+    fl = both(Model(dataclasses.replace(cfg, dtype="float32")), wide)
+    del wide
+    err = {"bf16": normwise(bf["flash"], bf["sdpa"]),
+           "f32": normwise(fl["flash"], fl["sdpa"]),
+           "bf16_sdpa_vs_f32": normwise(bf["sdpa"], fl["sdpa"]),
+           "bf16_flash_vs_f32": normwise(bf["flash"], fl["sdpa"])}
+    resolves = err["bf16_sdpa_vs_f32"] <= SERVE_LOGIT_TOL
+    same = int(torch.argmax(bf["flash"])) == int(torch.argmax(bf["sdpa"]))
+    print(f"[families] {cfg.name} prefill logits, flash vs sdpa backend: "
+          f"bf16 normwise {err['bf16']:.3e}, f32 {err['f32']:.3e} (tol "
+          f"{SERVE_LOGIT_TOL:.0e}); against the f32 sdpa logits, bf16 "
+          f"sdpa {err['bf16_sdpa_vs_f32']:.3e}, bf16 flash "
+          f"{err['bf16_flash_vs_f32']:.3e} (bf16 "
+          f"{'resolves' if resolves else 'does not resolve'} the limit); "
+          f"same greedy token {same}; first request's greedy token "
+          f"{out['outputs'][0][0]} | {card}", flush=True)
+    for name, logits in (("bf16", bf["flash"]), ("f32", fl["flash"])):
+        check(bool(torch.isfinite(logits).all()),
+              f"{cfg.name}: non-finite {name} logits")
+    check(err["f32"] <= SERVE_LOGIT_TOL, f"{cfg.name}: f32 flash vs sdpa "
+          f"logits normwise {err['f32']:.3e} > {SERVE_LOGIT_TOL:.0e}")
+    check(not resolves or err["bf16"] <= SERVE_LOGIT_TOL,
+          f"{cfg.name}: bf16 flash vs sdpa logits normwise "
+          f"{err['bf16']:.3e} > {SERVE_LOGIT_TOL:.0e}")
+    return err
+
+
+def phase_families(card: str, device: str = "cuda", smoke: bool = False):
+    """Phase 10: the moe, ssm, hybrid and encdec families and MLA at full
+    width in bf16, one model at a time, each freed before the next.  Each
+    model's K5 launches are counted from 0 around its run and must be
+    exactly its self-attention layers x prefills on the mma path, by
+    shape; where it reaches K5, one prompt's last logits through the
+    kernel are held against the plain "sdpa" backend
+    (:func:`_family_logits`).  Returns the phase's numbers and each
+    model's counts.  ``device="cpu",
+    smoke=True`` rehearses it here: the reduced configs (f32), 32-token
+    prompts, and no launch checks (the plain versions run)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeConfig, run
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn
+
+    on_card = device == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(attn.ATTENTION_BACKEND == "flash", "the default backend is flash")
+    short = {"prompt_len": 32, "max_len": 64} if smoke else {}
+    serve_kw = dict(FAMILY_SERVE, smoke=smoke, device=device, **short)
+    model_sizes = dict(FAMILY_MODEL, **{"prompt_len": 16, "enc_len": 32}
+                       if smoke else {})
+    server_sizes = dict(FAMILY_SERVER, **{"prompt_len": 32} if smoke
+                        else {})
+    t_phase = time.perf_counter()
+    numbers, counts = {}, {}
+    for arch, route, cut in FAMILIES:
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg.reduced() if smoke else cfg, **(
+            {} if smoke else cut))
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        seed = FAMILY_SERVE["seed"]
+        model = params = None
+        if route != "serve":
+            model = Model(cfg)
+            params = model.init(seed, device=device)
+        rng = np.random.default_rng(seed)
+        _reset_counts()
+        if route == "serve":
+            sc = ServeConfig(arch=arch, **serve_kw)
+            out = run(sc)
+            prefills, want_req, want_new = sc.requests, sc.requests, \
+                sc.max_new
+            prompt = dict(tokens=torch.from_numpy(np.random.default_rng(
+                seed).integers(0, cfg.vocab_size, (1, sc.prompt_len))
+            ).to(device))
+        elif route == "model":
+            out, prompt = _drive_model(cfg, model, params, rng, model_sizes)
+            prefills, want_req, want_new = 1, 1, model_sizes["steps"] + 1
+        else:
+            out, prompt = _drive_server(cfg, model, params, rng,
+                                        server_sizes)
+            prefills = want_req = server_sizes["requests"]
+            want_new = server_sizes["max_new"]
+        if on_card:
+            torch.cuda.synchronize()
+        run_counts = _read_counts()
+        peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+                else None)
+        want = family_flash_launches(cfg, prefills)
+        total = sum(want.values())
+        reduced = (f"n_layers {get_config(arch).n_layers} -> "
+                   f"{cfg.n_layers}" if cut and not smoke else None)
+        print(f"[families] {cfg.name} {cfg.dtype} x{cfg.n_layers} layers "
+              f"({cfg.param_count() / 1e9:.2f} B params; {route}"
+              f"{'; reduced ' + reduced if reduced else ''}): "
+              f"{out['requests']} requests, {out['tokens']} tokens, "
+              f"{out['steps']} decode steps in {out['wall_s']:.3f} s wall "
+              f"(prefill {out['prefill_s']:.3f} s, decode "
+              f"{out['decode_s']:.3f} s, {out['tok_per_s']:.1f} tok/s), "
+              f"peak memory {peak if peak is None else round(peak, 2)} "
+              f"GiB, flash launches "
+              f"{run_counts['flash_shape']} {run_counts['flash_path']} "
+              f"| {card}", flush=True)
+        check(out["requests"] == want_req, f"{arch}: {out['requests']} of "
+              f"{want_req} requests finished")
+        check(all(len(t) == want_new for t in out["outputs"].values())
+              and out["tokens"] == want_req * want_new,
+              f"{arch}: {out['tokens']} tokens, want {want_req * want_new}")
+        check(out["nonfinite_logits"] == 0,
+              f"{arch}: {out['nonfinite_logits']} prefills/steps had "
+              f"non-finite logits")
+        check(not on_card or run_counts["flash_shape"] == want,
+              f"{arch}: flash launches by shape {run_counts['flash_shape']}"
+              f", want {want} (self-attention layers x prefills)")
+        check(not on_card or run_counts["flash_path"] == (
+            {"mma": {"bfloat16": total}} if total else {}),
+              f"{arch}: flash launches by path {run_counts['flash_path']}, "
+              f"want {total} bf16 on mma")
+        check(not any(run_counts["gemm"].values()),
+              f"{arch}: the model ran the BLAS GEMM {run_counts['gemm']}")
+        err = None
+        if total:
+            err = _family_logits(card, cfg, route, model, params, prompt,
+                                 out, device, seed)
+        numbers[arch] = dict(
+            route=route, layers=cfg.n_layers, reduced=reduced,
+            params=cfg.param_count(), requests=out["requests"],
+            tokens=out["tokens"], steps=out["steps"], wall_s=out["wall_s"],
+            prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+            tok_per_s=out["tok_per_s"], peak_gib=peak,
+            launches=run_counts["flash_shape"], flash_vs_sdpa=err,
+            card=card)
+        counts[arch] = run_counts
+        del model, params, out, prompt
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"[families] phase {time.perf_counter() - t_phase:.1f} s | {card}",
+          flush=True)
+    print(json.dumps({"families": numbers}), flush=True)
+    return numbers, counts
 
 
 def _device_us(event) -> float:
@@ -1491,6 +1815,7 @@ def _reset_counts():
     kfa.LAUNCHES = 0
     kfa.LAUNCHES_BY_DTYPE.clear()
     kfa.LAUNCHES_BY_PATH.clear()
+    kfa.LAUNCHES_BY_SHAPE.clear()
     kfa.LAUNCHES_STAGED.clear()
 
 
@@ -1504,6 +1829,7 @@ def _read_counts():
             "epilogue": kmm.LAUNCHES_EPILOGUE,
             "flash_path": {p: dict(d)
                            for p, d in kfa.LAUNCHES_BY_PATH.items()},
+            "flash_shape": dict(kfa.LAUNCHES_BY_SHAPE),
             "flash_staged": dict(kfa.LAUNCHES_STAGED)}
 
 
@@ -1529,7 +1855,7 @@ def main() -> int:
     build_s = phase_build()
     kern = phase_kernel(card)
     epi = phase_epilogue(card)
-    flash = phase_attention(card)
+    flash, flash_family = phase_attention(card)
     # every launch so far (phases 3, 5 and 6) counted since start-up
     _check_simt_is_f32("phases 3, 5, 6", _read_counts())
     # main path 1, the BLAS library: the counts start at 0; the
@@ -1583,7 +1909,17 @@ def main() -> int:
         on_path = analysis["gemm_path"].get(MAIN_PATH[name], {}).get(name, 0)
         check(on_path == n, f"{name}: {on_path} of {n} analysis-path "
               f"launches took the {MAIN_PATH[name]} path")
-    main_runs = (blas, api, serve, analysis)
+    # main paths 5-9, the other families, one model each (counted from 0
+    # inside)
+    _, families = phase_families(card)
+    for arch, run in families.items():
+        _check_simt_is_f32(f"{arch} path", run)
+    main_runs = (blas, api, serve, analysis, *families.values())
+    # every main-path flash launch is bf16 (phases 7 and 10 check it),
+    # so the by-shape counts are bf16's
+    check(all(set(d) <= {"bfloat16"} for run in main_runs
+              for d in run["flash_path"].values()),
+          "a main path launched flash in another dtype than bf16")
     print(f"[done] build {build_s:.1f} s, total "
           f"{time.perf_counter() - t_start:.1f} s | {card}")
 
@@ -1656,6 +1992,15 @@ def main() -> int:
         e.update({k: r[k] for k in ("stage_ms", "kernel_ms",
                                     "stage_device_ms", "kernel_device_ms")
                   if k in r})
+    # the other families' shapes (phase 6), their main-path launches by
+    # shape key from phase 10
+    for (name, key), r in flash_family.items():
+        n = sum(run["flash_shape"].get(key, 0) for run in main_runs)
+        e = entry(f"flash_attention<{name},{r['path']},{key}>", r["path"],
+                  FLASH_SOURCE, FLASH_REPLACES,
+                  n if name == "bfloat16" else 0, r)
+        e.update(shape=key, case=r["case"])
+        kernels.append(e)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -77,11 +77,13 @@
 // the paths (kernels/flash_attention.py PATH_CODES)
 enum Path { kPathSimt = 0, kPathMma = 1 };
 
-// what the library compiles: head dims, and the (BQ, BK) block of each
+// what the library compiles: head dims (80 is Zamba2's shared attention
+// block: 5 k16 steps of q k^T and 10 n8 output tiles on mma, rows of
+// whole 16-byte chunks in both paths), and the (BQ, BK) block of each
 // path (kernels/flash_attention.py HEAD_DIMS and BLOCKS).  simt: f32
 // only, kSimtThreads threads; mma: 16-bit only, 4 warps of 16 q rows
 // (8 warps, BQ 128, were no faster on an H100: PERF.md)
-#define FLASH_HEAD_DIMS(X) X(8) X(16) X(32) X(64) X(128)
+#define FLASH_HEAD_DIMS(X) X(8) X(16) X(32) X(64) X(80) X(128)
 #define FLASH_SIMT_BLOCKS(X) X(64, 32)
 #define FLASH_MMA_BLOCKS(X) X(64, 64)
 
@@ -177,14 +179,18 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int RW = BQ / NW;               // q rows a warp owns
   constexpr int TM = RW / 4;                // q rows a thread owns
   constexpr int TN = BK / 8;                // score columns a thread owns
-  constexpr int LC = D >= 64 ? 16 : D / 4;  // p v: lanes across columns
+  // p v: lanes across columns, the most (up to 16) that split the row's
+  // D / 4 float4s evenly: 16 at D = 64 and 128, 4 at D = 80 (20 float4s)
+  constexpr int LC = (D / 4) % 16 == 0 ? 16 : (D / 4) % 8 == 0 ? 8
+                     : (D / 4) % 4 == 0 ? 4 : 2;
   constexpr int LR = 32 / LC;               // p v: lanes across rows
   constexpr int TP = RW / LR;               // p v: rows a thread owns
   constexpr int GP = D / (4 * LC);          // p v: its float4s of columns
   constexpr int LDQ = D + 4;                // q and k rows, skewed
   constexpr int LDP = BK + 8;               // p rows, skewed
   constexpr int CH = D / 4;                 // 16-byte chunks of a row
-  static_assert(RW % 4 == 0 && BK % 8 == 0 && D % 8 == 0, "tile shape");
+  static_assert(RW % 4 == 0 && BK % 8 == 0 && D % 8 == 0 &&
+                    D % (4 * LC) == 0 && RW % LR == 0, "tile shape");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);  // [BQ][LDQ]
   float* Ks = Qs + BQ * LDQ;                       // [2][BK][LDQ]

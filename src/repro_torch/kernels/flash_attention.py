@@ -58,7 +58,7 @@ from .ref import flash_attention_ref
 # simt: 4 warps of 16 q rows and 32-key steps, so two 108 KB blocks fit
 # an SM (tools/flash_simt_sweep.py times the other blocks: PERF.md).
 # mma: 4 warps of 16 q rows (8 warps, BQ = 128, were no faster: PERF.md)
-HEAD_DIMS: Tuple[int, ...] = (8, 16, 32, 64, 128)
+HEAD_DIMS: Tuple[int, ...] = (8, 16, 32, 64, 80, 128)
 PATHS: Tuple[str, ...] = ("mma", "simt")
 PATH_CODES = {"simt": 0, "mma": 1}  # csrc/flash_attention.cu Path
 BLOCKS: Dict[str, Tuple[int, int]] = {"simt": (64, 32), "mma": (64, 64)}
@@ -70,20 +70,29 @@ SIMT_BLOCKS_PER_SM = 2
 _DTYPE_CODES = {torch.float32: 1, torch.float16: 2, torch.bfloat16: 3}
 
 # launches of the kernel in this process, in all, by dtype, by path and
-# dtype ({"mma": {"bfloat16": n}, ...}), and those that read or wrote a
-# staged operand, by dtype; plain-version calls never count
+# dtype ({"mma": {"bfloat16": n}, ...}), by head dim and mask
+# ({"d80,causal": n, "d64,full": n}: shape_key), and those that read or
+# wrote a staged operand, by dtype; plain-version calls never count
 LAUNCHES = 0
 LAUNCHES_BY_DTYPE: Dict[str, int] = {}
 LAUNCHES_BY_PATH: Dict[str, Dict[str, int]] = {}
+LAUNCHES_BY_SHAPE: Dict[str, int] = {}
 LAUNCHES_STAGED: Dict[str, int] = {}
 # bumped from every thread that launches, so each bump is one locked
 # update
 _count_lock = threading.Lock()
 
 
-def count_launch(path: str, dtype: torch.dtype,
-                 staged: bool = False) -> None:
-    """Add one launch of ``path`` in ``dtype`` to every count."""
+def shape_key(d: int, causal: bool) -> str:
+    """``LAUNCHES_BY_SHAPE``'s key of a call at head dim ``d``:
+    ``"d80,causal"`` or ``"d64,full"``."""
+    return f"d{d},{'causal' if causal else 'full'}"
+
+
+def count_launch(path: str, dtype: torch.dtype, staged: bool = False,
+                 shape: Optional[str] = None) -> None:
+    """Add one launch of ``path`` in ``dtype`` (of ``shape``, a
+    :func:`shape_key`, where given) to every count."""
     global LAUNCHES
     name = dtype_name(dtype)
     with _count_lock:
@@ -93,6 +102,8 @@ def count_launch(path: str, dtype: torch.dtype,
             LAUNCHES_STAGED[name] = LAUNCHES_STAGED.get(name, 0) + 1
         by_path = LAUNCHES_BY_PATH.setdefault(path, {})
         by_path[name] = by_path.get(name, 0) + 1
+        if shape is not None:
+            LAUNCHES_BY_SHAPE[shape] = LAUNCHES_BY_SHAPE.get(shape, 0) + 1
 
 
 def smem_bytes(path: str, d: int) -> int:
@@ -240,7 +251,8 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if staging[3] else o
     if on_card:
         _launch(qs, ks, vs, os_, causal, scale)
-        count_launch(flash_path(q.dtype), q.dtype, any(staging))
+        count_launch(flash_path(q.dtype), q.dtype, any(staging),
+                     shape_key(d, causal))
     else:
         os_.copy_(flash_attention_ref(qs, ks, vs, causal=causal,
                                       scale=scale))

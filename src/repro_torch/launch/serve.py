@@ -5,7 +5,10 @@ fixed-size decode batch; each slot holds one request.  Finished
 requests (max_tokens) free their slot, and queued requests are
 prefilled into it — slots pull work as they free up, so fast and slow
 requests never block each other.  Weights and caches live on the
-config's device: the card unless the caller asks for the CPU.
+config's device: the card unless the caller asks for the CPU.  It
+serves the dense, moe, ssm and hybrid families; an encdec model takes
+encoder states that ``run`` does not make (nor does the reference's),
+so it is driven through ``Model.prefill`` / ``decode`` directly.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_0_6b \\
@@ -28,6 +31,7 @@ import torch
 from ..configs import get_config
 from ..models import Model
 from ..models.sharding import NO_MESH
+from ..models.transformer import tree_map
 
 
 @dataclasses.dataclass
@@ -84,15 +88,15 @@ class Server:
         tok = int(torch.argmax(logits[0, -1]))
         self.nonfinite_logits += int(not torch.isfinite(logits).all())
         req.out.append(tok)
-        blocks = cache["blocks"]
         if self.cache is None:
             # build the batched cache by tiling the first request's
-            self.cache = {"blocks": {
-                k: torch.repeat_interleave(a, self.slots, dim=1)
-                for k, a in blocks.items()}}
-        # write this request's cache into its slot (in place)
-        for k, a in blocks.items():
-            self.cache["blocks"][k][:, slot] = a[:, 0]
+            self.cache = tree_map(
+                lambda a: torch.repeat_interleave(a, self.slots, dim=1),
+                cache)
+        # write this request's cache into its slot (in place); every leaf
+        # of every family's tree holds the batch on axis 1
+        tree_map(lambda big, one: big[:, slot].copy_(one[:, 0]),
+                 self.cache, cache)
         self.pos[slot] = len(req.prompt)
         self.last_token[slot] = tok
         self.active[slot] = req

@@ -1,4 +1,5 @@
-"""Model stack of the port: the dense family (GQA + MLP blocks) so far."""
+"""Model stack of the port: the five families (dense, moe, ssm, hybrid,
+encdec) on one device."""
 from .sharding import MeshRules, rules_for_mesh, NO_MESH
 from .transformer import Model, build_params
 

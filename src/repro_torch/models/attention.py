@@ -1,10 +1,13 @@
-"""Attention: GQA (with qk-norm), cross-attention, KV caches for serving,
-and query-chunked computation for long prefills.
+"""Attention: GQA (with qk-norm), MLA (DeepSeek), cross-attention, KV
+caches for serving, and query-chunked computation for long prefills.
 
-The counterpart of the GQA part of the reference's
-``models/attention.py``.  Softmax/score math in f32; weights and
-activations in the config dtype.  MLA (DeepSeek) is not ported yet: it
-comes with the slice of the other model families.
+The counterpart of the reference's ``models/attention.py``.
+Softmax/score math in f32; weights and activations in the config dtype.
+MLA's train and prefill expand K/V and take the plain chunked path (its
+qk head dim is not its v head dim, so it never reaches the flash
+kernel, as in the reference); its decode is the *absorbed* formulation
+over a compressed (c_kv, shared RoPE key) cache, the published
+DeepSeek-V3 serving scheme.
 """
 from __future__ import annotations
 
@@ -46,6 +49,23 @@ def make_attn_params(mk: Maker, cfg) -> dict:
         p["q_norm"] = mk.ones((hd,), (None,))
         p["k_norm"] = mk.ones((hd,), (None,))
     return p
+
+
+def make_mla_params(mk: Maker, cfg) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    qh = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    return {
+        "wq_a": mk.param((d, cfg.q_lora_rank), ("embed", None)),
+        "q_a_norm": mk.ones((cfg.q_lora_rank,), (None,)),
+        "wq_b": mk.param((cfg.q_lora_rank, H * qh), (None, "model")),
+        "wkv_a": mk.param((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                          ("embed", None)),
+        "kv_a_norm": mk.ones((cfg.kv_lora_rank,), (None,)),
+        "wkv_b": mk.param(
+            (cfg.kv_lora_rank,
+             H * (cfg.qk_nope_head_dim + cfg.v_head_dim)), (None, "model")),
+        "wo": mk.param((H * cfg.v_head_dim, d), ("model", "embed")),
+    }
 
 
 # ------------------------------------------------------------- core math
@@ -179,3 +199,87 @@ def gqa_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                             kv_valid=kv_valid, chunk=q_chunk)
     y = row_parallel_matmul(out.reshape(B, S, H * hd), p["wo"], rules)
     return y, new_cache
+
+
+# ------------------------------------------------------------ MLA module
+def _mla_qkv(cfg, p, x):
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    cq = rms_norm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps)
+    q = (cq @ p["wq_b"]).reshape(B, S, H, nope + rope)
+    ckv_full = x @ p["wkv_a"]
+    ckv = rms_norm(ckv_full[..., :cfg.kv_lora_rank], p["kv_a_norm"],
+                   cfg.norm_eps)
+    k_rope = ckv_full[..., cfg.kv_lora_rank:]
+    return q, ckv, k_rope
+
+
+def mla_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                  rules: MeshRules, *,
+                  cache: Optional[dict] = None,
+                  cache_index: Optional[torch.Tensor] = None,
+                  make_cache: bool = False,
+                  q_chunk: int = DEFAULT_Q_CHUNK,
+                  ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Multi-head latent attention.  Train/prefill (``cache`` None):
+    K/V expanded from c_kv, causal attention on the plain chunked path;
+    ``make_cache`` returns ``{"ckv": (B, S, r), "k_rope": (B, S, rope)}``.
+    Decode: this step's c_kv and RoPE key are written into the cache at
+    ``cache_index`` IN PLACE (as gqa_attention's K/V are), and attention
+    runs against the compressed cache with W_uk absorbed into q and W_uv
+    applied after, in f32."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    vd = cfg.v_head_dim
+    scale = 1.0 / math.sqrt(nope + rope_d)
+
+    q, ckv, k_rope = _mla_qkv(cfg, p, x)
+    cos, sin = rope_angles(positions, rope_d, cfg.rope_theta)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+
+    if cache is None:
+        # train / prefill: expand K,V (no cache pressure), full attention
+        kv = (ckv @ p["wkv_b"]).reshape(B, S, H, nope + vd)
+        k_nope, v = kv[..., :nope], kv[..., nope:]
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope_d)],
+                      dim=-1)
+        qfull = torch.cat([q_nope, q_rope], dim=-1)
+        out = _sdpa_chunked(qfull, k, v, qpos=positions,
+                            kpos=torch.arange(S, dtype=torch.int32,
+                                              device=x.device),
+                            causal=True, scale=scale, chunk=q_chunk)
+        y = row_parallel_matmul(out.reshape(B, S, H * vd), p["wo"], rules)
+        new_cache = {"ckv": ckv, "k_rope": k_rope} if make_cache else None
+        return y, new_cache
+
+    # ---------------- absorbed decode: cache is compressed (c_kv, k_rope)
+    idx = cache_index  # (B,)
+    rows = torch.arange(B, device=x.device)
+    ckv_c, krope_c = cache["ckv"], cache["k_rope"]
+    ckv_c[rows, idx] = ckv[:, 0]
+    krope_c[rows, idx] = k_rope[:, 0]
+
+    wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, H, nope + vd)
+    w_uk = wkv_b[..., :nope].float()   # (r, H, nope)
+    w_uv = wkv_b[..., nope:].float()   # (r, H, vd)
+    # absorb W_uk into q: q_c (B, S=1, H, r)
+    q_c = torch.einsum("bshn,rhn->bshr", q_nope.float(), w_uk)
+    Skv = ckv_c.shape[1]
+    kpos = torch.arange(Skv, dtype=torch.int32, device=x.device)
+    valid = (idx + 1)[:, None, None, None]
+    scores = (torch.einsum("bshr,bkr->bhsk", q_c, ckv_c.float())
+              + torch.einsum("bshr,bkr->bhsk", q_rope.float(),
+                             krope_c.float())) * scale
+    scores = torch.where(kpos[None, None, None, :] < valid, scores,
+                         torch.tensor(-1e30, dtype=scores.dtype,
+                                      device=scores.device))
+    w = torch.softmax(scores, dim=-1)
+    o_c = torch.einsum("bhsk,bkr->bshr", w, ckv_c.float())
+    out = torch.einsum("bshr,rhv->bshv", o_c, w_uv)
+    out = out.to(x.dtype).reshape(B, S, H * vd)
+    y = row_parallel_matmul(out, p["wo"], rules)
+    return y, cache

@@ -37,23 +37,31 @@ class Maker:
         self.device = torch.device(device)
 
     def param(self, shape: Sequence[int], logical: Sequence[Optional[str]],
-              scale: Optional[float] = None) -> torch.Tensor:
+              scale: Optional[float] = None, zeros: bool = False,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """Normal(0, 1) x ``scale`` (default 1/sqrt(fan_in), fan_in the
-        second-to-last dim), drawn in float32 and cast to the maker's
-        dtype."""
+        second-to-last dim), drawn in float32 and cast to ``dtype`` (the
+        maker's by default); zeros where ``zeros``."""
         shape = tuple(int(s) for s in shape)
+        dtype = dtype or self.dtype
         if len(shape) != len(logical):
             raise ValueError(f"shape {shape} vs logical axes {logical}")
+        if zeros:
+            return torch.zeros(shape, dtype=dtype, device=self.device)
         if scale is None:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             scale = 1.0 / math.sqrt(max(1, fan_in))
         arr = torch.randn(shape, generator=self.generator,
                           dtype=torch.float32, device=self.device)
-        return (arr * scale).to(self.dtype)
+        # scaled in place: one stack of DeepSeek-V3's 256 experts is 15 GB
+        # in float32, so a second float32 copy is worth saving
+        return arr.mul_(scale).to(dtype)
 
-    def ones(self, shape, logical) -> torch.Tensor:
+    def ones(self, shape, logical, dtype: Optional[torch.dtype] = None
+             ) -> torch.Tensor:
         shape = tuple(int(s) for s in shape)
-        return torch.ones(shape, dtype=self.dtype, device=self.device)
+        return torch.ones(shape, dtype=dtype or self.dtype,
+                          device=self.device)
 
 
 # ------------------------------------------------------------------ norms

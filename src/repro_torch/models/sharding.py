@@ -4,8 +4,9 @@ The counterpart of the reference's ``models/sharding.py``, which maps
 *logical* axes of parameters and activations (batch, seq, embed, model,
 expert, kv) to mesh axes.  The port runs on one card, so the only rules
 are ``NO_MESH``: ``constrain`` is the identity.  A mesh comes with the
-tensor-parallel slice (``torch.distributed`` over several cards); until
-then ``rules_for_mesh`` raises for any mesh.
+multi-device slice (``torch.distributed`` over several cards, with the
+ring collectives of ``core/distributed.py``); until then
+``rules_for_mesh`` raises for any mesh.
 """
 from __future__ import annotations
 
@@ -13,6 +14,10 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+
+# what a mesh needs, named in every refusal of one
+MULTI_DEVICE = ("it comes with the multi-device slice (core/distributed.py "
+                "and the meshes)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,8 +33,7 @@ def rules_for_mesh(mesh, *, seq_axis: Optional[str] = None) -> MeshRules:
     if mesh is None:
         return NO_MESH
     raise NotImplementedError(
-        "the port runs the model stack on one card; meshes come with the "
-        "slice of the other model families")
+        f"the port runs the model stack on one card; a mesh: {MULTI_DEVICE}")
 
 
 NO_MESH = MeshRules()

@@ -1,0 +1,171 @@
+"""Mamba2 (SSD, state-space duality) blocks, chunked, plus O(1) decode.
+
+The counterpart of the reference's ``models/ssm.py``.  The SSD
+recurrence per head (state N = ssm_state, head dim P):
+    h_t = a_t * h_{t-1} + (dt_t * x_t) outer B_t        a_t = exp(-exp(A_log) dt_t)
+    y_t = C_t . h_t + D * x_t
+
+Chunked algorithm (the duality): within a chunk the output is an
+attention-like quadratic form with a decay mask; across chunks only the
+(H, P, N) boundary states are carried, here by a Python loop over the
+chunks in place of the reference's ``lax.scan``.  The state is float32
+in every config dtype.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .layers import Maker, rms_norm
+from .sharding import MeshRules
+
+
+def make_mamba_params(mk: Maker, cfg) -> dict:
+    d = cfg.d_model
+    di = cfg.d_inner
+    ds = cfg.ssm_state
+    H = cfg.ssm_heads
+    conv_dim = di + 2 * ds
+    f32 = torch.float32
+    return {
+        # order: [z (di), x (di), B (ds), C (ds), dt (H)]
+        "in_proj": mk.param((d, 2 * di + 2 * ds + H), ("embed", "model")),
+        "conv_w": mk.param((cfg.ssm_conv, conv_dim), (None, "model"),
+                           scale=0.5),
+        "conv_b": mk.param((conv_dim,), ("model",), zeros=True),
+        "A_log": mk.ones((H,), (None,), dtype=f32),
+        "D": mk.ones((H,), (None,), dtype=f32),
+        "dt_bias": mk.param((H,), (None,), zeros=True, dtype=f32),
+        "norm": mk.ones((di,), ("model",)),
+        "out_proj": mk.param((di, d), ("model", "embed")),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv1d.  x: (B, S, C); w: (K, C).
+    state: (B, K-1, C) carry for decode.  Returns (y, new_state)."""
+    B, S, Cdim = x.shape
+    K = w.shape[0]
+    if state is None:
+        state = x.new_zeros((B, K - 1, Cdim))
+    xx = torch.cat([state, x], dim=1)                  # (B, K-1+S, C)
+    y = xx[:, 0:S, :] * w[0][None, None, :]
+    for i in range(1, K):
+        y = y + xx[:, i:i + S, :] * w[i][None, None, :]
+    y = y + b[None, None, :]
+    new_state = xx[:, -(K - 1):, :] if K > 1 else state
+    return F.silu(y), new_state
+
+
+def _ssd_chunked(xh, dt, a_log, Bmat, Cmat, chunk: int):
+    """Chunked SSD scan.
+    xh: (B, S, H, P); dt: (B, S, H); Bmat/Cmat: (B, S, N).
+    Returns y: (B, S, H, P) and final state (B, H, P, N), float32."""
+    Bsz, S, H, P = xh.shape
+    N = Bmat.shape[-1]
+    nc = S // chunk
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
+
+    f32 = torch.float32
+    lg_a = -torch.exp(a_log.to(f32))[None, None, :] * dt.to(f32)  # log decay
+    xdt = xh.to(f32) * dt.to(f32)[..., None]           # (B, S, H, P)
+
+    lg = lg_a.reshape(Bsz, nc, chunk, H)
+    xc = xdt.reshape(Bsz, nc, chunk, H, P)
+    Bc = Bmat.to(f32).reshape(Bsz, nc, chunk, N)
+    Cc = Cmat.to(f32).reshape(Bsz, nc, chunk, N)
+
+    csum = torch.cumsum(lg, dim=2)                     # (B, nc, L, H)
+    # ----- intra-chunk (quadratic "attention" with decay mask), scores
+    # times decay first: the 6-D (B, nc, L, S, H, P) product never forms
+    scores = torch.einsum("bcln,bcsn->bcls", Cc, Bc)   # (B, nc, L, L)
+    li = csum[:, :, :, None, :] - csum[:, :, None, :, :]   # (B,nc,L,S,H)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=xh.device))
+    decay = torch.where(mask[None, None, :, :, None], torch.exp(li),
+                        li.new_zeros(()))
+    y_intra = torch.einsum("bclsh,bcshp->bclhp",
+                           scores[..., None] * decay, xc)
+
+    # ----- chunk boundary states
+    tail = csum[:, :, -1:, :] - csum                   # exp(l_end - l_s)
+    st = torch.einsum("bcshp,bcsn->bchpn",
+                      torch.exp(tail)[..., None] * xc, Bc)  # (B,nc,H,P,N)
+    a_chunk = torch.exp(csum[:, :, -1, :])             # (B, nc, H)
+
+    # ----- inter-chunk recurrence (nc steps); the state BEFORE each chunk
+    h = xh.new_zeros((Bsz, H, P, N), dtype=f32)
+    before = []
+    for c in range(nc):
+        before.append(h)
+        h = h * a_chunk[:, c, :, None, None] + st[:, c]
+    h_before = torch.stack(before, dim=1)              # (B, nc, H, P, N)
+
+    y_inter = torch.einsum("bcsn,bchpn->bcshp", Cc, h_before) * \
+        torch.exp(csum)[..., None]
+    y = (y_intra + y_inter).reshape(Bsz, S, H, P)
+    return y.to(xh.dtype), h
+
+
+def mamba_block(cfg, p: dict, x: torch.Tensor, rules: MeshRules, *,
+                state: Optional[dict] = None, make_state: bool = False,
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Full Mamba2 mixer.  x: (B, S, d).
+    state (decode, S == 1): {"conv": (B, K-1, conv_dim), "ssm":
+    (B, H, P, N) float32}, updated IN PLACE and returned (as the
+    attention caches are)."""
+    B, S, d = x.shape
+    di, ds, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+
+    zxbcdt = x @ p["in_proj"]
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:di + di + 2 * ds]
+    dt_raw = zxbcdt[..., -H:]
+    dt = F.softplus(dt_raw.float() + p["dt_bias"][None, None, :])
+
+    conv_state = state["conv"] if state is not None else None
+    xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
+    xs = xbc[..., :di].reshape(B, S, H, P)
+    Bmat = xbc[..., di:di + ds]
+    Cmat = xbc[..., di + ds:]
+
+    if state is not None:
+        # -------- decode: O(1) recurrent update (S == 1)
+        h = state["ssm"]                               # (B, H, P, N) f32
+        a = torch.exp(-torch.exp(p["A_log"].float()) * dt[:, 0, :])  # (B, H)
+        xdt = xs[:, 0].float() * dt[:, 0, :, None]
+        upd = torch.einsum("bhp,bn->bhpn", xdt, Bmat[:, 0].float())
+        h = h * a[..., None, None] + upd
+        y = torch.einsum("bn,bhpn->bhp", Cmat[:, 0].float(), h)
+        y = y + p["D"].float()[None, :, None] * xs[:, 0].float()
+        y = y.reshape(B, 1, di).to(x.dtype)
+        state["conv"].copy_(new_conv)
+        state["ssm"].copy_(h)
+        new_state = state
+    else:
+        chunk = min(cfg.ssm_chunk, S)
+        pad = (-S) % chunk
+        if pad:
+            # zero-pad to a chunk multiple; padded steps use dt=0 so they
+            # neither decay nor update the state (a=1, dB=0)
+            xs_p = F.pad(xs, (0, 0, 0, 0, 0, pad))
+            dt_p = F.pad(dt, (0, 0, 0, pad))
+            B_p = F.pad(Bmat, (0, 0, 0, pad))
+            C_p = F.pad(Cmat, (0, 0, 0, pad))
+        else:
+            xs_p, dt_p, B_p, C_p = xs, dt, Bmat, Cmat
+        y, h_last = _ssd_chunked(xs_p, dt_p, p["A_log"], B_p, C_p, chunk)
+        y = y[:, :S]
+        y = y + p["D"].float()[None, None, :, None] * xs.float()
+        y = y.reshape(B, S, di).to(x.dtype)
+        new_state = ({"conv": new_conv, "ssm": h_last}
+                     if make_state else None)
+
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    return out, new_state

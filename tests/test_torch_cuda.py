@@ -446,7 +446,7 @@ def test_flash_views_take_the_path_their_strides_allow(card, dtype):
     _flash_close(got, flash_attention_ref(q, k, v), dtype)
 
 
-@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 80, 128])
 def test_f32_simt_kernel_on_every_head_dim(card, d):
     """The f32 kernel at every compiled head dim, on every case and
     hazard with its head dim replaced by ``d``, within the reference's
@@ -467,6 +467,84 @@ def test_f32_simt_kernel_on_every_head_dim(card, d):
         want = flash_attention_ref(q, k, v, causal=case[6])
         err = float((got - want).abs().max())
         assert err <= FLASH_TOL[torch.float32], (case, err)
+
+
+# Zamba2-2.7B's prefill attention (D 80) and SeamlessM4T's encoder
+# (non-causal D 64), then D 80's hazards
+FAMILY_FLASH = [(1, 1024, 1024, 32, 32, 80, True),
+                (1, 1024, 1024, 16, 16, 64, False),
+                (2, 130, 130, 4, 2, 80, True), (1, 100, 65, 4, 2, 80, False),
+                (1, 1, 200, 4, 2, 80, False), (1, 300, 170, 4, 2, 80, True)]
+
+
+@pytest.mark.parametrize("dtype", list(FLASH_TOL), ids=str)
+@pytest.mark.parametrize("case", FAMILY_FLASH, ids=str)
+def test_flash_kernel_at_head_dim_80_and_full_attention(card, dtype, case):
+    """The kernel at head dim 80 (both paths) and non-causal D 64 against
+    its plain version, each launch counted under its shape key."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.ref import flash_attention_ref
+    causal, d = case[6], case[5]
+    q, k, v = _flash_operands(card, dtype, case)
+    key = kfa.shape_key(d, causal)
+    before = kfa.LAUNCHES_BY_SHAPE.get(key, 0)
+    got = kfa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kfa.LAUNCHES_BY_SHAPE[key] == before + 1
+    _flash_close(got, flash_attention_ref(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "deepseek_v3_671b",
+                                  "mamba2_780m", "zamba2_2_7b",
+                                  "seamless_m4t_medium"])
+def test_reduced_family_on_the_card_matches_the_cpu_port(card, arch,
+                                                         monkeypatch):
+    """One reduced model of each family on the card (f32: the flash
+    kernel's simt path at prefill) against the same weights on the CPU
+    (the kernel's plain version): train and prefill logits and two decode
+    steps within 2e-4, and the prefill's flash launches by shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import Model
+    cfg = get_config(arch).reduced()
+    model = Model(cfg)
+    cpu = model.init(0, device="cpu")
+
+    def on(tree, dev):
+        return {k: on(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+    gpu = on(cpu, card)
+    rng = np.random.default_rng(0)
+    B, S = 2, 12
+    kw = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))}
+    if cfg.family == "encdec":
+        kw["enc_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, 8, cfg.d_model)).astype(np.float32))
+    kw_p = dict(kw, tokens=kw["tokens"][:, :10])
+    close = lambda a, b: np.testing.assert_allclose(
+        a.cpu().numpy(), b.numpy(), rtol=2e-4, atol=2e-4)
+    monkeypatch.setattr(kfa, "LAUNCHES_BY_SHAPE", {})
+    with torch.no_grad():
+        close(model.train_logits(gpu, **on(kw, card))[0],
+              model.train_logits(cpu, **kw)[0])
+        monkeypatch.setattr(kfa, "LAUNCHES_BY_SHAPE", {})
+        lg, cg = model.prefill(gpu, **on(kw_p, card))
+        torch.cuda.synchronize()
+        shapes = dict(kfa.LAUNCHES_BY_SHAPE)
+        lc, cc = model.prefill(cpu, **kw_p)
+        close(lg, lc)
+        cg, cc = model.pad_cache(cg, S), model.pad_cache(cc, S)
+        for t in (10, 11):
+            pos = torch.full((B,), t, dtype=torch.int32)
+            lg, cg = model.decode(gpu, cg, kw["tokens"][:, t].to(card),
+                                  pos.to(card))
+            lc, cc = model.decode(cpu, cc, kw["tokens"][:, t], pos)
+            close(lg, lc)
+    hd = cfg.resolved_head_dim
+    want = {"olmoe_1b_7b": {f"d{hd},causal": 2}, "deepseek_v3_671b": {},
+            "mamba2_780m": {}, "zamba2_2_7b": {f"d{hd},causal": 2},
+            "seamless_m4t_medium": {f"d{hd},full": 2, f"d{hd},causal": 2}}
+    assert shapes == want[arch]
 
 
 @pytest.mark.parametrize("case", [(1, 1024, 1024, 16, 8, 128, True),

@@ -68,6 +68,51 @@ def test_flash_attention_bf16():
                                atol=5e-2)
 
 
+# head dim 80 (Zamba2-2.7B's shared block, 2560 / 32) and non-causal
+# D 64 (SeamlessM4T's encoder), Sq = Sk and Sq != Sk
+D80_CASES = [(1, 96, 96, 4, 4, 80, True), (2, 70, 70, 4, 2, 80, False),
+             (1, 40, 100, 4, 2, 80, True), (1, 100, 40, 2, 1, 80, False),
+             (1, 130, 130, 4, 4, 64, False)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal", D80_CASES)
+def test_head_dim_80_and_full_attention_vs_reference_pallas(B, Sq, Sk, H,
+                                                             Hkv, D, causal):
+    """The reference's Pallas kernel takes D as a full block dimension,
+    so it computes D 80; the port's plain version agrees (f32, 2e-5),
+    and the launch count keys these calls by head dim and mask."""
+    q, k, v = _qkv(np.random.default_rng(D * 7 + Sq + Sk), B, Sq, Sk, H,
+                   Hkv, D)
+    want = np.asarray(ref_flash(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal, block_q=64,
+                                block_k=64, interpret=True))
+    got = flash_attention(*_t(q, k, v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    bf = lambda x: jnp.asarray(x, jnp.bfloat16)
+    want = np.asarray(ref_flash(bf(q), bf(k), bf(v), causal=causal,
+                                block_q=64, block_k=64, interpret=True),
+                      np.float32)
+    got = flash_attention(*_t(q, k, v, dtype=torch.bfloat16), causal=causal)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=5e-2,
+                               atol=5e-2)
+    assert kfa.shape_key(D, causal) == f"d{D},{'causal' if causal else 'full'}"
+
+
+def test_launches_by_shape_count_each_key(monkeypatch):
+    """count_launch adds one to its shape's key where it is given one,
+    and touches no key where it is not."""
+    for name in ("LAUNCHES_BY_DTYPE", "LAUNCHES_BY_PATH",
+                 "LAUNCHES_BY_SHAPE"):
+        monkeypatch.setattr(kfa, name, {})
+    monkeypatch.setattr(kfa, "LAUNCHES", 0)
+    kfa.count_launch("mma", torch.bfloat16, shape=kfa.shape_key(80, True))
+    kfa.count_launch("mma", torch.bfloat16, shape="d64,full")
+    kfa.count_launch("mma", torch.float16, shape="d64,full")
+    kfa.count_launch("simt", torch.float32)
+    assert kfa.LAUNCHES_BY_SHAPE == {"d80,causal": 1, "d64,full": 2}
+    assert kfa.LAUNCHES == 4
+
+
 def test_flash_attention_block_shape_independence():
     """Twin of test_flash_attention_block_shape_independence (1e-5): the
     port's answer (its k-block is fixed) is the reference's at every
@@ -183,6 +228,11 @@ def test_compiled_blocks_fit_shared_memory():
     assert kfa.smem_bytes("simt", 128) == 4 * (128 * 132 + 64 * 128
                                                + 64 * 40) == 110592
     assert kfa.smem_bytes("mma", 128) == 87040
+    # Zamba2's head dim 80: (64 + 4*64) rows of 88 bf16 (mma); (64 +
+    # 2*32) rows of 84 floats, 2*32 of 80 and 64 of 40 (simt)
+    assert kfa.smem_bytes("mma", 80) == 2 * 320 * 88 == 56320
+    assert kfa.smem_bytes("simt", 80) == 4 * (128 * 84 + 64 * 80
+                                              + 64 * 40) == 73728
     # two blocks an SM at every head dim: 228 KB, 1 KB of it the
     # system's for each block
     for path in kfa.PATHS:
@@ -362,9 +412,10 @@ def test_cpu_calls_never_count_a_launch(dtype):
     nothing: not in all, by dtype or by path."""
     q, kv = _bshd(dtype), _bshd(dtype, h=2)
     before = (kfa.LAUNCHES, dict(kfa.LAUNCHES_BY_DTYPE),
-              {p: dict(n) for p, n in kfa.LAUNCHES_BY_PATH.items()})
+              {p: dict(n) for p, n in kfa.LAUNCHES_BY_PATH.items()},
+              dict(kfa.LAUNCHES_BY_SHAPE))
     flash_attention(q, kv, kv)
     flash_attention_bhsd(q[0].transpose(0, 1), kv[0].transpose(0, 1),
                          kv[0].transpose(0, 1))
-    assert (kfa.LAUNCHES, kfa.LAUNCHES_BY_DTYPE, kfa.LAUNCHES_BY_PATH) \
-        == before
+    assert (kfa.LAUNCHES, kfa.LAUNCHES_BY_DTYPE, kfa.LAUNCHES_BY_PATH,
+            kfa.LAUNCHES_BY_SHAPE) == before

@@ -109,16 +109,34 @@ def test_init_shapes_equal_the_reference_tree(pair):
     assert mine["embed"].dtype == torch.float32  # the reduced config's
 
 
-def test_unported_families_and_meshes_raise():
-    for arch in ("olmoe_1b_7b", "mamba2_780m", "zamba2_2_7b",
-                 "seamless_m4t_medium", "deepseek_v3_671b"):
-        with pytest.raises(NotImplementedError,
-                           match="the other model families"):
-            build_params(get_config(arch).reduced(), "init", NO_MESH,
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="the other model families"):
-        rules_for_mesh(object())
-    assert rules_for_mesh(None) is NO_MESH
+@pytest.mark.parametrize("case", ["olmoe_1b_7b", "mamba2_780m",
+                                  "zamba2_2_7b", "seamless_m4t_medium",
+                                  "deepseek_v3_671b", "mesh", "moe_sharded"])
+def test_unported_families_and_meshes_raise(case):
+    """The five families build (they were refused before this slice);
+    a mesh is still refused, by ``rules_for_mesh`` and by the MoE
+    block's expert-parallel dispatch, with a message that names the
+    multi-device slice."""
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import MeshRules
+    if case == "mesh":
+        with pytest.raises(NotImplementedError, match="multi-device slice"):
+            rules_for_mesh(object())
+        assert rules_for_mesh(None) is NO_MESH
+        return
+    if case == "moe_sharded":
+        cfg = get_config("olmoe_1b_7b").reduced()
+        p = _layer0(build_params(cfg, "init", NO_MESH, device="cpu")
+                    ["moe_blocks"])["moe"]
+        x = torch.zeros((1, 3, cfg.d_model))
+        with pytest.raises(NotImplementedError, match="multi-device slice"):
+            moe.moe_block(cfg, p, x, MeshRules(mesh=object()))
+        y, aux = moe.moe_block(cfg, p, x, NO_MESH)
+        assert tuple(y.shape) == (1, 3, cfg.d_model)
+        return
+    cfg = get_config(case).reduced()
+    params = build_params(cfg, "init", NO_MESH, device="cpu")
+    assert params["embed"].shape == (cfg.vocab_size, cfg.d_model)
 
 
 # ------------------------------------------------------------------ layers
@@ -330,3 +348,136 @@ def test_params_from_reference_keeps_keys_shapes_and_dtype(pair):
     with pytest.raises(TypeError, match="float32"):
         params_from_reference({"w": np.zeros(3, np.float64)}, torch.float32,
                               "cpu")
+
+
+# ------------------------------------------------- every family, held
+FAMILY_ARCHS = [a for a in ARCH_IDS if a != "blasx_gemm"]
+
+
+def _flat_shapes(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}['{k}']"
+        out.update(_flat_shapes(v, key) if isinstance(v, dict)
+                   else {key: tuple(v.shape)})
+    return out
+
+
+@pytest.fixture(scope="module")
+def family_pairs():
+    """arch -> (cfg, reference model, reference params, port model, port
+    params) at the reduced config, built on first use."""
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            ref_cfg = ref_get_config(arch).reduced()
+            cfg = get_config(arch).reduced()
+            ref_model = RefModel(ref_cfg)
+            ref_params = ref_model.init(jax.random.PRNGKey(0))
+            cache[arch] = (cfg, ref_model, ref_params, Model(cfg),
+                           params_from_reference(_np_tree(ref_params),
+                                                 torch.float32, "cpu"))
+        return cache[arch]
+    return get
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_init_shapes_equal_the_reference_tree(family_pairs, arch):
+    """The port's seeded init builds the reference's tree: same keys,
+    same stacked shapes (the MoE router and the SSM's A_log, D and
+    dt_bias in float32 whatever the config dtype)."""
+    cfg, _, ref_params, model, _ = family_pairs(arch)
+    flat_ref = {jax.tree_util.keystr(k): tuple(v.shape) for k, v in
+                jax.tree_util.tree_leaves_with_path(ref_params)}
+    assert _flat_shapes(model.init(seed=0, device="cpu")) == flat_ref
+    bf16 = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    p = build_params(bf16, "init", NO_MESH, device="cpu")
+    assert p["embed"].dtype == torch.bfloat16
+    if bf16.family == "moe":
+        assert p["moe_blocks"]["moe"]["router"].dtype == torch.float32
+    if bf16.family in ("ssm", "hybrid"):
+        for key in ("A_log", "D", "dt_bias"):
+            assert p["blocks"]["mixer"][key].dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_logits_match_the_reference(family_pairs, arch):
+    """Train logits (with the MoE aux and DeepSeek's MTP logits),
+    prefill logits and two decode steps, port against reference, within
+    the reference's 2e-4; the padded caches have the reference's
+    shapes."""
+    cfg, ref_model, ref_params, model, params = family_pairs(arch)
+    rng = np.random.default_rng(11)
+    B, S = 2, 12
+    tok = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    kw = {"tokens": tok}
+    if cfg.family == "encdec":
+        kw["enc_embeds"] = rng.standard_normal(
+            (B, 8, cfg.d_model)).astype(np.float32)
+    jx = lambda d: {k: jnp.asarray(v) for k, v in d.items()}
+    th = lambda d: {k: torch.from_numpy(v) for k, v in d.items()}
+    want, raux = ref_model.train_logits(ref_params, **jx(kw))
+    got, aux = model.train_logits(params, **th(kw))
+    _close(got, want)
+    assert sorted(aux) == sorted(raux)
+    for key in raux:
+        _close(aux[key], raux[key])
+    kp = dict(kw, tokens=tok[:, :10])
+    rl, rc = ref_model.prefill(ref_params, **jx(kp))
+    lg, c = model.prefill(params, **th(kp))
+    _close(lg, rl)
+    rc, c = ref_model.pad_cache(rc, S), model.pad_cache(c, S)
+    assert _flat_shapes(c) == {jax.tree_util.keystr(k): tuple(v.shape)
+                               for k, v in
+                               jax.tree_util.tree_leaves_with_path(rc)}
+    for t in (10, 11):
+        pos = np.full((B,), t, np.int32)
+        rl, rc = ref_model.decode(ref_params, rc, jnp.asarray(tok[:, t]),
+                                  jnp.asarray(pos))
+        lg, c = model.decode(params, c, torch.from_numpy(tok[:, t]),
+                             torch.from_numpy(pos))
+        assert tuple(lg.shape) == (B, cfg.vocab_size)
+        _close(lg, rl)
+
+
+def test_mla_attention_modes_match_the_reference(family_pairs):
+    """MLA at the block level: train, prefill (the compressed ckv/k_rope
+    cache) and the absorbed decode, each row at its own position in a
+    16-long cache, written in place."""
+    from repro.models import attention as ref_attention
+    cfg, _, ref_params, _, params = family_pairs("deepseek_v3_671b")
+    p = _layer0(params["dense_blocks"])["attn"]
+    rp = _layer0(ref_params["dense_blocks"])["attn"]
+    rng = np.random.default_rng(12)
+    B, S = 2, 9
+    x = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    pos = np.arange(S, dtype=np.int32)
+    y, c = attn.mla_attention(cfg, p, torch.from_numpy(x),
+                              torch.from_numpy(pos), NO_MESH,
+                              make_cache=True)
+    ry, rc = ref_attention.mla_attention(cfg, rp, jnp.asarray(x),
+                                         jnp.asarray(pos), REF_NO_MESH,
+                                         make_cache=True)
+    _close(y, ry)
+    for key in ("ckv", "k_rope"):
+        _close(c[key], rc[key])
+    smax = 16
+    ckv = rng.standard_normal((B, smax, cfg.kv_lora_rank)).astype(np.float32)
+    kr = rng.standard_normal((B, smax, cfg.qk_rope_head_dim)).astype(
+        np.float32)
+    idx = np.array([3, 12], np.int32)
+    x1 = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
+    cache = {"ckv": torch.from_numpy(ckv.copy()),
+             "k_rope": torch.from_numpy(kr.copy())}
+    y, c = attn.mla_attention(cfg, p, torch.from_numpy(x1),
+                              torch.from_numpy(idx[:, None]), NO_MESH,
+                              cache=cache, cache_index=torch.from_numpy(idx))
+    ry, rc = ref_attention.mla_attention(
+        cfg, rp, jnp.asarray(x1), jnp.asarray(idx[:, None]), REF_NO_MESH,
+        cache={"ckv": jnp.asarray(ckv), "k_rope": jnp.asarray(kr)},
+        cache_index=jnp.asarray(idx))
+    assert c is cache
+    _close(y, ry)
+    for key in ("ckv", "k_rope"):
+        _close(c[key], rc[key])
