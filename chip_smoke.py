@@ -121,7 +121,26 @@ Phases, each printing its own lines; any failure exits non-zero:
    and, where it reaches K5, one prompt's last logits against the plain
    "sdpa" backend.  Its numbers go on a ``{"families": ...}`` JSON line.
 
-Phases 4, 8, 7, 9 and each model of 10 are the main paths, in that
+11. train — runs after phase 10: the multi-device slice and the
+   training path at world size 1.  An NCCL process group of one rank
+   (``file://`` store in a temp dir) and the (1, 1) (data, model) mesh;
+   ``distributed_gemm`` in ring and gspmd modes at 8192^3 and a ragged
+   8191 x 8190 x 8192, f32 and bf16, each within the reference's limit
+   (1e-3 / 1.0 max abs) scaled by sqrt(K / 128) of an f64 oracle on the
+   card, its collectives counted (a one-card ring makes no hop: the hop
+   schedule is held by the gloo twins); ``tp_matmul`` column then row at
+   Qwen3-0.6B's MLP (B 8, S 1024, 1024 -> 3072 -> 1024) in bf16 against
+   the unsharded product (2e-2 normwise); then ``launch.train.run`` at
+   Qwen3-0.6B's full width (28 layers, bf16 parameters, f32 moments,
+   random weights from a seed) on the mesh: 6 steps of 8 x 1024 tokens
+   with a checkpoint every 3, then again to 9 steps, which must resume
+   at 6 and train 3; every loss finite, the checkpoint's keys and shapes
+   the live tree's, the first loss within 1e-6 of a run without the
+   mesh, no hand kernel launched (neither has a backward).  Median step
+   ms, tokens/s and peak allocated GiB go on a ``{"train": ...}`` JSON
+   line.
+
+Phases 4, 8, 7, 9, each model of 10 and 11 are the main paths, in that
 order: each kernel's launch count is set to 0 just before each and read
 just after it (in phase 9 before the owner-mode comparison runs, in
 phase 10 before the sdpa comparison).
@@ -277,6 +296,31 @@ CHAIN_TOL = 1e-4
 # where every owner task splits (4 tasks < 2 devices x 4 streams) and
 # one where only the ragged edge tiles do
 ANALYSIS = {"sizes": (2048, 4608), "tile": 1024}
+
+# the distributed-and-training phase (11): distributed_gemm at DIST_GEMM
+# (M, K, N) and the ragged DIST_RAGGED, each mode, f32 and bf16; the
+# tp_matmul column-then-row at Qwen3-0.6B's MLP (B, S, d, ff) in bf16;
+# then Qwen3-0.6B trained at full width (TRAIN), resumed to
+# TRAIN_RESUME_STEPS
+DIST_GEMM = (8192, 8192, 8192)
+DIST_RAGGED = (8191, 8190, 8192)
+TP_MLP = (8, 1024, 1024, 3072)
+# the reference's limits (test_distributed.py) hold at its K = 128 with
+# N(0, 1) entries, where a product's magnitude is sqrt(128); here both
+# scale with the products' magnitude, sqrt(K / 128) (8 at K = 8192):
+# bf16 rounds |C| up to ~500 to a spacing of 2, 1.0 by itself
+DIST_TOL = {"float32": 1e-3, "bfloat16": 1.0}
+# tp_matmul in bf16 vs the unsharded bf16 product: normwise, the GEMM's
+# bf16 limit (the sums run in f32 in both, in another order)
+TP_TOL = 2e-2
+TRAIN = dict(arch="qwen3_0_6b", smoke=False, seq_len=1024, global_batch=8,
+             use_mesh=True, steps=6, ckpt_every=3, log_every=1, seed=0,
+             device="cuda")
+TRAIN_RESUME_STEPS = 9
+# first step's loss through the (1, 1) mesh vs no mesh: the same
+# arithmetic at world size 1 (no collective runs), so equal but for
+# cuBLAS's run-to-run order
+TRAIN_LOSS_RTOL = 1e-6
 
 
 class SmokeFailure(Exception):
@@ -1746,6 +1790,201 @@ def phase_families(card: str, device: str = "cuda", smoke: bool = False):
     return numbers, counts
 
 
+def phase_train(card: str, device: str = "cuda", smoke: bool = False):
+    """Phase 11: the multi-device slice and the training path at world
+    size 1.  Joins a process group of one rank (NCCL on the card, gloo on
+    the CPU) through a ``file://`` store in a temp dir and builds the
+    (data, model) = (1, 1) mesh; runs ``distributed_gemm`` in ring and
+    gspmd modes at DIST_GEMM and DIST_RAGGED in f32 and bf16 against an
+    f64 oracle, and ``tp_matmul`` column then row at TP_MLP against the
+    unsharded product; then ``launch.train.run`` at Qwen3-0.6B's full
+    width (TRAIN: 6 steps, a checkpoint every 3), again to
+    TRAIN_RESUME_STEPS (resumes at 6, trains 3), and one step without
+    the mesh, whose loss must equal the first.  Returns the phase's
+    numbers and the kernels' launch counts of the two training runs.
+    ``device="cpu", smoke=True`` rehearses it here: gloo, small GEMMs,
+    the reduced config at 32 tokens."""
+    import gc
+    import math
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.mesh import init_process_group, \
+        make_mesh_for_devices
+    from repro_torch.launch.train import TrainConfig, run
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.tree import keystr, tree_flatten
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    gemm, ragged = ((256, 256, 256), (255, 254, 256)) if smoke else \
+        (DIST_GEMM, DIST_RAGGED)
+    tp = (2, 64, 64, 192) if smoke else TP_MLP
+    train = dict(TRAIN, device=device, **(
+        {"smoke": True, "seq_len": 32, "global_batch": 4} if smoke else {}))
+    numbers = {"card": card, "world_size": 1}
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_process_group(device, init_method=f"file://{tmp}/store",
+                           rank=0, world_size=1)
+        try:
+            mesh = make_mesh_for_devices(1, 1, device=device)
+            gen = torch.Generator(device=device).manual_seed(0)
+            rows = []
+            for (m, k, n) in (gemm, ragged):
+                a32 = torch.randn((m, k), generator=gen, device=device)
+                b32 = torch.randn((k, n), generator=gen, device=device)
+                for name in ("float32", "bfloat16"):
+                    a, b = (a32.to(getattr(torch, name)),
+                            b32.to(getattr(torch, name)))
+                    want = a.double() @ b.double()
+                    tol = DIST_TOL[name] * math.sqrt(k / 128)
+                    for mode in ("ring", "gspmd"):
+                        D.reset_collectives()
+                        sync()
+                        t0 = time.perf_counter()
+                        c = D.distributed_gemm(a, b, mesh, mode=mode)
+                        sync()
+                        ms = (time.perf_counter() - t0) * 1e3
+                        err = float((c.double() - want).abs().max())
+                        rows.append(dict(shape=[m, k, n], dtype=name,
+                                         mode=mode, max_abs_err=err,
+                                         tol=tol, ms=ms,
+                                         collectives=dict(D.COLLECTIVES)))
+                        print(f"[train] distributed_gemm {mode} {name} "
+                              f"{m}x{k}x{n}: max abs {err:.3e} (tol "
+                              f"{tol:.3e}), {ms:.2f} ms host clock, "
+                              f"collectives {dict(D.COLLECTIVES)} | {card}",
+                              flush=True)
+                        check(tuple(c.shape) == (m, n) and c.dtype == a.dtype,
+                              f"distributed_gemm {mode} {name}: "
+                              f"{tuple(c.shape)} {c.dtype}")
+                        check(err <= tol, f"distributed_gemm {mode} {name} "
+                              f"{m}x{k}x{n}: max abs {err:.3e} > {tol:.3e}")
+                    del a, b, want, c
+                del a32, b32
+            numbers["distributed_gemm"] = rows
+            bsz, seq, d, ff = tp
+            x = torch.randn((bsz, seq, d), generator=gen,
+                            device=device).to(torch.bfloat16)
+            w1 = (torch.randn((d, ff), generator=gen, device=device)
+                  / math.sqrt(d)).to(torch.bfloat16)
+            w2 = (torch.randn((ff, d), generator=gen, device=device)
+                  / math.sqrt(ff)).to(torch.bfloat16)
+            want = (x @ w1) @ w2
+            for mode in ("ring", "gspmd"):
+                y = D.tp_matmul(x, w1, mesh, kind="column", mode=mode)
+                z = D.tp_matmul(y, w2, mesh, kind="row", mode=mode)
+                err = normwise(z, want)
+                numbers[f"tp_matmul_{mode}_normwise"] = err
+                print(f"[train] tp_matmul {mode} column+row bf16 "
+                      f"({bsz},{seq},{d})->{ff}->{d}: normwise {err:.3e} vs "
+                      f"the unsharded product (tol {TP_TOL:.0e}) | {card}",
+                      flush=True)
+                check(tuple(z.shape) == tuple(want.shape)
+                      and err <= TP_TOL, f"tp_matmul {mode}: {err:.3e}")
+            del x, w1, w2, want, y, z
+            print("[train] a one-card ring makes no hop: every ring above "
+                  "ran its single panel locally (0 P2P hops); the hop "
+                  "schedule and the overlap are held by the gloo twins "
+                  "(tests/test_torch_distributed.py), not on the card",
+                  flush=True)
+
+            # training at full width, resumed from its checkpoint
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            ck = os.path.join(tmp, "ckpt")
+            _reset_counts()
+            first = run(TrainConfig(ckpt_dir=ck, **train))
+            resumed = run(TrainConfig(ckpt_dir=ck, **dict(
+                train, steps=TRAIN_RESUME_STEPS)))
+            sync()
+            counts = _read_counts()
+            peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+                    else None)
+            losses = first["losses"] + resumed["losses"]
+            check(first["final_step"] == train["steps"]
+                  and len(first["losses"]) == train["steps"],
+                  f"first run: {first['final_step']} steps")
+            check(resumed["final_step"] == TRAIN_RESUME_STEPS
+                  and len(resumed["losses"]) == TRAIN_RESUME_STEPS
+                  - train["steps"], f"resumed run trained "
+                  f"{len(resumed['losses'])} steps to {resumed['final_step']}")
+            check(all(np.isfinite(v) for v in losses),
+                  f"non-finite loss in {losses}")
+            check(not any(counts["gemm"].values())
+                  and not counts["flash_path"],
+                  f"training launched a hand kernel: {counts}")
+            # the checkpoint holds the live tree's keys and shapes
+            cfg = get_config(train["arch"])
+            cfg = cfg.reduced() if train["smoke"] else cfg
+            live = Model(cfg).init(train["seed"], device=device)
+            paths, leaves = tree_flatten({"params": live,
+                                          "opt": adamw.init_state(live)})
+            step_dir = os.path.join(ck, f"step_{TRAIN_RESUME_STEPS}")
+            with np.load(os.path.join(step_dir, "arrays.npz")) as data:
+                saved = {k: data[k].shape for k in data.files}
+            check(saved == {keystr(q): tuple(t.shape)
+                            for q, t in zip(paths, leaves)},
+                  "the checkpoint's keys or shapes differ from the live tree")
+            del live, leaves
+            # the first step's loss without the mesh, from the same seed
+            gc.collect()
+            plain = run(TrainConfig(**dict(train, use_mesh=False, steps=1,
+                                           log_every=0)))
+            rel = abs(plain["losses"][0] - first["losses"][0]) / abs(
+                first["losses"][0])
+            check(rel <= TRAIN_LOSS_RTOL, f"first loss {first['losses'][0]}"
+                  f" with the mesh, {plain['losses'][0]} without "
+                  f"(rel {rel:.2e} > {TRAIN_LOSS_RTOL:.0e})")
+            if on_card:
+                profile_training(card, cfg, train)
+            # the first step of each run builds cuBLAS's and autograd's
+            # state: the median is over the others
+            times = first["step_times"][1:] + resumed["step_times"][1:]
+            med = statistics.median(times)
+            tokens = train["global_batch"] * train["seq_len"]
+            numbers.update(
+                arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                vocab=cfg.vocab_size, params=cfg.param_count(),
+                dtype=cfg.dtype, seq_len=train["seq_len"],
+                global_batch=train["global_batch"], losses=losses,
+                first_loss_no_mesh=plain["losses"][0],
+                first_loss_rel_diff=rel, step_ms=[t * 1e3 for t in
+                                                  first["step_times"]
+                                                  + resumed["step_times"]],
+                median_step_ms=med * 1e3, tokens_per_s=tokens / med,
+                peak_gib=peak, launches=counts,
+                checkpoint_keys=len(saved))
+            print(f"[train] {cfg.name} {cfg.dtype} x{cfg.n_layers} layers "
+                  f"({cfg.param_count() / 1e9:.2f} B params), batch "
+                  f"{train['global_batch']} x {train['seq_len']}: steps 1-"
+                  f"{train['steps']}, resumed {train['steps'] + 1}-"
+                  f"{TRAIN_RESUME_STEPS}, losses "
+                  f"{[round(v, 4) for v in losses]}; median step "
+                  f"{med * 1e3:.1f} ms ({tokens / med:.0f} tokens/s), peak "
+                  f"allocated {peak if peak is None else round(peak, 2)} "
+                  f"GiB; first loss without the mesh rel diff {rel:.1e}; "
+                  f"{len(saved)} checkpoint arrays | {card}", flush=True)
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"[train] phase {numbers['phase_s']:.1f} s | {card}", flush=True)
+    print(json.dumps({"train": numbers}), flush=True)
+    return numbers, counts
+
+
 def _device_us(event) -> float:
     return float(getattr(event, "self_device_time_total",
                          getattr(event, "self_cuda_time_total", 0.0)))
@@ -1801,6 +2040,52 @@ def profile_serving(card: str, model, params, tokens):
             print(f"[profile]   {_device_us(e) / 1e3:8.3f} ms "
                   f"{100 * _device_us(e) / busy_us:5.1f}% x{e.count:<5d} "
                   f"{e.key[:90]}", flush=True)
+
+
+def profile_training(card: str, cfg, train: dict):
+    """Where one train step at phase 11's size spends the card's time:
+    ``torch.profiler`` over one step after a warm-up step, device time by
+    kernel and the device's busy share of the host-clock wall."""
+    import gc
+
+    import torch
+    from repro_torch.data import DataConfig, batch_at_step
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import NO_MESH
+    from repro_torch.optim import adamw
+    from torch.profiler import ProfilerActivity, profile
+
+    step, model = make_train_step(cfg, NO_MESH)
+    params = model.init(train["seed"], device="cuda")
+    state = adamw.init_state(params)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_at_step(
+        DataConfig(cfg.vocab_size, train["seq_len"], train["global_batch"],
+                   seed=train["seed"]), 0).items()}
+    params, state, _ = step(params, state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        float(m["loss"])
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = _kernel_events(prof)
+    busy_us = sum(_device_us(e) for e in events)
+    if busy_us == 0:
+        print(f"[profile] train step: the profiler saw no device time; "
+              f"device busy share not measured | {card}", flush=True)
+    else:
+        print(f"[profile] train step: wall {wall_us / 1e3:.1f} ms, device "
+              f"busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%)"
+              f", {sum(e.count for e in events)} device ops | {card}",
+              flush=True)
+        for e in sorted(events, key=_device_us, reverse=True)[:10]:
+            print(f"[profile]   {_device_us(e) / 1e3:8.3f} ms "
+                  f"{100 * _device_us(e) / busy_us:5.1f}% x{e.count:<5d} "
+                  f"{e.key[:90]}", flush=True)
+    del params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _reset_counts():
@@ -1914,7 +2199,11 @@ def main() -> int:
     _, families = phase_families(card)
     for arch, run in families.items():
         _check_simt_is_f32(f"{arch} path", run)
-    main_runs = (blas, api, serve, analysis, *families.values())
+    # main path 10, training (counted from 0 inside; it reaches no hand
+    # kernel: neither has a backward, so train-mode attention and the
+    # GEMMs are plain torch, as the reference's are XLA)
+    _, train = phase_train(card)
+    main_runs = (blas, api, serve, analysis, *families.values(), train)
     # every main-path flash launch is bf16 (phases 7 and 10 check it),
     # so the by-shape counts are bf16's
     check(all(set(d) <= {"bfloat16"} for run in main_runs

@@ -5,7 +5,8 @@ its own from a ``torch.Generator``, so the two never hold the same
 numbers from one seed.  To hold the port's model against the
 reference's, a test builds the reference's tree, widens it to float32
 numpy arrays (the port cannot import ``ml_dtypes``, numpy's bfloat16)
-and hands it to :func:`params_from_reference`.
+and hands it to :func:`params_from_reference`; the optimizer state
+beside it goes over with :func:`opt_state_from_reference`.
 """
 from __future__ import annotations
 
@@ -33,3 +34,19 @@ def params_from_reference(tree: Mapping[str, Any], dtype: torch.dtype,
         # buffers
         out[key] = torch.tensor(arr, dtype=dtype, device=device)
     return out
+
+
+def opt_state_from_reference(state: Mapping[str, Any], device="cuda"
+                             ) -> dict:
+    """The reference's ``adamw.init_state`` tree as numpy (``m`` and
+    ``v``: nested dicts of float32 arrays beside the parameters;
+    ``step``: an int32 scalar) -> the port's AdamW state on ``device``
+    (the card unless the caller asks for the CPU): f32 moments, an
+    int32 step."""
+    step = np.asarray(state["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise TypeError(f"step: expected an int32 scalar, got "
+                        f"{step.dtype} of shape {step.shape}")
+    return {"m": params_from_reference(state["m"], torch.float32, device),
+            "v": params_from_reference(state["v"], torch.float32, device),
+            "step": torch.tensor(step, device=device)}

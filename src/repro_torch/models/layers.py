@@ -31,7 +31,7 @@ class Maker:
         if mode != "init":
             raise NotImplementedError(
                 f"Maker mode {mode!r}: the port builds real parameters "
-                f"only ('init'); 'abstract' comes with the dry-run")
+                f"only ('init'); 'abstract' comes with the dry-run slice")
         self.dtype = dtype
         self.generator = generator
         self.device = torch.device(device)
@@ -127,9 +127,26 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 def row_parallel_matmul(x: torch.Tensor, w: torch.Tensor,
                         rules: MeshRules) -> torch.Tensor:
-    """y = x @ w.  The reference's sharded branch (a bf16 psum over the
-    model axis) comes with meshes; with none it is one matmul."""
-    return x @ w
+    """y = x @ w for w row-sharded on the model axis; psum in x.dtype.
+
+    Under a model axis of n > 1 ranks that divides x's features and w's
+    rows, this rank takes its 1/n of both, multiplies them with an f32
+    accumulator, casts to ``x.dtype`` and all-reduces over the model
+    group (in x's dtype, bf16 in the models, not f32: half the payload
+    of the dominant tensor-parallel collective); otherwise one matmul."""
+    ax = rules.model_axis
+    n = rules.axis_size(ax)
+    if (rules.mesh is None or n <= 1 or x.ndim != 3 or x.shape[-1] % n
+            or w.shape[0] % n):
+        return x @ w
+    from ..core.distributed import psum, replicated
+    group = rules.group(ax)
+    f = x.shape[-1] // n
+    lo = rules.coordinate(ax) * f
+    xl = replicated(x, group)[..., lo:lo + f]
+    wl = replicated(w, group)[lo:lo + f]
+    part = torch.matmul(xl.float(), wl.float()).to(x.dtype)
+    return psum(part, group)
 
 
 # ------------------------------------------------------------------- MLP

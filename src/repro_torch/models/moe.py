@@ -8,9 +8,10 @@ reference drops, since both rank a slot within its expert by a stable
 sort.  The expert FFNs are batched matmuls over the (E, C, d) buffers,
 as the reference's einsums are (no Pallas kernel runs there).
 
-Expert-parallel dispatch over a mesh (the reference's
-``_moe_block_sharded``) needs several cards and comes with the
-multi-device slice.
+Under a model axis that divides E, dispatch is expert-parallel
+(``_moe_block_sharded``): each model rank scatters the tokens it holds
+into its E/n experts' buffers, and one all-reduce over the model group
+combines the partial outputs.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from typing import Tuple
 import torch
 
 from .layers import ACT, Maker
-from .sharding import MULTI_DEVICE, MeshRules
+from .sharding import MeshRules
 
 
 def make_moe_params(mk: Maker, cfg) -> dict:
@@ -60,8 +61,13 @@ def _positions_in_expert(flat_e: torch.Tensor, n_experts: int
 
 def moe_block(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
               ) -> Tuple[torch.Tensor, dict]:
-    """x: (B, S, d) -> (y, aux) with load-balance metrics in aux."""
-    if rules.mesh is not None:
+    """x: (B, S, d) -> (y, aux) with load-balance metrics in aux.  Under
+    a model axis wider than 1 that divides E, expert-local dispatch:
+    tokens stay where they are and one activation-sized all-reduce a
+    layer combines the experts' outputs."""
+    model_n = rules.axis_size(rules.model_axis)
+    if rules.mesh is not None and model_n > 1 and \
+            cfg.n_experts % model_n == 0:
         return _moe_block_sharded(cfg, p, x, rules)
     return _moe_block_dense(cfg, p, x, rules)
 
@@ -89,9 +95,58 @@ def _shared_expert(cfg, p, xt):
     return (act(xt @ sp["wg"]) * (xt @ sp["wi"])) @ sp["wo"]
 
 
-def _moe_block_sharded(cfg, p, x, rules):
-    raise NotImplementedError(
-        f"expert-parallel MoE dispatch over a mesh: {MULTI_DEVICE}")
+def _moe_block_sharded(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
+                       ) -> Tuple[torch.Tensor, dict]:
+    """Expert-parallel dispatch with no token movement: every model rank
+    holds the full token block of its data rank (x), scatters it into
+    ITS E/model_n experts' capacity buffers, computes, and contributes a
+    partial (N, d) output; one all-reduce over the model group combines
+    them.  C comes from the tokens this rank holds, as the reference's
+    from its data-local block.  The aux loss is taken over this rank's
+    tokens (the reference's over the global batch: the two differ under
+    a data axis > 1), its drop fraction from the capacity estimate
+    ``pos < C * model_n``, as in the reference."""
+    from ..core.distributed import psum, replicated
+
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    N = B * S
+    xt = x.reshape(N, d)
+    probs, gate_w, gate_idx = _router(cfg, p, xt)
+
+    model_ax = rules.model_axis
+    model_n = rules.axis_size(model_ax)
+    group = rules.group(model_ax)
+    C = max(1, int(math.ceil(N * K * cfg.capacity_factor / E)))
+    e_local = E // model_n
+    lo = rules.coordinate(model_ax) * e_local
+    w_gate, w_up, w_down = (replicated(p[k], group)[lo:lo + e_local]
+                            for k in ("w_gate", "w_up", "w_down"))
+    xl = replicated(xt, group)
+    gw = replicated(gate_w, group)
+
+    flat_e = gate_idx.reshape(-1)
+    pos = _positions_in_expert(flat_e, E)
+    mine = (flat_e >= lo) & (flat_e < lo + e_local)
+    keep = (pos < C) & mine
+    local_e = torch.where(mine, flat_e - lo, 0)
+    dest = torch.where(keep, local_e * C + pos, e_local * C)
+    x_rep = torch.repeat_interleave(xl, K, dim=0)
+    buf = xl.new_zeros((e_local * C + 1, d)).index_add(0, dest, x_rep)
+    buf = buf[:e_local * C].reshape(e_local, C, d)
+    act = ACT[cfg.act]
+    h = act(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
+    out_buf = torch.bmm(h, w_down).reshape(e_local * C, d)
+    gathered = torch.where(keep[:, None],
+                           out_buf[dest.clamp(max=e_local * C - 1)],
+                           out_buf.new_zeros(()))
+    y = torch.sum((gathered * gw.reshape(-1)[:, None]).reshape(N, K, d),
+                  dim=1)
+    y = psum(y.to(x.dtype), group)
+    if cfg.n_shared_experts:
+        y = y + _shared_expert(cfg, p, xt)
+    aux = _aux(cfg, probs, gate_idx, pos < C * model_n)
+    return y.reshape(B, S, d).to(x.dtype), aux
 
 
 def _moe_block_dense(cfg, p: dict, x: torch.Tensor, rules: MeshRules,

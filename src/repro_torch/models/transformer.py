@@ -30,7 +30,9 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
+from ..tree import tree_map
 from .attention import gqa_attention, make_attn_params, make_mla_params, \
     mla_attention
 from .layers import Maker, apply_norm, make_mlp_params, mlp
@@ -181,15 +183,6 @@ def _mamba_block_apply(cfg, rules, p, x, *, state=None, make_state=False):
     return x, new_state
 
 
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts (``rest``: trees of the
-    same keys)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    return fn(tree, *rest)
-
-
 def _layers(tree, lo: int, hi: int):
     """Layers ``lo:hi`` of a stacked (leading-L) tree: views, so writes
     into them land in ``tree``."""
@@ -203,12 +196,31 @@ def _stack(parts, join=torch.stack):
 
 def _scan_blocks(cfg, rules, stacked, x, positions, *, kind,
                  caches=None, cache_index=None, make_cache=False,
-                 causal=True, enc_out=None, q_chunk=1024):
+                 causal=True, enc_out=None, remat=False, q_chunk=1024):
     """Run a homogeneous stacked group layer by layer.  Returns
     (x, caches, aux): with ``make_cache`` the per-layer caches stacked on
     a new leading L axis; with ``caches`` the same caches, updated in
     place; ``aux`` the MoE layers' aux loss and drop fraction summed
-    (empty for a group without MoE layers)."""
+    (empty for a group without MoE layers).  With ``remat`` and grad
+    mode on, each layer keeps only its input for the backward pass and
+    recomputes the rest there (the reference's ``jax.checkpoint``)."""
+    def block(x, lp, lcache):
+        if kind == "attn":
+            return _attn_block(
+                cfg, rules, lp, x, positions, cache=lcache,
+                cache_index=cache_index, make_cache=make_cache,
+                causal=causal, enc_out=enc_out, q_chunk=q_chunk)
+        x, ncache = _mamba_block_apply(cfg, rules, lp, x, state=lcache,
+                                       make_state=make_cache)
+        return x, ncache, {}
+
+    if remat and torch.is_grad_enabled():
+        plain = block
+
+        def block(x, lp, lcache):
+            return torch.utils.checkpoint.checkpoint(
+                plain, x, lp, lcache, use_reentrant=False)
+
     n = next(iter(stacked["attn" if kind == "attn" else "mixer"].values())
              ).shape[0]
     made, aux_sum = [], None
@@ -216,18 +228,10 @@ def _scan_blocks(cfg, rules, stacked, x, positions, *, kind,
         lp = tree_map(lambda a: a[i], stacked)
         lcache = (tree_map(lambda a: a[i], caches)
                   if caches is not None else None)
-        if kind == "attn":
-            x, ncache, aux = _attn_block(
-                cfg, rules, lp, x, positions, cache=lcache,
-                cache_index=cache_index, make_cache=make_cache,
-                causal=causal, enc_out=enc_out, q_chunk=q_chunk)
-            if aux:  # a MoE layer
-                vec = torch.stack([aux["moe_aux_loss"],
-                                   aux["moe_drop_frac"]])
-                aux_sum = vec if aux_sum is None else aux_sum + vec
-        else:
-            x, ncache = _mamba_block_apply(cfg, rules, lp, x, state=lcache,
-                                           make_state=make_cache)
+        x, ncache, aux = block(x, lp, lcache)
+        if aux:  # a MoE layer
+            vec = torch.stack([aux["moe_aux_loss"], aux["moe_drop_frac"]])
+            aux_sum = vec if aux_sum is None else aux_sum + vec
         if make_cache:
             made.append(ncache)
     out_caches = _stack(made) if make_cache else caches
@@ -274,12 +278,12 @@ class Model:
         logits = torch.matmul(x.float(), head.float())
         return self.rules.constrain(logits, "batch", "seq", "model")
 
-    def _encode(self, params, enc_embeds):
+    def _encode(self, params, enc_embeds, remat=False):
         cfg, rules = self.cfg, self.rules
         x = enc_embeds.to(_dtype_of(cfg))
         pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         x, _, _ = _scan_blocks(cfg, rules, params["enc_blocks"], x, pos,
-                               kind="attn", causal=False)
+                               kind="attn", causal=False, remat=remat)
         return apply_norm(cfg, x, params["enc_norm"])
 
     # ----------------------------------------------------------- forward
@@ -294,17 +298,18 @@ class Model:
         x = self._embed(params, tokens, embeds)
         x = rules.constrain(x, "batch", "seq", None)
         pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        remat = cfg.remat
         aux: Dict[str, torch.Tensor] = {}
 
         if cfg.family == "dense":
             x, _, _ = _scan_blocks(cfg, rules, params["blocks"], x, pos,
-                                   kind="attn")
+                                   kind="attn", remat=remat)
         elif cfg.family == "moe":
             if cfg.n_dense_layers:
                 x, _, _ = _scan_blocks(cfg, rules, params["dense_blocks"], x,
-                                       pos, kind="attn")
+                                       pos, kind="attn", remat=remat)
             x, _, aux = _scan_blocks(cfg, rules, params["moe_blocks"], x, pos,
-                                     kind="attn")
+                                     kind="attn", remat=remat)
             if cfg.mtp:
                 xm, _, _ = _attn_block(cfg, rules, params["mtp_block"],
                                        apply_norm(cfg, x, params["mtp_norm"]),
@@ -312,13 +317,13 @@ class Model:
                 aux["mtp_hidden"] = xm
         elif cfg.family == "ssm":
             x, _, _ = _scan_blocks(cfg, rules, params["blocks"], x, pos,
-                                   kind="mamba")
+                                   kind="mamba", remat=remat)
         elif cfg.family == "hybrid":
-            x, _ = self._hybrid_stack(params, x, pos)
+            x, _ = self._hybrid_stack(params, x, pos, remat=remat)
         elif cfg.family == "encdec":
-            enc = self._encode(params, enc_embeds)
+            enc = self._encode(params, enc_embeds, remat)
             x, _, _ = _scan_blocks(cfg, rules, params["dec_blocks"], x, pos,
-                                   kind="attn", enc_out=enc)
+                                   kind="attn", enc_out=enc, remat=remat)
         if return_hidden:
             xh = apply_norm(cfg, x, params["final_norm"])
             if "mtp_hidden" in aux:
@@ -331,7 +336,7 @@ class Model:
         return logits, aux
 
     def _hybrid_stack(self, params, x, pos, *, caches=None,
-                      cache_index=None, make_cache=False):
+                      cache_index=None, make_cache=False, remat=False):
         """Zamba2: segments of ``attn_every`` Mamba layers, each followed
         by THE shared attention block (weights reused; caches distinct).
         Returns (x, cache): with ``make_cache`` the Mamba states
@@ -352,7 +357,7 @@ class Model:
                                     _layers(params["blocks"], lo, hi), x,
                                     pos, kind="mamba", caches=seg_cache,
                                     make_cache=make_cache,
-                                    cache_index=cache_index)
+                                    cache_index=cache_index, remat=remat)
             new_mamba.append(nm)
             if s == n_seg:  # the remainder: no shared block after it
                 break

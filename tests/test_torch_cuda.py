@@ -887,3 +887,68 @@ def test_torch_backend_item_independent_of_group_size(card, dtype, shape,
     for g in range(2, 9):
         got = be.run_group(key, a[:g * steps], b[:g * steps]).products[0]
         assert torch.equal(got, lone), f"group of {g}"
+
+
+# ----------------------------------------- the multi-device slice, training
+def test_world_size_one_nccl_mesh(card, tmp_path):
+    """An NCCL process group of one rank and its (1, 1) mesh: the ring
+    and gspmd GEMMs and tp_matmul on the card against an f64 oracle (the
+    reference's limits), and the ring makes no hop on one card."""
+    import torch.distributed as dist
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.mesh import (init_process_group,
+                                         make_mesh_for_devices)
+    init_process_group("cuda", init_method=f"file://{tmp_path}/store",
+                       rank=0, world_size=1)
+    try:
+        mesh = make_mesh_for_devices(1, 1, device="cuda")
+        assert mesh.device_type == "cuda"
+        gen = torch.Generator(device=card).manual_seed(0)
+        a = torch.randn((61, 99), generator=gen, device=card)
+        b = torch.randn((99, 96), generator=gen, device=card)
+        want = a.double() @ b.double()
+        for mode in ("ring", "gspmd"):
+            D.reset_collectives()
+            c = D.distributed_gemm(a, b, mesh, mode=mode)
+            assert c.shape == (61, 96) and c.device.type == "cuda"
+            assert float((c.double() - want).abs().max()) < 1e-3
+            assert D.COLLECTIVES["p2p"] == 0
+        x = torch.randn((2, 30, 128), generator=gen, device=card)
+        w1 = torch.randn((128, 256), generator=gen, device=card)
+        w2 = torch.randn((256, 128), generator=gen, device=card)
+        want = (x.double() @ w1.double()) @ w2.double()
+        for mode in ("ring", "gspmd"):
+            y = D.tp_matmul(x, w1, mesh, kind="column", mode=mode)
+            z = D.tp_matmul(y, w2, mesh, kind="row", mode=mode)
+            assert float((z.double() - want).abs().max()) < 5e-3
+    finally:
+        dist.destroy_process_group()
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """One train step of reduced Qwen3 (f32) on the card against the same
+    step on the CPU from the same parameters and batch: the loss and
+    gradient norm within 1e-5 / 1e-4 relative, the parameters within
+    1e-5 (the first step's lr is 3e-6, so even a gradient whose sign the
+    two sums disagree on moves its weight by at most 6e-6)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_at_step
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import NO_MESH
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_flatten, tree_map
+    cfg = get_config("qwen3_0_6b").reduced()
+    step, model = make_train_step(cfg, NO_MESH)
+    params = model.init(0, device="cpu")
+    batch = batch_at_step(DataConfig(cfg.vocab_size, 32, 4, seed=1), 0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        out[dev] = step(p, adamw.init_state(p), b)
+    (pc, _, mc), (pg, _, mg) = out["cpu"], out["cuda"]
+    assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-5)
+    assert float(mg["grad_norm"]) == pytest.approx(float(mc["grad_norm"]),
+                                                   rel=1e-4)
+    for a, b in zip(tree_flatten(pc)[1], tree_flatten(pg)[1]):
+        assert float((a - b.cpu()).abs().max()) <= 1e-5

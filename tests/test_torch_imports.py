@@ -70,7 +70,8 @@ def test_registry_loads_the_ports_own_config_modules():
     assert "repro_torch.configs.qwen3_0_6b" in sys.modules
 
 
-@pytest.mark.parametrize("package", ["api", "serve", "tuning"])
+@pytest.mark.parametrize("package", ["api", "serve", "tuning", "optim",
+                                     "checkpoint", "data", "launch"])
 def test_public_packages_export_the_references_names(package):
     """``repro_torch.<package>`` exports exactly the names
     ``repro.<package>`` does, and each resolves."""

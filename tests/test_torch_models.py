@@ -113,26 +113,43 @@ def test_init_shapes_equal_the_reference_tree(pair):
                                   "zamba2_2_7b", "seamless_m4t_medium",
                                   "deepseek_v3_671b", "mesh", "moe_sharded"])
 def test_unported_families_and_meshes_raise(case):
-    """The five families build (they were refused before this slice);
-    a mesh is still refused, by ``rules_for_mesh`` and by the MoE
-    block's expert-parallel dispatch, with a message that names the
-    multi-device slice."""
+    """The five families build.  Meshes no longer raise:
+    ``rules_for_mesh`` maps a mesh's axes as the reference does, and
+    the MoE block keeps the dense dispatch unless
+    the model axis is wider than 1 and divides the experts, as the
+    reference's does (the sharded branch itself is held in gloo ranks,
+    ``test_torch_distributed.py``).  What still raises, shape-only
+    parameters, names the dry-run slice."""
+    from types import SimpleNamespace
+
     from repro_torch.models import moe
+    from repro_torch.models.layers import Maker
     from repro_torch.models.sharding import MeshRules
     if case == "mesh":
-        with pytest.raises(NotImplementedError, match="multi-device slice"):
-            rules_for_mesh(object())
         assert rules_for_mesh(None) is NO_MESH
+        mesh = SimpleNamespace(mesh_dim_names=("data", "model"),
+                               mesh=torch.zeros((2, 4)))
+        rules = rules_for_mesh(mesh)
+        assert (rules.batch_axes, rules.fsdp_axis, rules.model_axis) == (
+            ("data",), "data", "model")
+        assert rules.axis_size("model") == 4 and rules.batch_size_divides(6)
+        with pytest.raises(NotImplementedError, match="dry-run slice"):
+            Maker("abstract", rules, torch.float32)
         return
     if case == "moe_sharded":
         cfg = get_config("olmoe_1b_7b").reduced()
         p = _layer0(build_params(cfg, "init", NO_MESH, device="cpu")
                     ["moe_blocks"])["moe"]
-        x = torch.zeros((1, 3, cfg.d_model))
-        with pytest.raises(NotImplementedError, match="multi-device slice"):
-            moe.moe_block(cfg, p, x, MeshRules(mesh=object()))
-        y, aux = moe.moe_block(cfg, p, x, NO_MESH)
-        assert tuple(y.shape) == (1, 3, cfg.d_model)
+        x = torch.randn((1, 3, cfg.d_model),
+                        generator=torch.Generator().manual_seed(0))
+        y0, aux0 = moe.moe_block(cfg, p, x, NO_MESH)
+        assert tuple(y0.shape) == (1, 3, cfg.d_model)
+        for model_n in (1, 3):      # 1, or one that does not divide E = 8
+            mesh = SimpleNamespace(mesh_dim_names=("data", "model"),
+                                   mesh=torch.zeros((2, model_n)))
+            y, aux = moe.moe_block(cfg, p, x, MeshRules(mesh=mesh))
+            assert torch.equal(y, y0)
+            assert torch.equal(aux["moe_aux_loss"], aux0["moe_aux_loss"])
         return
     cfg = get_config(case).reduced()
     params = build_params(cfg, "init", NO_MESH, device="cpu")
