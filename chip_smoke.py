@@ -140,8 +140,26 @@ Phases, each printing its own lines; any failure exits non-zero:
    ms, tokens/s and peak allocated GiB go on a ``{"train": ...}`` JSON
    line.
 
-Phases 4, 8, 7, 9, each model of 10 and 11 are the main paths, in that
-order: each kernel's launch count is set to 0 just before each and read
+12. dryrun — runs after phase 11: the dry-run slice.  (a) At world size
+   1 (an NCCL group of one rank, the (1, 1) mesh), the dry-run's trace
+   on fake tensors (``launch.dryrun.trace_step``) predicts the FLOPs and
+   the peak allocated bytes of one Qwen3-0.6B training step at full
+   width (8 x 1024 tokens, bf16 parameters, f32 moments) and of one
+   1024-token prefill; one real step of each on the card, under
+   ``FlopCounterMode`` after ``reset_peak_memory_stats``, must count
+   the same FLOPs and peak within 10% of the prediction; the prefill's
+   K5 launches must be 28 on mma in bf16 (it counts K5 through the
+   operator's registered flop formula); the step's time is printed
+   beside ``Roofline.bound_s``.  (b) ``python -m
+   repro_torch.launch.dryrun`` in subprocesses, 8 at a time, at full
+   depth on the (16, 16) mesh over a fake 256-rank group for every
+   architecture at train_4k and prefill_32k, Qwen3-0.6B at decode_32k,
+   and ``--multi-pod --no-costs`` for Qwen3-0.6B and DeepSeek-V3 at
+   train_4k; each must exit 0.  Its numbers go on a ``{"dryrun": ...}``
+   JSON line.
+
+Phases 4, 8, 7, 9, each model of 10, 11 and 12's prefill are the main
+paths, in that order: each kernel's launch count is set to 0 just before each and read
 just after it (in phase 9 before the owner-mode comparison runs, in
 phase 10 before the sdpa comparison).
 The last two lines are a
@@ -175,16 +193,10 @@ FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:78"
 SOURCES = ("blasx_gemm", "flash_attention")
 
-# least-time model (NVIDIA H100 SXM data sheet, dense): FP64 on the
-# tensor cores, FP32 outside them (TF32 is not the same arithmetic),
-# bf16/fp16 on the tensor cores; HBM3 at 3.35 TB/s
-PEAK_FLOPS = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12,
-              "float16": 989e12}
-PEAK_NAME = {"float64": "FP64 tensor 67 TFLOP/s",
-             "float32": "FP32 non-tensor 67 TFLOP/s",
-             "bfloat16": "BF16 dense tensor 989 TFLOP/s",
-             "float16": "FP16 dense tensor 989 TFLOP/s"}
-HBM_BYTES_PER_S = 3.35e12
+# least-time model: the H100 SXM data sheet's peaks, from the port's
+# roofline module (FP64 on the tensor cores, FP32 outside them, bf16/
+# fp16 on the tensor cores; HBM3 at 3.35 TB/s)
+from repro_torch.launch.roofline import PEAK_NAME, least_time  # noqa: E402
 
 # kernel vs plain version, normwise relative error: f64 and f32 are
 # FMA sums in another order (f32 never takes TF32); bf16/f16 round the
@@ -390,16 +402,6 @@ def warm_profiler() -> None:
     x = torch.ones(1024, device="cuda")
     with profile(activities=[ProfilerActivity.CUDA]):
         (x * 2).sum().item()
-
-
-def least_time(flops: float, nbytes: float, dtype: str):
-    """(bound_ms, bound_by): the larger of the flops over the dtype's
-    peak and the bytes (inputs read once, outputs written once) over the
-    memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
-    if t_ops >= t_bytes:
-        return t_ops * 1e3, "operations"
-    return t_bytes * 1e3, "bytes"
 
 
 def bound(shape, dtype: str):
@@ -1985,6 +1987,269 @@ def phase_train(card: str, device: str = "cuda", smoke: bool = False):
     return numbers, counts
 
 
+# phase 12: the dry-run's prediction against one real step at world
+# size 1 (phase 11's mesh and training shape; one prefill of 1024
+# tokens), then the production meshes' sweep in subprocesses
+DRYRUN_TRAIN = (8, 1024)
+DRYRUN_PREFILL = (1, 1024)
+# predicted peak (arguments + the trace's live-byte peak) vs
+# max_memory_allocated over the step: the trace sees every storage an
+# operator returns, not cuBLAS's workspace nor the allocator's rounding
+DRYRUN_PEAK_RTOL = 0.10
+DRYRUN_SHAPES = ("train_4k", "prefill_32k")
+DRYRUN_EXTRA = (("qwen3_0_6b", "decode_32k", ()),
+                ("qwen3_0_6b", "train_4k", ("--multi-pod", "--no-costs")),
+                ("deepseek_v3_671b", "train_4k",
+                 ("--multi-pod", "--no-costs")))
+DRYRUN_WORKERS = 8
+DRYRUN_TIMEOUT_S = 420
+
+
+def _dryrun_sweep(card: str, smoke: bool):
+    """Phase 12 (b): ``python -m repro_torch.launch.dryrun`` for every
+    cell of the sweep, one process a cell, DRYRUN_WORKERS at a time (a
+    fake process group must not meet this process's NCCL one); every
+    process must exit 0.  Returns the cells' records."""
+    import tempfile
+    from repro_torch.configs import ARCH_IDS
+    archs = ["qwen3_0_6b"] if smoke else [a for a in ARCH_IDS
+                                          if a != "blasx_gemm"]
+    shapes = ("prefill_32k",) if smoke else DRYRUN_SHAPES
+    cells = [(a, sh, ()) for a in archs for sh in shapes]
+    cells += [] if smoke else list(DRYRUN_EXTRA)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    records = []
+    with tempfile.TemporaryDirectory() as tmp:
+        def one(i):
+            arch, shape, flags = cells[i]
+            out = os.path.join(tmp, f"{i}.json")
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, *flags, "--out", out],
+                capture_output=True, text=True, env=env, cwd=str(ROOT),
+                timeout=DRYRUN_TIMEOUT_S)
+            return proc, out
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(DRYRUN_WORKERS) as pool:
+            done = list(pool.map(one, range(len(cells))))
+        wall = time.perf_counter() - t0
+        for (arch, shape, flags), (proc, out) in zip(cells, done):
+            check(proc.returncode == 0, f"dryrun {arch} {shape} {flags} "
+                  f"exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                  f"{proc.stderr[-3000:]}")
+            with open(out) as f:
+                (rec,) = json.load(f)
+            check(rec["status"] in ("ok", "skipped"), f"dryrun {rec}")
+            records.append(rec)
+            mem = rec.get("memory", {})
+            roof = rec.get("roofline")
+            terms = ("" if roof is None else
+                     f"; compute {roof['compute_s']:.4f} s, memory "
+                     f"{roof['memory_s']:.4f} s, collective "
+                     f"{roof['collective_s']:.4f} s -> {roof['dominant']}, "
+                     f"useful {roof['useful_flops_frac']:.2%}")
+            held, placed, temp = (mem.get(k, 0) / 2 ** 30 for k in (
+                "argument_size_in_bytes", "argument_size_placed_in_bytes",
+                "temp_size_in_bytes"))
+            print(f"[dryrun] {arch} x {shape} x {rec['mesh']} "
+                  f"({rec['status']}, {rec.get('device')}): held "
+                  f"{held:.2f} GiB, placed {placed:.3f} GiB, temp "
+                  f"{temp:.2f} GiB, trace {rec.get('compile_s', 0):.1f} s"
+                  f"{terms} | {card}", flush=True)
+    return records, wall
+
+
+def phase_dryrun(card: str, device: str = "cuda", smoke: bool = False):
+    """Phase 12: the dry-run slice.  (a) At world size 1 (an NCCL group
+    of one rank and the (1, 1) mesh, as phase 11's), the dry-run's trace
+    on fake tensors predicts the FLOPs and the peak bytes of one
+    Qwen3-0.6B training step at DRYRUN_TRAIN (bf16 parameters, f32
+    moments) and of one prefill at DRYRUN_PREFILL; one real step of each
+    on the card, under ``FlopCounterMode`` after
+    ``reset_peak_memory_stats``, must count the same FLOPs and peak
+    within DRYRUN_PEAK_RTOL of the prediction; the prefill is a main
+    path of K5 (28 launches on mma in bf16); the training step's time
+    is printed beside ``Roofline.bound_s``.  (b) The production meshes'
+    sweep (:func:`_dryrun_sweep`).  ``device="cpu", smoke=True``
+    rehearses it here (reduced config; FLOPs held, no memory check, one
+    sweep cell)."""
+    import gc
+    import statistics
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch.mesh import init_process_group, \
+        make_mesh_for_devices
+    from repro_torch.launch.steps import make_prefill_step, \
+        make_train_step, serving_rules
+    from repro_torch.models.sharding import rules_for_mesh
+    from repro_torch.optim import adamw
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = get_config("qwen3_0_6b")
+    cfg = cfg.reduced() if smoke else cfg
+    (tb, ts), (pb, ps) = ((2, 32), (1, 32)) if smoke else (DRYRUN_TRAIN,
+                                                           DRYRUN_PREFILL)
+    train_shape = ShapeConfig("train", ts, tb, "train")
+    prefill_shape = ShapeConfig("prefill", ps, pb, "prefill")
+    numbers = {"card": card, "world_size": 1, "arch": cfg.name}
+    counts = None
+
+    def measure(run, args):
+        """One real call under FlopCounterMode: (flops, peak bytes
+        beyond what the process held besides ``args``, seconds)."""
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        sync()
+        other = (torch.cuda.memory_allocated()
+                 - dryrun.storage_bytes(args) if on_card else 0)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        with FlopCounterMode(display=False) as fc:
+            t0 = time.perf_counter()
+            out = run()
+            sync()
+            secs = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - other if on_card
+                else None)
+        return out, fc.get_total_flops(), peak, other, secs
+
+    def compare(name, pred, flops, peak, other):
+        mem = pred["memory"]
+        want = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        rel = None if peak is None else (want - peak) / peak
+        numbers[name] = dict(
+            predicted_flops=pred["flops"], measured_flops=flops,
+            predicted_peak_bytes=want, measured_peak_bytes=peak,
+            peak_rel_diff=rel, other_bytes=other,
+            argument_bytes=mem["argument_size_in_bytes"],
+            temp_bytes=mem["temp_size_in_bytes"], trace_s=pred["seconds"],
+            predicted_bytes_accessed=pred["bytes"])
+        print(f"[dryrun] {name}: FLOPs predicted {pred['flops']:.6e}, "
+              f"measured {flops:.6e}; peak predicted "
+              f"{want / 2**30:.3f} GiB (arguments "
+              f"{mem['argument_size_in_bytes'] / 2**30:.3f} + temp "
+              f"{mem['temp_size_in_bytes'] / 2**30:.3f}), measured "
+              f"{'n/a' if peak is None else f'{peak / 2**30:.3f}'} GiB "
+              f"(max_memory_allocated less {other / 2**30:.3f} GiB held "
+              f"before besides the arguments), rel "
+              f"{'n/a' if rel is None else f'{rel:+.4f}'}; trace "
+              f"{pred['seconds']:.1f} s ({pred['device']}) | {card}",
+              flush=True)
+        check(pred["flops"] == flops, f"{name}: predicted FLOPs "
+              f"{pred['flops']} != measured {flops}")
+        if peak is not None:
+            check(abs(rel) <= DRYRUN_PEAK_RTOL, f"{name}: predicted peak "
+                  f"{want} vs measured {peak} (rel {rel:+.4f})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init_process_group(device, init_method=f"file://{tmp}/store",
+                           rank=0, world_size=1)
+        try:
+            rules = rules_for_mesh(make_mesh_for_devices(1, 1,
+                                                         device=device))
+            # (a) training: the prediction, then the card
+            pred = dryrun.trace_step(cfg, train_shape, rules, device=device)
+            step, model = make_train_step(cfg, rules)
+            params = model.init(0, device=device)
+            state = adamw.init_state(params)
+            gen = torch.Generator(device=device).manual_seed(0)
+            batch = {k: torch.randint(0, cfg.vocab_size, (tb, ts),
+                                      generator=gen, device=device,
+                                      dtype=torch.int32)
+                     for k in ("tokens", "labels")}
+            _reset_counts()
+            (params, state, metrics), flops, peak, other, _ = measure(
+                lambda: step(params, state, batch), (params, state, batch))
+            check(not any(_read_counts()["gemm"].values())
+                  and not _read_counts()["flash_path"],
+                  "the training step launched a hand kernel")
+            compare("train_step", pred, flops, peak, other)
+            times = []
+            for _ in range(3):
+                sync()
+                t0 = time.perf_counter()
+                params, state, metrics = step(params, state, batch)
+                float(metrics["loss"])
+                times.append(time.perf_counter() - t0)
+            roof = rf.Roofline(
+                arch=cfg.name, shape="train", mesh="1x1", chips=1,
+                hlo_flops=pred["flops"], hlo_bytes=pred["bytes"],
+                coll_bytes=float(sum(pred["coll"].values())),
+                coll_breakdown=pred["coll"],
+                model_flops=rf.model_flops_for(cfg, train_shape))
+            med = statistics.median(times)
+            numbers["train_step"].update(
+                step_ms=[t * 1e3 for t in times], median_step_ms=med * 1e3,
+                bound_ms=roof.bound_s * 1e3, compute_ms=roof.compute_s * 1e3,
+                memory_ms=roof.memory_s * 1e3, dominant=roof.dominant,
+                useful_flops_frac=roof.useful_flops_frac)
+            print(f"[dryrun] train step {tb} x {ts}: median "
+                  f"{med * 1e3:.1f} ms host clock over {len(times)} steps "
+                  f"vs Roofline.bound_s {roof.bound_s * 1e3:.1f} ms "
+                  f"(compute {roof.compute_s * 1e3:.1f}, memory "
+                  f"{roof.memory_s * 1e3:.1f} unfused, -> "
+                  f"{roof.dominant}), useful {roof.useful_flops_frac:.2%} "
+                  f"| {card}", flush=True)
+            del state, metrics
+            # (a) prefill: a main path of K5, counted from 0
+            pred = dryrun.trace_step(cfg, prefill_shape, rules,
+                                     device=device)
+            prefill, _ = make_prefill_step(cfg, serving_rules(cfg, rules))
+            tokens = torch.randint(0, cfg.vocab_size, (pb, ps),
+                                   generator=gen, device=device,
+                                   dtype=torch.int32)
+            _reset_counts()
+            (logits, cache), flops, peak, other, secs = measure(
+                lambda: prefill(params, {"tokens": tokens}),
+                (params, tokens))
+            counts = _read_counts()
+            check(bool(torch.isfinite(logits).all()),
+                  "prefill logits not finite")
+            compare("prefill", pred, flops, peak, other)
+            numbers["prefill"].update(ms=secs * 1e3, launches=counts)
+            if on_card:
+                want = {"mma": {"bfloat16": cfg.n_layers * pb}}
+                check(counts["flash_path"] == want
+                      and counts["flash_shape"] == {
+                          "d128,causal": cfg.n_layers * pb},
+                      f"prefill K5 launches {counts['flash_path']} "
+                      f"{counts['flash_shape']}, want {want}")
+            print(f"[dryrun] prefill {pb} x {ps}: {secs * 1e3:.1f} ms, K5 "
+                  f"launches {counts['flash_path']} | {card}", flush=True)
+            del params, logits, cache
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    # (b) the production meshes
+    records, wall = _dryrun_sweep(card, smoke)
+    numbers["sweep_wall_s"] = wall
+    numbers["sweep"] = [
+        {k: r.get(k) for k in ("arch", "shape", "mesh", "status", "device",
+                               "compile_s", "memory", "reason")}
+        | ({} if "roofline" not in r else {"roofline": {
+            k: r["roofline"][k] for k in (
+                "hlo_flops", "hlo_bytes", "coll_bytes", "compute_s",
+                "memory_s", "collective_s", "dominant", "model_flops",
+                "useful_flops_frac", "roofline_frac")}})
+        for r in records]
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"[dryrun] sweep of {len(records)} cells {wall:.1f} s wall; phase "
+          f"{numbers['phase_s']:.1f} s | {card}", flush=True)
+    print(json.dumps({"dryrun": numbers}), flush=True)
+    return numbers, counts
+
+
 def _device_us(event) -> float:
     return float(getattr(event, "self_device_time_total",
                          getattr(event, "self_cuda_time_total", 0.0)))
@@ -2203,7 +2468,11 @@ def main() -> int:
     # kernel: neither has a backward, so train-mode attention and the
     # GEMMs are plain torch, as the reference's are XLA)
     _, train = phase_train(card)
-    main_runs = (blas, api, serve, analysis, *families.values(), train)
+    # main path 11, the dry-run's prefill on the card (counted from 0
+    # inside); its training step reaches no hand kernel
+    _, dry = phase_dryrun(card)
+    _check_simt_is_f32("dry-run prefill", dry)
+    main_runs = (blas, api, serve, analysis, *families.values(), train, dry)
     # every main-path flash launch is bf16 (phases 7 and 10 check it),
     # so the by-shape counts are bf16's
     check(all(set(d) <= {"bfloat16"} for run in main_runs

@@ -30,7 +30,9 @@ return the full result on every rank.
 
 Every collective a call issues is counted in :data:`COLLECTIVES` (P2P
 hops, all-gathers, reduce-scatters, all-reduces), so a test can see
-what a schedule lowers to.  The local products are ``torch.matmul``,
+what a schedule lowers to, and its operand bytes are added to
+:data:`COLLECTIVE_BYTES` under the reference's HLO kind names (the
+dry-run's collective term, ``launch/roofline.py``).  The local products are ``torch.matmul``,
 as the reference's are ``jnp.dot``: no Pallas kernel runs there.
 """
 from __future__ import annotations
@@ -44,17 +46,30 @@ import torch.distributed as dist
 # hops (one send and one receive a rank)
 COLLECTIVES = {"p2p": 0, "all_gather": 0, "reduce_scatter": 0,
                "all_reduce": 0}
+# operand bytes of those collectives since the last reset, by the
+# reference's HLO kind (its roofline.COLLECTIVE_OPS; a ring hop is a
+# collective-permute): what one rank sends into each call, the
+# reference's convention for its collective term
+COLLECTIVE_BYTES = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0,
+                    "all-to-all": 0, "collective-permute": 0}
 
 
 def reset_collectives() -> None:
     for kind in COLLECTIVES:
         COLLECTIVES[kind] = 0
+    for kind in COLLECTIVE_BYTES:
+        COLLECTIVE_BYTES[kind] = 0
+
+
+def _count(kind: str, hlo_kind: str, operand: torch.Tensor) -> None:
+    COLLECTIVES[kind] += 1
+    COLLECTIVE_BYTES[hlo_kind] += operand.numel() * operand.element_size()
 
 
 def mesh_shape(mesh) -> dict:
     """{axis name: size} of a ``DeviceMesh`` (the reference's
     ``mesh.shape``)."""
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 def _acc_type(a_dtype: torch.dtype, b_dtype: torch.dtype) -> torch.dtype:
@@ -90,7 +105,7 @@ def _hop(send: torch.Tensor, group) -> tuple:
     reqs = dist.batch_isend_irecv([
         dist.P2POp(dist.isend, send.contiguous(), nxt, group),
         dist.P2POp(dist.irecv, recv, prv, group)])
-    COLLECTIVES["p2p"] += 1
+    _count("p2p", "collective-permute", send)
     return recv, reqs
 
 
@@ -100,7 +115,7 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     d = dist.get_world_size(group)
     out = x.new_empty((d * x.shape[0],) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-    COLLECTIVES["all_gather"] += 1
+    _count("all_gather", "all-gather", x)
     if dim == 0:
         return out
     return torch.cat(out.chunk(d, dim=0), dim=dim)
@@ -110,7 +125,7 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """Sum of the ranks' ``x``, in ``x``'s dtype (``lax.psum``)."""
     out = x.clone()
     dist.all_reduce(out, group=group)
-    COLLECTIVES["all_reduce"] += 1
+    _count("all_reduce", "all-reduce", x)
     return out
 
 
@@ -118,7 +133,7 @@ def _reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     d = dist.get_world_size(group)
     out = x.new_empty((x.shape[0] // d,) + tuple(x.shape[1:]))
     dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
-    COLLECTIVES["reduce_scatter"] += 1
+    _count("reduce_scatter", "reduce-scatter", x)
     return out
 
 
@@ -148,6 +163,27 @@ class _Replicated(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return all_reduce(grad, ctx.group), None
+
+
+class _SharedSum(torch.autograd.Function):
+    """All-reduce forward and backward: a sum of the ranks' partials
+    that every rank's loss then uses, so each partial's gradient is the
+    sum of all the ranks' gradients of the total."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad, ctx.group), None
+
+
+def shared_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum of the ranks' partial ``x``, used alike by every rank's loss
+    (differentiable: a data-parallel statistic over the global batch)."""
+    return _SharedSum.apply(x, group)
 
 
 def psum(x: torch.Tensor, group) -> torch.Tensor:
@@ -307,9 +343,11 @@ def tp_matmul(x: torch.Tensor, w: torch.Tensor, mesh, *, axis: str = "model",
 
     The batch dim is sharded on ``batch_axis`` (None: replicated).  A
     sequence length not divisible by the ``axis`` ring is padded with
-    zeros up to the next multiple and the result sliced back.  Rows are
-    gathered and scattered sequence by sequence, so a local batch of
-    several sequences keeps each sequence's rows together.
+    zeros up to the next multiple and the result sliced back; W's
+    columns (column) or rows (row) must divide evenly over the ring, or
+    it raises ``ValueError``, as the reference's ``shard_map`` does.
+    Rows are gathered and scattered sequence by sequence, so a local
+    batch of several sequences keeps each sequence's rows together.
     """
     ag, rs = MODES[mode]
     if kind not in ("column", "row"):
@@ -324,6 +362,13 @@ def tp_matmul(x: torch.Tensor, w: torch.Tensor, mesh, *, axis: str = "model",
                          f"axis of size {db}")
     bl = bsz // db
     bi = mesh.get_local_rank(batch_axis) if batch_axis else 0
+    split = w.shape[1] if kind == "column" else w.shape[0]
+    if split % d:
+        # the reference's shard_map refuses a W it cannot split evenly
+        raise ValueError(f"tp_matmul kind={kind!r}: W's "
+                         f"{'columns' if kind == 'column' else 'rows'} "
+                         f"({split}) are not evenly divisible by the "
+                         f"{axis!r} axis of size {d}")
     sp = -(-s // d) * d
     sl = sp // d
     x = torch.nn.functional.pad(x, (0, 0, 0, sp - s))[bi * bl:(bi + 1) * bl]

@@ -133,8 +133,11 @@ class RuntimeConfig:
     rs_slots: Optional[int] = None        # RS capacity (default 2*n_streams)
     policy: str = "blasx"
     # execution backend: torch | cuda | numpy (see repro_torch.backends;
-    # numpy is a host engine and needs device="cpu")
-    backend: str = "cuda"
+    # numpy is a host engine and needs device="cpu").  ``kernel`` is the
+    # reference's legacy spelling; ``backend`` wins when both are given,
+    # neither given is "cuda", and the two are equal after __post_init__.
+    kernel: Optional[str] = None
+    backend: Optional[str] = None
     # where tiles are computed: the card unless the caller asks for the
     # CPU (the tests do).  A runtime on "cuda" without a card raises.
     device: str = "cuda"
@@ -201,8 +204,11 @@ class RuntimeConfig:
         if self.policy not in ("blasx", "parsec", "cublasxt", "static",
                                "supermatrix"):
             raise ValueError(f"unknown policy {self.policy}")
+        if self.backend is None:
+            self.backend = self.kernel or "cuda"
         if self.backend not in ("torch", "cuda", "numpy"):
             raise ValueError(f"unknown backend {self.backend}")
+        self.kernel = self.backend
         if str(self.device).split(":")[0] not in ("cpu", "cuda"):
             raise ValueError(f"unknown device {self.device!r}")
         if self.backend == "numpy" and \

@@ -35,7 +35,11 @@ Each path has its compiled ``(block_q, block_k)`` in ``BLOCKS``.
 
 The kernel or its plain version is chosen by the tensors' device: CPU
 tensors take ``kernels.ref.flash_attention_ref``; CUDA tensors launch
-the kernel or raise.  Nothing falls back.  The kernel has no backward
+the kernel or raise.  Nothing falls back.  On the card the launch is the
+operator ``torch.ops.repro_torch.flash_attention_fwd`` (it stages,
+launches and counts), so a trace on fake tensors (``launch/dryrun.py``)
+passes through its fake, which launches and counts nothing, and
+``FlopCounterMode`` counts it by its registered formula.  The kernel has no backward
 (neither has the reference's Pallas kernel): on the card a call whose
 inputs require grad, with grad mode on, raises (``models.attention``
 sends training through its plain chunked path instead).
@@ -48,6 +52,7 @@ import threading
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ..core.dtypes import dtype_name
 from . import build
@@ -244,21 +249,58 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, memory_format=torch.contiguous_format)
     if o.numel() == 0:
         return o
+    if on_card:
+        torch.ops.repro_torch.flash_attention_fwd(q, k, v, o, causal, scale)
+    else:
+        _with_staging(q, k, v, o, lambda qs, ks, vs, os_: os_.copy_(
+            flash_attention_ref(qs, ks, vs, causal=causal, scale=scale)))
+    return o
+
+
+def _with_staging(q, k, v, o, run) -> bool:
+    """``run(q, k, v, o)`` on operands the kernel can read in place: a
+    :func:`stage` copy of each one it cannot, a staged output copied
+    back into ``o``.  Returns whether any operand was staged."""
     staging = operand_staging(q, k, v, o)
     qs, ks, vs = (stage(x) if s else x
                   for x, s in zip((q, k, v), staging))
     os_ = torch.empty_like(o, memory_format=torch.contiguous_format) \
         if staging[3] else o
-    if on_card:
-        _launch(qs, ks, vs, os_, causal, scale)
-        count_launch(flash_path(q.dtype), q.dtype, any(staging),
-                     shape_key(d, causal))
-    else:
-        os_.copy_(flash_attention_ref(qs, ks, vs, causal=causal,
-                                      scale=scale))
+    run(qs, ks, vs, os_)
     if staging[3]:
         o.copy_(os_)
-    return o
+    return any(staging)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd",
+                         mutates_args=("o",))
+def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         o: torch.Tensor, causal: bool, scale: float
+                         ) -> None:
+    """The kernel's launch into ``o`` on CUDA operands, as an operator:
+    so a trace on fake tensors (the dry-run) passes through it without
+    launching or counting (its fake below), and ``FlopCounterMode``
+    counts it by the formula below."""
+    staged = _with_staging(q, k, v, o, lambda qs, ks, vs, os_: _launch(
+        qs, ks, vs, os_, causal, scale))
+    count_launch(flash_path(q.dtype), q.dtype, staged,
+                 shape_key(q.shape[3], causal))
+
+
+@_flash_attention_fwd.register_fake
+def _(q, k, v, o, causal, scale) -> None:
+    return None
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flash_flops(q_shape, k_shape, v_shape, o_shape, *args,
+                 **kwargs) -> int:
+    """What ``FlopCounterMode`` counts for ``scaled_dot_product_attention``
+    at the same shapes: both products over the full Sq x Sk, 4 B H Sq Sk
+    D, causal or not (the reference's count is XLA's of its einsums,
+    unmasked too)."""
+    b, sq, h, d = q_shape
+    return 4 * b * h * sq * k_shape[1] * d
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -17,11 +17,6 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
-# what a mesh larger than the process group needs
-DRY_RUN = ("the production meshes without their 256 or 512 ranks come "
-           "with the dry-run slice (launch/dryrun.py, abstract mode)")
-
-
 def _check_device(device: str) -> None:
     if device not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
@@ -71,14 +66,20 @@ def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
     """Single pod: (16, 16) = 256 ranks, axes (data, model).
     Multi-pod:  (2, 16, 16) = 512 ranks, axes (pod, data, model) — the
     pod axis carries only the cross-pod gradient reduction.  Built only
-    over a process group of exactly that many ranks."""
+    over a process group of exactly that many ranks: real ones, or the
+    ``fake`` backend's that the dry-run joins (``launch/dryrun.py``),
+    over which nothing runs, so no card is needed for it."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = int(np.prod(shape))
     have = dist.get_world_size() if dist.is_initialized() else None
     if have != n:
-        raise NotImplementedError(
-            f"a {shape} mesh over {have or 'no'} ranks: {DRY_RUN}")
+        raise ValueError(
+            f"a {shape} mesh needs a process group of exactly {n} ranks "
+            f"(a 'fake' one for the dry-run); this process has "
+            f"{have or 'none'}")
+    if dist.get_backend() == "fake":
+        return init_device_mesh(device, shape, mesh_dim_names=axes)
     return _mesh(device, shape, axes)
 
 
@@ -103,4 +104,4 @@ def mesh_axes(mesh) -> Tuple[str, ...]:
 
 
 def n_chips(mesh) -> int:
-    return int(mesh.mesh.numel())
+    return int(mesh.size())

@@ -3,14 +3,15 @@
 The counterpart of the reference's ``launch/steps.py``.  A train step
 runs the forward pass and autograd's backward pass eagerly, averages the
 gradients over the mesh's batch axes (each data rank holds its slice of
-the global batch), and applies AdamW.  The shape-only inputs and states
-the dry-run lowers against (``input_specs``, ``abstract_*``) come with
-the dry-run slice.
+the global batch), and applies AdamW.  ``input_specs`` and
+``abstract_*`` give the shape-only inputs and states the dry-run
+(``launch/dryrun.py``) traces the steps on: fake tensors with the
+reference's placements, built inside an active ``FakeTensorMode``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -18,7 +19,7 @@ import torch.utils.checkpoint
 from ..configs.base import ModelConfig
 from ..core.distributed import all_reduce
 from ..models import Model
-from ..models.sharding import MeshRules
+from ..models.sharding import MeshRules, abstract_leaf
 from ..optim import adamw
 from ..tree import tree_flatten, tree_map, tree_unflatten
 
@@ -30,10 +31,6 @@ MTP_WEIGHT = 0.3
 # backward pass instead of kept (the reference's CHUNKED_CE path; its
 # unchunked alternative, a toggle it never turns off, is not ported)
 CE_CHUNKS = 16
-
-# what the shape-only inputs and states need
-DRY_RUN = ("shape-only inputs and states come with the dry-run slice "
-           "(launch/dryrun.py, abstract mode)")
 
 
 def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor,
@@ -86,8 +83,44 @@ def _mean_over_batch_axes(t: torch.Tensor, rules: MeshRules
 
 
 # ---------------------------------------------------------------- specs
-def input_specs(cfg: ModelConfig, shape, rules: MeshRules):
-    raise NotImplementedError(DRY_RUN)
+def input_specs(cfg: ModelConfig, shape, rules: MeshRules, device="cuda"
+                ) -> dict:
+    """Shape-only inputs of the (arch, shape) cell: fake tensors of the
+    global shapes on ``device``, each with its placement (the batch on
+    the batch axes where they divide it, else replicated)."""
+    B, S = shape.global_batch, shape.seq_len
+    # single-sequence long decode: batch axis unshardable -> replicate
+    b_ax = "batch" if rules.batch_size_divides(B) else None
+
+    def leaf(shp, dtype, *logical):
+        return abstract_leaf(shp, dtype, device,
+                             rules.fitted_sharding(shp, *logical))
+
+    if shape.kind == "train":
+        out = {"tokens": leaf((B, S), torch.int32, b_ax, "seq"),
+               "labels": leaf((B, S), torch.int32, b_ax, "seq")}
+        if cfg.family == "encdec":
+            out["enc_embeds"] = leaf((B, S, cfg.d_model), torch.bfloat16,
+                                     b_ax, "seq", None)
+        elif cfg.frontend:
+            # modality frontend stub: precomputed patch/frame embeddings
+            out["embeds"] = leaf((B, S, cfg.d_model), torch.bfloat16,
+                                 b_ax, "seq", None)
+            del out["tokens"]
+        return out
+    if shape.kind == "prefill":
+        out = {"tokens": leaf((B, S), torch.int32, b_ax, "seq")}
+        if cfg.family == "encdec":
+            out["enc_embeds"] = leaf((B, S, cfg.d_model), torch.bfloat16,
+                                     b_ax, "seq", None)
+        elif cfg.frontend:
+            out = {"embeds": leaf((B, S, cfg.d_model), torch.bfloat16,
+                                  b_ax, "seq", None)}
+        return out
+    if shape.kind == "decode":
+        return {"token": leaf((B,), torch.int32, b_ax),
+                "pos": leaf((B,), torch.int32, b_ax)}
+    raise ValueError(shape.kind)
 
 
 # ---------------------------------------------------------------- train
@@ -97,12 +130,15 @@ def make_train_step(cfg: ModelConfig, rules: MeshRules,
     global_batch=None)`` takes this rank's batch (tensors on the
     parameters' device) and returns (params, opt_state, metrics);
     ``global_batch`` (default: the local batch's size) says whether the
-    data ranks split it (:func:`data_parallel`), in which case the
-    gradients and the logged loss are averaged over the batch axes."""
+    data ranks split it (:func:`data_parallel`), in which case the model
+    runs with ``rules.batch_split`` (its MoE statistics are over the
+    global batch already) and the gradients and the logged loss are
+    averaged over the batch axes."""
     model = Model(cfg, rules)
+    split = Model(cfg, dataclasses.replace(rules, batch_split=True))
     opt_cfg = opt_cfg or adamw.AdamWConfig()
 
-    def loss_fn(params, batch):
+    def loss_fn(model, params, batch):
         kw = {}
         if "embeds" in batch:
             kw["embeds"] = batch["embeds"]
@@ -113,7 +149,7 @@ def make_train_step(cfg: ModelConfig, rules: MeshRules,
         labels = batch["labels"]
         hidden, aux = model.train_logits(params, return_hidden=True, **kw)
         head = model.head_matrix(params)
-        ce = _chunked_ce(hidden, head, labels, rules)
+        ce = _chunked_ce(hidden, head, labels, model.rules)
         loss = ce
         if "moe_aux_loss" in aux:
             loss = loss + MOE_AUX_WEIGHT * aux["moe_aux_loss"]
@@ -125,7 +161,7 @@ def make_train_step(cfg: ModelConfig, rules: MeshRules,
                                             dtype=torch.float32),
                             torch.zeros_like(labels[:, :1],
                                              dtype=torch.float32)], dim=1)
-            mtp_ce = _chunked_ce(aux["mtp_hidden"], head, l2, rules,
+            mtp_ce = _chunked_ce(aux["mtp_hidden"], head, l2, model.rules,
                                  mask=m2)
             loss = loss + MTP_WEIGHT * mtp_ce
         return loss, {"ce": ce}
@@ -133,12 +169,20 @@ def make_train_step(cfg: ModelConfig, rules: MeshRules,
     def train_step(params, opt_state, batch, global_batch=None):
         paths, leaves = tree_flatten(params)
         live = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
-            loss, aux = loss_fn(tree_unflatten(paths, live), batch)
-            grads = torch.autograd.grad(loss, live)
-        loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
         n_local = next(iter(batch.values())).shape[0]
-        if data_parallel(rules, global_batch or n_local):
+        dp = data_parallel(rules, global_batch or n_local)
+        with torch.enable_grad():
+            loss, aux = loss_fn(split if dp else model,
+                                tree_unflatten(paths, live), batch)
+            # a parameter the loss never reads (the embedding under a
+            # frontend's embeds, OLMo's non-parametric norms) gets zeros,
+            # as jax.grad gives it
+            grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                        materialize_grads=True)
+        loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
+        if dp:
+            # each rank's loss holds the global MoE aux term and its own
+            # CE, so the mean over ranks is the global loss
             grads = [_mean_over_batch_axes(g, rules) for g in grads]
             loss = _mean_over_batch_axes(loss, rules)
             aux = tree_map(lambda v: _mean_over_batch_axes(v, rules), aux)
@@ -189,9 +233,19 @@ def make_decode_step(cfg: ModelConfig, rules: MeshRules):
 
 
 # -------------------------------------------------------------- abstract
-def abstract_train_state(cfg: ModelConfig, rules: MeshRules) -> Any:
-    raise NotImplementedError(DRY_RUN)
+def abstract_train_state(cfg: ModelConfig, rules: MeshRules,
+                         device="cuda") -> Tuple[Any, Any]:
+    """(params, opt_state) as fake tensors with placements."""
+    params = Model(cfg, rules).abstract(device)
+    return params, adamw.abstract_state(params)
 
 
-def abstract_serve_state(cfg: ModelConfig, rules: MeshRules, shape) -> Any:
-    raise NotImplementedError(DRY_RUN)
+def abstract_serve_state(cfg: ModelConfig, rules: MeshRules, shape,
+                         device="cuda") -> Tuple[Any, Any]:
+    """(params, cache) as fake tensors with placements: the cache holds
+    the shape's whole sequence (encoder states up to 4096)."""
+    model = Model(cfg, rules)
+    cache = model.abstract_cache(shape.global_batch, shape.seq_len,
+                                 enc_len=min(shape.seq_len, 4096),
+                                 device=device)
+    return model.abstract(device), cache

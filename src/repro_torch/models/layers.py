@@ -11,7 +11,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .sharding import MeshRules
+from .sharding import MeshRules, abstract_leaf, require_fake_mode
 
 # gelu is the tanh approximation, as jax.nn.gelu's default is
 ACT = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
@@ -19,19 +19,22 @@ ACT = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
 
 
 class Maker:
-    """Builds the parameter tree as real tensors on ``device`` (the card
-    unless the caller asks for the CPU), drawn from ``generator`` (which
-    lives on the same device).  Only the reference's
-    ``init`` mode: its ``abstract`` mode (shapes with shardings, for the
-    dry-run) comes with the dry-run's port."""
+    """Builds the parameter tree on ``device`` (the card unless the
+    caller asks for the CPU): as real tensors drawn from ``generator``
+    (which lives on the same device) in ``init`` mode, or in
+    ``abstract`` mode (the dry-run's) as fake tensors that carry the
+    placement ``rules.fitted_sharding`` gives them, drawing nothing;
+    ``abstract`` raises outside an active ``FakeTensorMode``."""
 
     def __init__(self, mode: str, rules: MeshRules, dtype: torch.dtype,
                  generator: Optional[torch.Generator] = None,
                  device="cuda"):
-        if mode != "init":
-            raise NotImplementedError(
-                f"Maker mode {mode!r}: the port builds real parameters "
-                f"only ('init'); 'abstract' comes with the dry-run slice")
+        if mode not in ("init", "abstract"):
+            raise ValueError(f"Maker mode {mode!r}: 'init' or 'abstract'")
+        if mode == "abstract":
+            require_fake_mode()
+        self.mode = mode
+        self.rules = rules
         self.dtype = dtype
         self.generator = generator
         self.device = torch.device(device)
@@ -46,6 +49,8 @@ class Maker:
         dtype = dtype or self.dtype
         if len(shape) != len(logical):
             raise ValueError(f"shape {shape} vs logical axes {logical}")
+        if self.mode == "abstract":
+            return self._abstract(shape, logical, dtype)
         if zeros:
             return torch.zeros(shape, dtype=dtype, device=self.device)
         if scale is None:
@@ -60,8 +65,14 @@ class Maker:
     def ones(self, shape, logical, dtype: Optional[torch.dtype] = None
              ) -> torch.Tensor:
         shape = tuple(int(s) for s in shape)
+        if self.mode == "abstract":
+            return self._abstract(shape, logical, dtype or self.dtype)
         return torch.ones(shape, dtype=dtype or self.dtype,
                           device=self.device)
+
+    def _abstract(self, shape, logical, dtype) -> torch.Tensor:
+        return abstract_leaf(shape, dtype, self.device,
+                             self.rules.fitted_sharding(shape, *logical))
 
 
 # ------------------------------------------------------------------ norms

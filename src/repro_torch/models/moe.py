@@ -80,13 +80,50 @@ def _router(cfg, p, xt):
     return probs, gate_w, gate_idx
 
 
-def _aux(cfg, probs, gate_idx, keep):
+def _batch_total(t: torch.Tensor, rules: MeshRules) -> torch.Tensor:
+    """``t`` summed over the ranks that split the batch (``t`` itself
+    when none do); differentiable, each rank's loss using the total."""
+    from ..core.distributed import shared_sum
+    for ax in rules.split_batch_axes():
+        t = shared_sum(t, rules.group(ax))
+    return t
+
+
+def _earlier_slots(flat_e: torch.Tensor, n_experts: int, rules: MeshRules):
+    """For each (token, slot), how many slots of its expert come before
+    this rank's tokens in the global token order (ranks ordered along
+    the batch axes, outermost first, as the train loop hands out batch
+    rows); 0 when no rank splits the batch.  Added to a slot's position
+    among this rank's tokens, it gives its position in the global batch,
+    which is what the reference's trace over the global batch ranks."""
+    axes = rules.split_batch_axes()
+    if not axes:
+        return 0
+    from ..core.distributed import all_gather
+    counts = torch.zeros(n_experts, dtype=torch.long, device=flat_e.device
+                         ).scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    every = counts[None]
+    for ax in reversed(axes):   # innermost first: rows end outermost-major
+        every = all_gather(every, rules.group(ax))
+    index = 0
+    for ax in axes:
+        index = index * rules.axis_size(ax) + rules.coordinate(ax)
+    return every[:index].sum(0)[flat_e]
+
+
+def _aux(cfg, probs, gate_idx, keep, rules: MeshRules):
+    """The load-balance loss and the drop fraction over the global
+    batch: under a split batch the router statistics (mean probability
+    and slot fraction a expert) and the kept slots are summed over the
+    batch axes, in one all-reduce, before their product."""
     E, K = cfg.n_experts, cfg.top_k
-    me = torch.mean(probs, dim=0)
-    ce = torch.mean(torch.nn.functional.one_hot(gate_idx, E).float().sum(1),
-                    dim=0)
+    n = probs.shape[0] * rules.axis_size(rules.split_batch_axes())
+    counts = torch.nn.functional.one_hot(gate_idx, E).float().sum((0, 1))
+    total = _batch_total(torch.cat([probs.sum(0), counts,
+                                    keep.float().sum()[None]]), rules)
+    me, ce = total[:E] / n, total[E:2 * E] / n
     return {"moe_aux_loss": E * torch.sum(me * ce) / K,
-            "moe_drop_frac": 1.0 - torch.mean(keep.float())}
+            "moe_drop_frac": 1.0 - total[2 * E] / (n * K)}
 
 
 def _shared_expert(cfg, p, xt):
@@ -102,10 +139,9 @@ def _moe_block_sharded(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
     ITS E/model_n experts' capacity buffers, computes, and contributes a
     partial (N, d) output; one all-reduce over the model group combines
     them.  C comes from the tokens this rank holds, as the reference's
-    from its data-local block.  The aux loss is taken over this rank's
-    tokens (the reference's over the global batch: the two differ under
-    a data axis > 1), its drop fraction from the capacity estimate
-    ``pos < C * model_n``, as in the reference."""
+    from its data-local block.  The aux loss is taken over the global
+    batch, its drop fraction from the capacity estimate ``pos < C *
+    model_n`` at each slot's global position, as in the reference."""
     from ..core.distributed import psum, replicated
 
     B, S, d = x.shape
@@ -145,30 +181,37 @@ def _moe_block_sharded(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
     y = psum(y.to(x.dtype), group)
     if cfg.n_shared_experts:
         y = y + _shared_expert(cfg, p, xt)
-    aux = _aux(cfg, probs, gate_idx, pos < C * model_n)
+    pos_global = pos + _earlier_slots(flat_e, E, rules)
+    aux = _aux(cfg, probs, gate_idx, pos_global < C * model_n, rules)
     return y.reshape(B, S, d).to(x.dtype), aux
 
 
 def _moe_block_dense(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
                      ) -> Tuple[torch.Tensor, dict]:
+    """The global scatter.  Under a split batch, C and each slot's
+    position come from the global batch, so the same slots drop as on
+    one rank holding it all; this rank's buffer holds its own kept
+    slots, at most min(C, N) an expert."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     N = B * S
     xt = x.reshape(N, d)
     probs, gate_w, gate_idx = _router(cfg, p, xt)            # (N, K)
 
-    C = int(math.ceil(N * K * cfg.capacity_factor / E))
-    C = max(1, min(C, N))
+    n_global = N * rules.axis_size(rules.split_batch_axes())
+    C = int(math.ceil(n_global * K * cfg.capacity_factor / E))
+    C = max(1, min(C, n_global))
 
     flat_e = gate_idx.reshape(-1)                            # (N*K,)
     pos = _positions_in_expert(flat_e, E)                    # (N*K,)
-    keep = pos < C
-    # a dropped slot lands on an overflow row past the E*C buffer rows
-    dest = torch.where(keep, flat_e * C + pos, E * C)
+    keep = pos + _earlier_slots(flat_e, E, rules) < C
+    Cb = min(C, N)
+    # a dropped slot lands on an overflow row past the E*Cb buffer rows
+    dest = torch.where(keep, flat_e * Cb + pos, E * Cb)
 
     x_rep = torch.repeat_interleave(xt, K, dim=0)            # (N*K, d)
-    buf = x.new_zeros((E * C + 1, d)).index_add_(0, dest, x_rep)
-    buf = rules.constrain(buf[:E * C].reshape(E, C, d),
+    buf = x.new_zeros((E * Cb + 1, d)).index_add_(0, dest, x_rep)
+    buf = rules.constrain(buf[:E * Cb].reshape(E, Cb, d),
                           "expert", None, None)
 
     act = ACT[cfg.act]
@@ -176,12 +219,13 @@ def _moe_block_dense(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
     out_buf = rules.constrain(torch.bmm(h, p["w_down"]), "expert", None,
                               None)
 
-    flat_out = out_buf.reshape(E * C, d)
+    flat_out = out_buf.reshape(E * Cb, d)
     gathered = torch.where(keep[:, None],
-                           flat_out[dest.clamp(max=E * C - 1)],
+                           flat_out[dest.clamp(max=E * Cb - 1)],
                            flat_out.new_zeros(()))
     y = torch.sum((gathered * gate_w.reshape(-1)[:, None]).reshape(N, K, d),
                   dim=1)
     if cfg.n_shared_experts:
         y = y + _shared_expert(cfg, p, xt)
-    return y.reshape(B, S, d).to(x.dtype), _aux(cfg, probs, gate_idx, keep)
+    return (y.reshape(B, S, d).to(x.dtype),
+            _aux(cfg, probs, gate_idx, keep, rules))

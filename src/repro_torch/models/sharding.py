@@ -8,8 +8,10 @@ the axes of a ``DeviceMesh``:
   multi-pod   (2, 16, 16) ("pod", "data", "model")
 
 ``spec`` and ``fitted_sharding`` make the reference's per-dim axis
-choices.  The port places nothing by them yet: each rank is one eager
-process that holds every weight whole, its slice of the global batch
+choices.  The dry-run's abstract leaves (:func:`abstract_leaf`) carry
+them as a ``placement``, as the reference's ``ShapeDtypeStruct``s carry
+their shardings.  The port places nothing by them yet: each rank is one
+eager process that holds every weight whole, its slice of the global batch
 (batch axes), and every other activation dim at its global value.  A
 sharded branch (``layers.row_parallel_matmul``, ``moe._moe_block_sharded``)
 slices this rank's shard, computes, and combines with the collective the
@@ -20,9 +22,11 @@ no-op.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+import math
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
+from torch._guards import detect_fake_mode
 
 from ..core.distributed import mesh_shape
 
@@ -50,6 +54,9 @@ class MeshRules:
     fsdp_axis: Optional[str] = "data"
     model_axis: Optional[str] = "model"
     seq_axis: Optional[str] = None   # context parallelism when set
+    # each rank holds its own slice of the batch axes (a data-parallel
+    # train step), so a statistic over the batch is summed over them
+    batch_split: bool = False
 
     def axis_size(self, name) -> int:
         if self.mesh is None or name is None:
@@ -115,6 +122,53 @@ class MeshRules:
     def coordinate(self, name: str) -> int:
         """This rank's index along mesh axis ``name``."""
         return self.mesh.get_local_rank(name)
+
+    def split_batch_axes(self) -> Tuple[str, ...]:
+        """The batch axes (outermost first) over which this rank holds
+        one slice of the batch: none unless ``batch_split``."""
+        if self.mesh is None or not self.batch_split:
+            return ()
+        return tuple(a for a in self.batch_axes if self.axis_size(a) > 1)
+
+
+def local_shape(shape: Sequence[int], placement: Optional[Placement]
+                ) -> Tuple[int, ...]:
+    """One device's shard of ``shape`` under ``placement`` (the global
+    shape without one): each dim over the product of its axes' sizes."""
+    if placement is None:
+        return tuple(shape)
+    sizes = mesh_shape(placement.mesh)
+    out = []
+    for dim, ax in zip(shape, placement.spec):
+        axes = () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
+        out.append(dim // math.prod(int(sizes[a]) for a in axes))
+    return tuple(out)
+
+
+def require_fake_mode() -> None:
+    """Raise unless a ``FakeTensorMode`` is active."""
+    if detect_fake_mode() is None:
+        raise RuntimeError("abstract leaves are fake tensors: build them "
+                           "inside an active FakeTensorMode (the dry-run "
+                           "does); nothing is allocated for them")
+
+
+def abstract_leaf(shape: Sequence[int], dtype: torch.dtype, device,
+                  placement: Optional[Placement] = None) -> torch.Tensor:
+    """A shape-only tensor: a ``FakeTensor`` of the global ``shape`` on
+    ``device``, made with ``torch.empty`` inside the caller's active
+    ``FakeTensorMode`` and carrying ``placement`` (the dry-run's inputs,
+    parameters and states).  Outside a fake mode it raises: it never
+    allocates (one DeepSeek-V3 expert stack is 15 GB)."""
+    require_fake_mode()
+    t = torch.empty(tuple(shape), dtype=dtype, device=device)
+    t.placement = placement
+    return t
+
+
+def placement_of(t: torch.Tensor) -> Optional[Placement]:
+    """The placement an abstract leaf carries (None for a real tensor)."""
+    return getattr(t, "placement", None)
 
 
 def rules_for_mesh(mesh, *, seq_axis: Optional[str] = None) -> MeshRules:

@@ -20,9 +20,9 @@ in the reference: ``{"blocks": {"k": (L, B, S, Hkv, hd), "v": ...}}``
 ``ckv`` / ``k_rope``), ``{"blocks": {"conv", "ssm"}}`` (ssm),
 ``{"mamba": ..., "attn": ...}`` (hybrid) and ``{"dec_blocks": {"k",
 "v", "cross_k", "cross_v"}}`` (encdec).  Decode updates a cache in
-place and returns it.  The reference's ``abstract`` parameters and
-``abstract_cache`` (shapes with shardings, for the dry-run) come with
-the dry-run's port.
+place and returns it.  ``abstract`` and ``abstract_cache`` give the
+same trees as fake tensors carrying their placements, for the dry-run
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ from .attention import gqa_attention, make_attn_params, make_mla_params, \
     mla_attention
 from .layers import Maker, apply_norm, make_mlp_params, mlp
 from .moe import make_moe_params, moe_block
-from .sharding import MeshRules, NO_MESH
+from .sharding import MeshRules, NO_MESH, abstract_leaf
 from .ssm import make_mamba_params, mamba_block
 
 
@@ -257,6 +257,92 @@ class Model:
         reference's tree over instead."""
         gen = torch.Generator(device=device).manual_seed(seed)
         return build_params(self.cfg, "init", self.rules, gen, device)
+
+    def abstract(self, device="cuda") -> dict:
+        """The parameter tree as fake tensors on ``device``, each with
+        the placement ``rules.fitted_sharding`` gives it (the
+        reference's ``ShapeDtypeStruct``s): inside an active
+        ``FakeTensorMode`` only."""
+        return build_params(self.cfg, "abstract", self.rules, None, device)
+
+    def abstract_cache(self, batch: int, max_len: int,
+                       enc_len: Optional[int] = None, device="cuda") -> dict:
+        """The serving cache's tree as fake tensors with placements, for
+        decode dry-runs (inside an active ``FakeTensorMode``).  The
+        placements are the reference's: the batch on the batch axes, or,
+        when they do not divide it (a long single-sequence decode), the
+        sequence over ``data``; kv heads on the model axis where it
+        divides them, else the head dim."""
+        cfg = self.cfg
+        dt = _dtype_of(cfg)
+        rules = self.rules
+
+        def leaf(shape, *logical, dtype=dt):
+            return abstract_leaf(shape, dtype, device,
+                                 rules.fitted_sharding(shape, *logical))
+
+        hd = cfg.resolved_head_dim
+        Hkv = cfg.n_kv_heads
+        model_n = rules.axis_size(rules.model_axis)
+        batch_ok = rules.batch_size_divides(batch)
+        b_ax = "batch" if batch_ok else None
+        s_ax = None if batch_ok else "seq"
+        if not batch_ok:
+            rules = dataclasses.replace(rules, seq_axis=rules.fsdp_axis)
+        if Hkv and Hkv % model_n == 0:
+            h_ax, d_ax = "kv", None
+        elif hd and hd % model_n == 0:
+            h_ax, d_ax = None, "model"
+        else:
+            h_ax, d_ax = None, None
+
+        def kv_cache(L):
+            return {"k": leaf((L, batch, max_len, Hkv, hd),
+                              None, b_ax, s_ax, h_ax, d_ax),
+                    "v": leaf((L, batch, max_len, Hkv, hd),
+                              None, b_ax, s_ax, h_ax, d_ax)}
+
+        def mla_cache(L):
+            r_ax = "model" if cfg.kv_lora_rank % model_n == 0 else None
+            return {"ckv": leaf((L, batch, max_len, cfg.kv_lora_rank),
+                                None, b_ax, s_ax, r_ax),
+                    "k_rope": leaf((L, batch, max_len, cfg.qk_rope_head_dim),
+                                   None, b_ax, s_ax, None)}
+
+        def mamba_state(L):
+            conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+            c_ax = "model" if conv_dim % model_n == 0 else None
+            h_ax2 = "model" if cfg.ssm_heads % model_n == 0 else None
+            return {
+                "conv": leaf((L, batch, cfg.ssm_conv - 1, conv_dim),
+                             None, b_ax, None, c_ax),
+                "ssm": leaf((L, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                             cfg.ssm_state), None, b_ax, h_ax2, None, None,
+                            dtype=torch.float32),
+            }
+
+        if cfg.family == "dense":
+            return {"blocks": (mla_cache(cfg.n_layers) if cfg.use_mla
+                               else kv_cache(cfg.n_layers))}
+        if cfg.family == "moe":
+            mkc = mla_cache if cfg.use_mla else kv_cache
+            out = {"moe_blocks": mkc(cfg.n_layers - cfg.n_dense_layers)}
+            if cfg.n_dense_layers:
+                out["dense_blocks"] = mkc(cfg.n_dense_layers)
+            return out
+        if cfg.family == "ssm":
+            return {"blocks": mamba_state(cfg.n_layers)}
+        if cfg.family == "hybrid":
+            n_seg = cfg.n_layers // cfg.attn_every
+            return {"mamba": mamba_state(cfg.n_layers),
+                    "attn": kv_cache(n_seg)}
+        if cfg.family == "encdec":
+            c = kv_cache(cfg.n_layers)
+            for name in ("cross_k", "cross_v"):
+                c[name] = leaf((cfg.n_layers, batch, enc_len or max_len,
+                                Hkv, hd), None, b_ax, None, h_ax, d_ax)
+            return {"dec_blocks": c}
+        raise ValueError(cfg.family)
 
     # ------------------------------------------------------------ embed
     def _embed(self, params, tokens=None, embeds=None):

@@ -21,11 +21,6 @@ import torch.distributed as dist
 from ..core.distributed import all_reduce
 from ..tree import tree_flatten, tree_get, tree_map, tree_unflatten
 
-# what the shape-only state needs
-DRY_RUN = ("shape-only optimizer state comes with the dry-run slice "
-           "(launch/dryrun.py, abstract mode)")
-
-
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
     lr: float = 3e-4
@@ -61,7 +56,17 @@ def init_state(params: Any) -> dict:
 
 
 def abstract_state(params: Any) -> dict:
-    raise NotImplementedError(DRY_RUN)
+    """The shape-only twin of :func:`init_state` for the dry-run: fake
+    f32 moments beside each (fake) parameter, carrying its placement,
+    and an int32 scalar step; inside an active ``FakeTensorMode``."""
+    from ..models.sharding import abstract_leaf, placement_of
+
+    def leaf(p):
+        return abstract_leaf(p.shape, torch.float32, p.device,
+                             placement_of(p))
+    device = tree_flatten(params)[1][0].device
+    return {"m": tree_map(leaf, params), "v": tree_map(leaf, params),
+            "step": abstract_leaf((), torch.int32, device)}
 
 
 @torch.no_grad()

@@ -98,6 +98,24 @@ for mode in ("ring", "gspmd"):
     R["tp_coll", mode] = dict(D.COLLECTIVES)
 R["tp_want"] = (f64(x) @ f64(w1)) @ f64(w2)
 
+# tp_matmul where the model ring (4) does not divide W's columns or rows
+for kind, w in (("column", w1[:, :7]), ("row", torch.zeros((7, 128)))):
+    xin = x[..., :7] if kind == "row" else x
+    for mode in ("ring", "gspmd"):
+        try:
+            R["tp_indivisible", kind, mode] = tuple(
+                D.tp_matmul(xin, w, mesh, kind=kind, mode=mode).shape)
+        except ValueError as e:
+            R["tp_indivisible", kind, mode] = str(e)
+
+# the operand bytes a rank sends, by the reference's collective kinds
+D.reset_collectives()
+y = D.all_gather(torch.zeros((3, 5)), mesh.get_group("model"))
+y = D.all_reduce(torch.zeros(7, dtype=torch.float64), mesh.get_group("data"))
+y = D.tp_matmul(x, w1, mesh, kind="column", mode="ring")
+R["coll_bytes"], R["coll_counts"] = (dict(D.COLLECTIVE_BYTES),
+                                     dict(D.COLLECTIVES))
+
 # test_ragged_shapes_pad_and_slice
 rng = np.random.default_rng(0)
 A = torch.tensor(rng.standard_normal((61, 99)), dtype=torch.float32)
@@ -170,7 +188,7 @@ except ValueError as e:
     R["mp_error"] = str(e)
 try:
     M.make_production_mesh(device="cpu")
-except NotImplementedError as e:
+except ValueError as e:
     R["production_error"] = str(e)
 R["axes"], R["chips"] = M.mesh_axes(mesh), M.n_chips(mesh)
 
@@ -337,6 +355,31 @@ def test_tp_matmul_column_row_roundtrip(port8):
         assert _err(port8["tp", mode], port8["tp_want"]) < TP_TOL, mode
 
 
+def test_tp_matmul_raises_where_the_ring_does_not_divide(port8):
+    """The reference's shard_map refuses a W whose columns (column) or
+    rows (row) the ring does not divide; so does the port, in both
+    modes, where it once dropped them (N = 7 gave (2, 32, 4))."""
+    for kind in ("column", "row"):
+        for mode in ("ring", "gspmd"):
+            got = port8["tp_indivisible", kind, mode]
+            assert isinstance(got, str) and "not evenly divisible" in got, (
+                kind, mode, got)
+
+
+def test_collective_bytes_are_operand_bytes(port8):
+    """``COLLECTIVE_BYTES`` adds each call's operand bytes under the
+    reference's kind names: an all-gather of 3 x 5 f32, an all-reduce of
+    7 f64, then a column tp_matmul on the (2, 4) mesh: 3 ring hops of a
+    (8 x 128) f32 panel, one all-gather of its (1, 32, 64) columns over
+    the model ring and one of the (1, 32, 256) rows over data."""
+    assert port8["coll_counts"] == {"p2p": 3, "all_gather": 3,
+                                    "reduce_scatter": 0, "all_reduce": 1}
+    assert port8["coll_bytes"] == {
+        "all-gather": 3 * 5 * 4 + 32 * 64 * 4 + 32 * 256 * 4,
+        "all-reduce": 7 * 8, "reduce-scatter": 0, "all-to-all": 0,
+        "collective-permute": 3 * 8 * 128 * 4}
+
+
 def test_ring_uses_p2p_hops_not_allgather(port8):
     """The twin of ``test_ring_uses_collective_permute_not_allgather``:
     the ring's K reduction lowers to neighbour hops (3 on the 4-wide
@@ -426,7 +469,9 @@ def test_compressed_psum_is_the_mean_of_dequantized_payloads(port8):
 
 def test_mesh_builders(port8):
     assert port8["mp_error"] == "8 devices not divisible by mp=3"
-    assert "dry-run slice" in port8["production_error"]
+    assert port8["production_error"] == (
+        "a (16, 16) mesh needs a process group of exactly 256 ranks "
+        "(a 'fake' one for the dry-run); this process has 8")
     assert port8["axes"] == ("data", "model") and port8["chips"] == 8
     from repro_torch.launch import mesh as M
     if not torch.cuda.is_available():

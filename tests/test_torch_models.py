@@ -118,8 +118,9 @@ def test_unported_families_and_meshes_raise(case):
     the MoE block keeps the dense dispatch unless
     the model axis is wider than 1 and divides the experts, as the
     reference's does (the sharded branch itself is held in gloo ranks,
-    ``test_torch_distributed.py``).  What still raises, shape-only
-    parameters, names the dry-run slice."""
+    ``test_torch_distributed.py``).  What still raises: shape-only
+    parameters outside an active ``FakeTensorMode`` (the dry-run's
+    abstract mode never allocates)."""
     from types import SimpleNamespace
 
     from repro_torch.models import moe
@@ -128,12 +129,12 @@ def test_unported_families_and_meshes_raise(case):
     if case == "mesh":
         assert rules_for_mesh(None) is NO_MESH
         mesh = SimpleNamespace(mesh_dim_names=("data", "model"),
-                               mesh=torch.zeros((2, 4)))
+                               shape=(2, 4))
         rules = rules_for_mesh(mesh)
         assert (rules.batch_axes, rules.fsdp_axis, rules.model_axis) == (
             ("data",), "data", "model")
         assert rules.axis_size("model") == 4 and rules.batch_size_divides(6)
-        with pytest.raises(NotImplementedError, match="dry-run slice"):
+        with pytest.raises(RuntimeError, match="FakeTensorMode"):
             Maker("abstract", rules, torch.float32)
         return
     if case == "moe_sharded":
@@ -146,7 +147,7 @@ def test_unported_families_and_meshes_raise(case):
         assert tuple(y0.shape) == (1, 3, cfg.d_model)
         for model_n in (1, 3):      # 1, or one that does not divide E = 8
             mesh = SimpleNamespace(mesh_dim_names=("data", "model"),
-                                   mesh=torch.zeros((2, model_n)))
+                                   shape=(2, model_n))
             y, aux = moe.moe_block(cfg, p, x, MeshRules(mesh=mesh))
             assert torch.equal(y, y0)
             assert torch.equal(aux["moe_aux_loss"], aux0["moe_aux_loss"])

@@ -1,0 +1,353 @@
+"""The dry-run slice of the port: ``launch/roofline.py`` (twins of
+``test_roofline.py`` with the H100's constants), the abstract mode
+(``Maker("abstract")``, ``Model.abstract``/``abstract_cache``,
+``steps.input_specs``/``abstract_*``, ``adamw.abstract_state``) held
+leaf by leaf against the reference's ``ShapeDtypeStruct`` trees on a
+``jax.sharding.AbstractMesh``, and ``launch/dryrun.py`` on a fake
+256-rank process group: its costs linear in depth (the reference's
+``_depth_handle`` premise), its FLOPs those of a real step, and no
+process group left behind.  Nothing here needs a card: the fake tensors
+live on the CPU (``dryrun.default_device()`` on a CPU-only torch).
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+from jax.sharding import AbstractMesh
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro.configs import SHAPES as REF_SHAPES
+from repro.configs import all_configs as ref_all_configs
+from repro.launch import roofline as ref_rf
+from repro.launch import steps as ref_steps
+from repro.models.sharding import rules_for_mesh as ref_rules_for_mesh
+from repro_torch.configs import SHAPES, ShapeConfig, get_config
+from repro_torch.launch import dryrun, steps
+from repro_torch.launch import roofline as rf
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import Model
+from repro_torch.models.layers import Maker
+from repro_torch.models.sharding import (NO_MESH, local_shape, placement_of,
+                                         rules_for_mesh)
+from repro_torch.optim import adamw
+from repro_torch.tree import keystr, tree_flatten
+
+from torch_ranks import REPO
+
+ARCHS = list(ref_all_configs())
+DEVICE = "cpu"
+
+HLO_SAMPLE = """
+HloModule test
+
+ENTRY %main (p0: f32[16,128]) -> f32[16,128] {
+  %p0 = f32[16,128]{1,0} parameter(0)
+  %ag = f32[64,128]{1,0} all-gather(%p0), replica_groups={{0,1,2,3}}, dimensions={0}
+  %c = f32[16,128]{1,0} constant(0)
+  %ar.1 = f32[16,128]{1,0} all-reduce(%p0), to_apply=%add
+  %rs = f32[4,128]{1,0} reduce-scatter(f32[16,128]{1,0} %ar.1), dimensions={0}
+  %cp = f32[16,128]{1,0} collective-permute(%ar.1), source_target_pairs={{0,1}}
+  ROOT %out = f32[16,128]{1,0} add(%ar.1, %cp)
+}
+"""
+
+
+# ------------------------------------------------ twins of test_roofline
+def test_shape_bytes():
+    assert rf.shape_bytes("f32[16,128]{1,0}") == 16 * 128 * 4
+    assert rf.shape_bytes("bf16[2,3]") == 12
+    assert rf.shape_bytes("(f32[4], bf16[8])") == 16 + 16
+    assert rf.shape_bytes("pred[]") == 0 or rf.shape_bytes("pred[]") >= 0
+
+
+def test_collective_parser_counts_operands():
+    out = rf.collective_bytes(HLO_SAMPLE)
+    base = 16 * 128 * 4
+    assert out["all-gather"] == base          # operand p0
+    assert out["all-reduce"] == base
+    assert out["reduce-scatter"] == base      # inline-typed operand
+    assert out["collective-permute"] == base
+    assert out["all-to-all"] == 0
+    assert out == ref_rf.collective_bytes(HLO_SAMPLE)
+
+
+def test_wire_weighting():
+    bd = {"all-reduce": 100, "all-gather": 50, "reduce-scatter": 50,
+          "all-to-all": 0, "collective-permute": 10}
+    assert rf.wire_bytes(bd) == 2 * 100 + 50 + 50 + 10
+
+
+def test_roofline_terms_and_dominance():
+    """The reference's case against the H100's constants: one second of
+    compute at 989 TFLOP/s, two of HBM at 3.35 TB/s, half a second of
+    NVLink at 450 GB/s a direction."""
+    assert (rf.PEAK_FLOPS, rf.HBM_BW, rf.LINK_BW) == (989e12, 3.35e12,
+                                                      450e9)
+    r = rf.Roofline(arch="x", shape="train_4k", mesh="single", chips=256,
+                    hlo_flops=256 * rf.PEAK_FLOPS,        # 1 s compute
+                    hlo_bytes=256 * rf.HBM_BW * 2,        # 2 s memory
+                    coll_bytes=256 * rf.LINK_BW * 0.5,    # 0.5 s collective
+                    coll_breakdown={"all-gather": 1},     # weight 1.0
+                    model_flops=256 * rf.PEAK_FLOPS * 0.5)
+    assert abs(r.compute_s - 1.0) < 1e-9
+    assert abs(r.memory_s - 2.0) < 1e-9
+    assert abs(r.collective_s - 0.5) < 1e-9
+    assert r.dominant == "memory"
+    assert abs(r.useful_flops_frac - 0.5) < 1e-9
+    assert abs(r.roofline_frac - 0.25) < 1e-9   # 0.5s ideal vs 2s bound
+    assert r.bound_s == pytest.approx(2.0)
+
+
+def test_model_flops_train_vs_decode():
+    cfg = get_config("olmo_1b")
+    tr = rf.model_flops_for(cfg, SHAPES["train_4k"])
+    pf = rf.model_flops_for(cfg, SHAPES["prefill_32k"])
+    dc = rf.model_flops_for(cfg, SHAPES["decode_32k"])
+    tokens_tr = 256 * 4096
+    assert tr == pytest.approx(6 * cfg.param_count() * tokens_tr)
+    assert pf == pytest.approx(2 * cfg.param_count() * 32 * 32768)
+    assert dc == pytest.approx(2 * cfg.param_count() * 128)
+
+
+def test_moe_uses_active_params():
+    cfg = get_config("deepseek_v3_671b")
+    tr = rf.model_flops_for(cfg, SHAPES["train_4k"])
+    assert tr < 6 * cfg.param_count() * 256 * 4096 * 0.2  # far below total
+    assert tr == pytest.approx(6 * cfg.active_param_count() * 256 * 4096)
+
+
+def test_least_time_takes_the_larger_term():
+    ms, by = rf.least_time(2 * 4096 ** 3, 3 * 4096 ** 2 * 2, "bfloat16")
+    assert by == "operations" and ms == pytest.approx(
+        2 * 4096 ** 3 / 989e12 * 1e3)
+    ms, by = rf.least_time(1e6, 3.35e9, "float32")
+    assert by == "bytes" and ms == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_flops_for_equals_the_references(arch):
+    ref_cfg = ref_all_configs()[arch]
+    for name in SHAPES:
+        assert rf.model_flops_for(get_config(arch), SHAPES[name]) == \
+            ref_rf.model_flops_for(ref_cfg, REF_SHAPES[name]), name
+
+
+# ------------------------------------------------------- abstract mode
+@pytest.fixture
+def production_mesh():
+    """The (16, 16) mesh over a fake 256-rank group, destroyed after."""
+    with dryrun.fake_group(256):
+        yield make_production_mesh(device=DEVICE)
+    assert not dist.is_initialized()
+
+
+def _ref_rules():
+    return ref_rules_for_mesh(AbstractMesh((16, 16), ("data", "model")))
+
+
+def _ref_leaves(tree):
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {jax.tree_util.keystr(p): (
+        tuple(x.shape), str(x.dtype), tuple(x.shape) if x.sharding is None
+        else tuple(x.sharding.shard_shape(x.shape))) for p, x in flat}
+
+
+def _port_leaves(tree):
+    paths, leaves = tree_flatten(tree)
+    return {keystr(p): (tuple(t.shape), str(t.dtype).replace("torch.", ""),
+                        local_shape(t.shape, placement_of(t)))
+            for p, t in zip(paths, leaves)}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_abstract_params_and_state_match_the_references(arch,
+                                                       production_mesh):
+    """The same paths, global shapes and dtypes as the reference's
+    ``ShapeDtypeStruct`` trees at full width, and the same per-device
+    shard shapes: the port's placements against the reference's
+    ``NamedSharding`` on an ``AbstractMesh`` of the same axes."""
+    rules = rules_for_mesh(production_mesh)
+    with FakeTensorMode():
+        params, state = steps.abstract_train_state(get_config(arch), rules,
+                                                   DEVICE)
+        assert all(isinstance(t, torch._subclasses.FakeTensor)
+                   for t in tree_flatten({"p": params, "s": state})[1])
+    ref_params, ref_state = ref_steps.abstract_train_state(
+        ref_all_configs()[arch], _ref_rules())
+    assert _port_leaves(params) == _ref_leaves(ref_params)
+    assert _port_leaves(state) == _ref_leaves(ref_state)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_input_specs_and_cache_match_the_references(arch, production_mesh):
+    rules = rules_for_mesh(production_mesh)
+    cfg, ref_cfg = get_config(arch), ref_all_configs()[arch]
+    for name, shape in SHAPES.items():
+        with FakeTensorMode():
+            specs = steps.input_specs(cfg, shape, rules, DEVICE)
+            mine = _port_leaves(specs)
+            if shape.kind == "decode":
+                _, cache = steps.abstract_serve_state(cfg, rules, shape,
+                                                      DEVICE)
+                mine_cache = _port_leaves(cache)
+        ref = ref_steps.input_specs(ref_cfg, REF_SHAPES[name], _ref_rules())
+        assert mine == _ref_leaves(ref), name
+        if shape.kind == "decode":
+            _, ref_cache = ref_steps.abstract_serve_state(
+                ref_cfg, _ref_rules(), REF_SHAPES[name])
+            assert mine_cache == _ref_leaves(ref_cache), name
+
+
+def test_abstract_mode_raises_outside_a_fake_mode():
+    """``Maker("abstract")`` never allocates: outside an active
+    ``FakeTensorMode`` it raises, and so do the trees built on it."""
+    with pytest.raises(RuntimeError, match="FakeTensorMode"):
+        Maker("abstract", NO_MESH, torch.bfloat16, device=DEVICE)
+    cfg = get_config("deepseek_v3_671b")
+    with pytest.raises(RuntimeError, match="FakeTensorMode"):
+        Model(cfg).abstract(DEVICE)
+    with pytest.raises(RuntimeError, match="FakeTensorMode"):
+        steps.input_specs(cfg, SHAPES["train_4k"], NO_MESH, DEVICE)
+    with FakeTensorMode():
+        params = Model(get_config("qwen3_0_6b")).abstract(DEVICE)
+    with pytest.raises(RuntimeError, match="FakeTensorMode"):
+        adamw.abstract_state(params)
+
+
+def test_production_mesh_on_fake_groups():
+    """(16, 16) over 256 fake ranks and (2, 16, 16) over 512, each group
+    gone after; anything else raises saying what it needs."""
+    for multi, world, shape in ((False, 256, (16, 16)),
+                                (True, 512, (2, 16, 16))):
+        with dryrun.fake_group(world):
+            mesh = make_production_mesh(multi_pod=multi, device=DEVICE)
+            assert tuple(mesh.shape) == shape
+            with pytest.raises(ValueError, match="exactly"):
+                make_production_mesh(multi_pod=not multi, device=DEVICE)
+        assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="exactly 256 ranks"):
+        make_production_mesh(device=DEVICE)
+
+
+# -------------------------------------------------------------- dry-run
+def test_dryrun_cell_records_and_leaves_no_group(capsys):
+    """One cell through the CLI's path: the reference's record, roofline
+    terms from the H100's constants, a skipped cell as the reference
+    records it, and no process group left behind."""
+    r = dryrun.dryrun_cell("qwen3_0_6b", "prefill_32k",
+                           cfg=dryrun._depth_handle(
+                               get_config("qwen3_0_6b"))[1](1))
+    assert not dist.is_initialized()
+    assert (r["status"], r["chips"], r["mesh"]) == ("ok", 256, "single")
+    mem = r["memory"]
+    assert mem["argument_size_in_bytes"] > mem["argument_size_placed_in_bytes"]
+    assert mem["alias_size_in_bytes"] is None
+    roof = r["roofline"]
+    assert roof["compute_s"] == pytest.approx(
+        roof["hlo_flops"] / (256 * 989e12))
+    assert roof["memory_s"] == pytest.approx(
+        roof["hlo_bytes"] / (256 * 3.35e12))
+    assert "roofline: compute=" in capsys.readouterr().out
+    skipped = dryrun.dryrun_cell("qwen3_0_6b", "long_500k")
+    assert skipped["status"] == "skipped" and "sub-quadratic" in \
+        skipped["reason"]
+
+
+def test_dryrun_refuses_a_group_that_is_not_fake(tmp_path):
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="'fake' process group"):
+            dryrun.dryrun_cell("qwen3_0_6b", "prefill_32k")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_fake_flops_equal_a_real_cpu_step():
+    """Reduced Qwen3: the trace on fake tensors counts what
+    ``FlopCounterMode`` counts over the same step on real tensors."""
+    cfg = get_config("qwen3_0_6b").reduced()
+    shape = ShapeConfig("train_small", 32, 4, "train")
+    predicted = dryrun.trace_step(cfg, shape, NO_MESH, device=DEVICE)
+    step, model = steps.make_train_step(cfg, NO_MESH)
+    params = model.init(0, device=DEVICE)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, (4, 32)),
+                             dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    with FlopCounterMode(display=False) as fc:
+        step(params, adamw.init_state(params), batch)
+    assert predicted["flops"] == fc.get_total_flops() > 0
+    held = sum(t.numel() * t.element_size()
+               for t in tree_flatten({"p": params, "b": batch,
+                                      "s": adamw.init_state(params)})[1])
+    assert predicted["memory"]["argument_size_in_bytes"] == held
+
+
+# one cell a family at depths 1, 2 and 3, full width, on a fake 256-rank
+# group, in a process of its own (its peak RSS proves nothing was
+# allocated); prefill runs one forward pass, train adds the backward
+DEPTH_BODY = """
+import json, resource, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+arch, shape = sys.argv[1], sys.argv[2]
+cfg = get_config(arch)
+_, make = dryrun._depth_handle(cfg)
+out = []
+for u in (1, 2, 3):
+    r = dryrun.dryrun_cell(arch, shape, cfg=make(u), verbose=False)
+    out.append([r["roofline"][k] for k in ("hlo_flops", "hlo_bytes",
+                                           "coll_bytes")])
+print(json.dumps({"costs": out, "rss_gib":
+                  resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20}))
+"""
+DEPTH_CELLS = [("qwen3_0_6b", "prefill_32k"), ("deepseek_v3_671b",
+               "prefill_32k"), ("mamba2_780m", "prefill_32k"),
+               ("zamba2_2_7b", "prefill_32k"),
+               ("seamless_m4t_medium", "prefill_32k"),
+               ("qwen3_0_6b", "train_4k")]
+
+
+@pytest.fixture(scope="module")
+def depth_costs():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c",
+                               textwrap.dedent(DEPTH_BODY), arch, shape],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env)
+             for arch, shape in DEPTH_CELLS]
+    out = {}
+    for cell, p in zip(DEPTH_CELLS, procs):
+        stdout, stderr = p.communicate(timeout=600)
+        assert p.returncode == 0, stderr[-4000:]
+        out[cell] = json.loads(stdout.strip().splitlines()[-1])
+    return out
+
+
+@pytest.mark.parametrize("cell", DEPTH_CELLS, ids=lambda c: "-".join(c))
+def test_dryrun_costs_are_linear_in_depth(depth_costs, cell):
+    """cost(u) = const + u * per_unit, exactly, for each family (dense,
+    moe, ssm, hybrid, encdec): FLOPs, bytes accessed and collective
+    bytes.  In the train step the bytes grow faster: the backward of
+    each layer's slice of a stacked parameter writes a gradient the size
+    of the whole stack (``select_backward``) and adds it to the others,
+    L full-stack buffers for L layers; FLOPs and collectives stay
+    linear.  The process peaked below 2 GiB of RSS."""
+    costs = np.array(depth_costs[cell]["costs"])
+    inc = np.diff(costs, axis=0)
+    linear = (0, 2) if cell[1] == "train_4k" else (0, 1, 2)
+    for k in linear:
+        assert inc[0, k] == inc[1, k], (cell, k, costs[:, k])
+    assert inc[0, 0] > 0
+    if cell[1] == "train_4k":
+        assert inc[1, 1] > inc[0, 1]
+    assert depth_costs[cell]["rss_gib"] < 2.0

@@ -451,3 +451,70 @@ def test_data_parallel_run_equals_one_rank(tmp_path):
                                device="cpu", lr=1e-3))["losses"]
         np.testing.assert_allclose(got[0][str(gb)], want,
                                    rtol=DP_LOSS_RTOL)
+
+
+# reduced OLMoE at the config's capacity factor (E/K: nothing drops) and
+# at 0.5, where tokens drop: under a (2, 1) mesh the router statistics,
+# the capacity and each slot's position are the global batch's, so the
+# aux loss and the dropped slots are one rank's
+DP_MOE_BODY = """
+import dataclasses
+from repro_torch.launch import train
+out = {{}}
+for cf in {factors!r}:
+    base = train.get_config("olmoe_1b_7b").reduced()
+    train.get_config = lambda arch, c=dataclasses.replace(
+        base, capacity_factor=cf): c
+    r = train.run(train.TrainConfig(arch="olmoe_1b_7b", smoke=False,
+                                    steps=3, seq_len=16, global_batch=4,
+                                    use_mesh=True, log_every=0,
+                                    device="cpu", lr=1e-3))
+    out[str(cf)] = r["losses"]
+with open(os.path.join(OUT, f"dpmoe.{{RANK}}.json"), "w") as f:
+    json.dump(out, f)
+"""
+DP_MOE_FACTORS = (2.0, 0.5)
+
+
+def test_data_parallel_moe_run_equals_one_rank(tmp_path, monkeypatch):
+    """The MoE twin of ``test_data_parallel_run_equals_one_rank``: two
+    gloo ranks on a (2, 1) mesh give one rank's losses, aux term
+    included, at a capacity factor where nothing drops and at one where
+    tokens drop."""
+    import dataclasses
+    from repro_torch.launch import train
+    run_ranks(tmp_path, 2, DP_MOE_BODY.format(factors=DP_MOE_FACTORS))
+    got = [json.loads((tmp_path / f"dpmoe.{r}.json").read_text())
+           for r in range(2)]
+    assert got[0] == got[1]
+    base = train.get_config("olmoe_1b_7b").reduced()
+    for cf in DP_MOE_FACTORS:
+        monkeypatch.setattr(train, "get_config", lambda arch, c=dataclasses
+                            .replace(base, capacity_factor=cf): c)
+        want = train.run(train.TrainConfig(
+            arch="olmoe_1b_7b", smoke=False, steps=3, seq_len=16,
+            global_batch=4, log_every=0, device="cpu", lr=1e-3))["losses"]
+        np.testing.assert_allclose(got[0][str(cf)], want, rtol=DP_LOSS_RTOL)
+
+
+@pytest.mark.parametrize("arch", ["olmo_1b", "internvl2_26b"])
+def test_train_step_gives_unused_parameters_zero_gradients(arch):
+    """OLMo's non-parametric norms never read ``final_norm``, and a
+    frontend's embeds never read ``embed``: as ``jax.grad`` does, the
+    step gives such a parameter a zero gradient (it once raised)."""
+    cfg = get_config(arch).reduced()
+    step, model = steps.make_train_step(cfg, NO_MESH)
+    params = model.init(0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {"labels": torch.tensor(rng.integers(0, cfg.vocab_size,
+                                                 (2, 16)))}
+    if cfg.frontend:
+        batch["embeds"] = torch.tensor(rng.standard_normal(
+            (2, 16, cfg.d_model)), dtype=torch.float32)
+    else:
+        batch["tokens"] = torch.tensor(rng.integers(0, cfg.vocab_size,
+                                                    (2, 16)))
+    _, state, metrics = step(params, adamw.init_state(params), batch)
+    assert np.isfinite(float(metrics["loss"]))
+    unused = "embed" if cfg.frontend else "final_norm"
+    assert not state["m"][unused].any()
