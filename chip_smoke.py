@@ -136,9 +136,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    with a checkpoint every 3, then again to 9 steps, which must resume
    at 6 and train 3; every loss finite, the checkpoint's keys and shapes
    the live tree's, the first loss within 1e-6 of a run without the
-   mesh, no hand kernel launched (neither has a backward).  Median step
-   ms, tokens/s and peak allocated GiB go on a ``{"train": ...}`` JSON
-   line.
+   mesh, no hand kernel launched (neither has a backward); the bytes
+   rank 0 holds for parameters, gradients and moments on the mesh must
+   equal the reference's placed bytes for the config's shapes.  Median
+   step ms, tokens/s, peak allocated GiB and the held and placed bytes
+   go on a ``{"train": ...}`` JSON line.
 
 12. dryrun — runs after phase 11: the dry-run slice.  (a) At world size
    1 (an NCCL group of one rank, the (1, 1) mesh), the dry-run's trace
@@ -155,8 +157,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    depth on the (16, 16) mesh over a fake 256-rank group for every
    architecture at train_4k and prefill_32k, Qwen3-0.6B at decode_32k,
    and ``--multi-pod --no-costs`` for Qwen3-0.6B and DeepSeek-V3 at
-   train_4k; each must exit 0.  Its numbers go on a ``{"dryrun": ...}``
-   JSON line.
+   train_4k; each must exit 0 and hold its arguments at their
+   placements (``argument_size_in_bytes`` equal to
+   ``argument_size_placed_in_bytes``).  Its numbers go on a
+   ``{"dryrun": ...}`` JSON line.
 
 Phases 4, 8, 7, 9, each model of 10, 11 and 12's prefill are the main
 paths, in that order: each kernel's launch count is set to 0 just before each and read
@@ -1818,8 +1822,11 @@ def phase_train(card: str, device: str = "cuda", smoke: bool = False):
     from repro_torch.core import distributed as D
     from repro_torch.launch.mesh import init_process_group, \
         make_mesh_for_devices
+    from repro_torch.launch.steps import make_grad_step
+    from tools.fsdp_train import held_and_placed
     from repro_torch.launch.train import TrainConfig, run
     from repro_torch.models import Model
+    from repro_torch.models.sharding import rules_for_mesh
     from repro_torch.optim import adamw
     from repro_torch.tree import keystr, tree_flatten
 
@@ -1938,6 +1945,33 @@ def phase_train(card: str, device: str = "cuda", smoke: bool = False):
                             for q, t in zip(paths, leaves)},
                   "the checkpoint's keys or shapes differ from the live tree")
             del live, leaves
+            # the bytes each rank holds for parameters, gradients and
+            # moments under the mesh, beside the reference's placements
+            gc.collect()
+            rules = rules_for_mesh(mesh)
+            grad_step, model = make_grad_step(cfg, rules)
+            live = model.init(train["seed"], device=device)
+            state = adamw.init_state(live)
+            gen = torch.Generator(device=device).manual_seed(0)
+            tokens = torch.randint(0, cfg.vocab_size, (train["global_batch"],
+                                                       train["seq_len"]),
+                                   generator=gen, device=device)
+            grads, _, _ = grad_step(live, {"tokens": tokens,
+                                           "labels": tokens})
+            # one card's (1, 1) mesh splits nothing, so the two agree
+            # trivially here: the gloo twins and tools/fsdp_train.py on
+            # four cards are what show the blocks
+            storage = held_and_placed(cfg, rules, {
+                "params": [live], "grads": [grads],
+                "moments": [state["m"], state["v"]]}, device)
+            del live, state, grads, tokens
+            for name, (held, placed) in storage.items():
+                print(f"[train] {name}: held {held} bytes, placed {placed} "
+                      f"bytes on rank 0 of the {tuple(mesh.shape)} mesh "
+                      f"| {card}", flush=True)
+                check(held == placed, f"{name}: held {held} bytes, placed "
+                      f"{placed}")
+            numbers["held_and_placed_bytes"] = storage
             # the first step's loss without the mesh, from the same seed
             gc.collect()
             plain = run(TrainConfig(**dict(train, use_mesh=False, steps=1,
@@ -2042,6 +2076,12 @@ def _dryrun_sweep(card: str, smoke: bool):
             check(rec["status"] in ("ok", "skipped"), f"dryrun {rec}")
             records.append(rec)
             mem = rec.get("memory", {})
+            # every rank holds its arguments at their placements
+            check(mem.get("argument_size_in_bytes")
+                  == mem.get("argument_size_placed_in_bytes"),
+                  f"dryrun {arch} {shape} {flags}: held "
+                  f"{mem.get('argument_size_in_bytes')} bytes, placed "
+                  f"{mem.get('argument_size_placed_in_bytes')}")
             roof = rec.get("roofline")
             terms = ("" if roof is None else
                      f"; compute {roof['compute_s']:.4f} s, memory "

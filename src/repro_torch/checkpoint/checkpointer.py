@@ -15,9 +15,14 @@ holds every bf16 value exactly; restore casts back to the ``like``
 leaf's dtype, so a bf16 tree round-trips bitwise (and the reference
 restores such a leaf into its bf16 tree the same way).
 
-Resharding: arrays are saved whole (the logical value); the restore
-hands each to ``sharding_fn(key, tensor)`` when the caller gives one, to
-re-place it for a new topology (N ranks at save, M at load), and
+Resharding: arrays are saved whole (the logical value, what the
+reference's ``np.asarray`` of a global array gives).  A tree held at
+placements (a mesh's blocks) is saved with ``placements``: every rank
+gathers it leaf by leaf, so the card holds one whole leaf at a time, and
+the first rank writes.  The restore hands each array to
+``sharding_fn(key, tensor)`` when the caller gives one, to re-place it
+for a new topology (N ranks at save, M at load; :func:`placing`
+keeps each rank's block at the placements of a new mesh), and
 otherwise puts it on the ``like`` leaf's device in its dtype.
 """
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..tree import keystr, tree_flatten, tree_unflatten
 
@@ -47,9 +53,46 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _flatten(tree: Any) -> dict:
+def _flatten(tree: Any, placements: Any = None, keep: bool = True) -> dict:
+    """{keystr path: whole numpy array}; leaves held at ``placements``
+    are gathered one at a time (by every rank, and kept on the host only
+    where ``keep``)."""
     paths, leaves = tree_flatten(tree)
-    return {keystr(p): _to_numpy(leaf) for p, leaf in zip(paths, leaves)}
+    if placements is None:
+        return {keystr(p): _to_numpy(leaf) for p, leaf in zip(paths, leaves)}
+    from ..models.sharding import gather
+    out = {}
+    with torch.no_grad():
+        for p, leaf, pl in zip(paths, leaves,
+                               tree_flatten(placements)[1]):
+            whole = gather(leaf, pl) if isinstance(leaf, torch.Tensor) \
+                else leaf
+            if keep:
+                out[keystr(p)] = _to_numpy(whole)
+    return out
+
+
+def placing(like: Any, placements: Any) -> Callable[[str, torch.Tensor],
+                                                    torch.Tensor]:
+    """A ``sharding_fn`` for :meth:`Checkpointer.restore`: each whole
+    array in the ``like`` leaf's dtype on its device, then this rank's
+    block of it at the leaf's placement (``placements``: ``like``'s)."""
+    from ..models.sharding import place
+    paths, leaves = tree_flatten(like)
+    places = tree_flatten(placements)[1]
+    by_key = {keystr(p): (leaf, pl)
+              for p, leaf, pl in zip(paths, leaves, places)}
+
+    def fn(key: str, t: torch.Tensor) -> torch.Tensor:
+        leaf, pl = by_key[key]
+        return place(t.to(device=leaf.device, dtype=leaf.dtype), pl)
+    return fn
+
+
+def _same_shape(key: str, shape, leaf) -> None:
+    if tuple(shape) != tuple(np.shape(leaf)):
+        raise ValueError(f"{key}: checkpoint shape {tuple(shape)} != "
+                         f"{tuple(np.shape(leaf))}")
 
 
 class Checkpointer:
@@ -61,11 +104,24 @@ class Checkpointer:
 
     # --------------------------------------------------------------- save
     def save(self, step: int, tree: Any, extra: Optional[dict] = None,
-             blocking: bool = True) -> str:
+             blocking: bool = True, placements: Any = None) -> str:
         """Atomic save.  ``blocking=False`` runs serialization on a side
         thread (async checkpointing) — call ``wait()`` before the next
-        save or at exit."""
-        flat = _flatten(tree)   # device->host copy happens here
+        save or at exit.  With ``placements`` (``tree``'s, held under a
+        mesh) every rank of the process group must call it: the leaves
+        are gathered one at a time, the first rank writes, and no rank
+        returns before the checkpoint is visible, so it must be
+        ``blocking``."""
+        placed = placements is not None and dist.is_initialized()
+        if placed and not blocking:
+            raise ValueError("a placed save is blocking: every rank waits "
+                             "until the first one has written")
+        writer = not placed or dist.get_rank() == 0
+        # device->host copy happens here
+        flat = _flatten(tree, placements, keep=writer)
+        if not writer:
+            dist.barrier()
+            return os.path.join(self.directory, f"step_{step}")
         meta = {"step": int(step), "extra": extra or {},
                 "keys": sorted(flat.keys())}
 
@@ -86,6 +142,8 @@ class Checkpointer:
 
         if blocking:
             _write()
+            if placed:
+                dist.barrier()
         else:
             self.wait()
             self._async_thread = threading.Thread(target=_write, daemon=True)
@@ -123,9 +181,11 @@ class Checkpointer:
                 ) -> tuple[Any, dict]:
         """Restore into the structure of ``like`` (a tree of tensors).
         ``sharding_fn(key, tensor) -> tensor`` lets the caller re-place
-        each array under a NEW mesh (elastic resharding); by default each
-        goes to its ``like`` leaf's device and dtype.  A ``like`` leaf
-        that is not a tensor (a flag) comes back as a Python scalar."""
+        each array under a NEW mesh (elastic resharding; :func:`placing`
+        keeps this rank's blocks), and what it returns must have the
+        ``like`` leaf's shape; by default each array, of the ``like``
+        leaf's shape, goes to its device and dtype.  A ``like`` leaf that
+        is not a tensor (a flag) comes back as a Python scalar."""
         path = os.path.join(self.directory, f"step_{step}")
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
@@ -137,18 +197,18 @@ class Checkpointer:
                 if key not in data:
                     raise KeyError(f"checkpoint missing {key}")
                 arr = data[key]
-                if tuple(arr.shape) != tuple(np.shape(leaf)):
-                    raise ValueError(f"{key}: checkpoint shape {arr.shape} "
-                                     f"!= {tuple(np.shape(leaf))}")
                 if not isinstance(leaf, torch.Tensor):
+                    _same_shape(key, arr.shape, leaf)
                     new_leaves.append(arr.item())
                     continue
                 t = torch.from_numpy(arr)
                 if sharding_fn is not None:
-                    new_leaves.append(sharding_fn(key, t))
+                    t = sharding_fn(key, t)
                 else:
-                    new_leaves.append(t.to(device=leaf.device,
-                                           dtype=leaf.dtype))
+                    _same_shape(key, arr.shape, leaf)
+                    t = t.to(device=leaf.device, dtype=leaf.dtype)
+                _same_shape(key, t.shape, leaf)
+                new_leaves.append(t)
         return tree_unflatten(paths, new_leaves), meta["extra"]
 
     def restore_latest(self, like: Any, **kw):

@@ -180,6 +180,41 @@ class _SharedSum(torch.autograd.Function):
         return all_reduce(grad, ctx.group), None
 
 
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of the ranks' ``x``."""
+    if dim == 0:
+        return _reduce_scatter(x, group)
+    return _reduce_scatter(x.movedim(dim, 0), group).movedim(0, dim
+                                                              ).contiguous()
+
+
+class _GatherShards(torch.autograd.Function):
+    """All-gather forward along ``dim``: the whole of a leaf stored in
+    shards.  Backward, this rank's block of the gradient: summed over
+    the ranks (a reduce-scatter) where each rank's gradient is a part of
+    the whole (``summed``: the ranks hold different slices of the
+    batch), else its own block of a gradient every rank holds alike."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, summed):
+        ctx.group, ctx.dim, ctx.summed = group, dim, summed
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.summed:
+            return reduce_scatter(grad, ctx.group, ctx.dim), None, None, None
+        n, i = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        return (grad.chunk(n, ctx.dim)[i].contiguous(), None, None, None)
+
+
+def gather_shards(x: torch.Tensor, group, dim: int, summed: bool
+                  ) -> torch.Tensor:
+    """``x``'s shards over ``group`` joined along ``dim``
+    (differentiable; see :class:`_GatherShards` for the gradient)."""
+    return _GatherShards.apply(x, group, dim, summed)
+
+
 def shared_sum(x: torch.Tensor, group) -> torch.Tensor:
     """Sum of the ranks' partial ``x``, used alike by every rank's loss
     (differentiable: a data-parallel statistic over the global batch)."""

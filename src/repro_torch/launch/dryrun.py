@@ -14,10 +14,13 @@ Nothing is allocated and no card is needed.  What it reports for the
 step, rank 0's per-device program as the reference's HLO is:
 
   * ``memory`` — ``argument_size_in_bytes``: the bytes the port's rank
-    holds (parameters, optimizer state or cache, and its slice of the
-    batch); ``argument_size_placed_in_bytes``: the same arguments under
-    their placements (the reference's own per-device figure; the gap is
-    the cost of the port's replicated weights); ``temp_size_in_bytes``:
+    holds (its blocks of the parameters, optimizer state or cache, and
+    its slice of the batch: every abstract leaf is a fake tensor of its
+    placed shape); ``argument_size_placed_in_bytes``: the same arguments
+    built with no mesh (the config's global shapes), each cut to its
+    leaf's placement (the reference's own per-device figure, counted
+    apart from the held blocks, so the two agree only where every leaf
+    is held at its placement); ``temp_size_in_bytes``:
     the peak of live bytes during the step beyond the arguments,
     counted by storage, so a view is never counted twice;
     ``output_size_in_bytes``: the outputs' bytes.  The reference's
@@ -72,14 +75,14 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from ..configs import ARCH_IDS, SHAPES, cell_supported, get_config
 from ..core import distributed as D
-from ..models.sharding import (abstract_leaf, local_shape, placement_of,
+from ..models import Model
+from ..models.sharding import (NO_MESH, local_shape, placement_of,
                                rules_for_mesh)
-from ..tree import tree_map
 from . import roofline as rf
 from .mesh import make_production_mesh, n_chips
 from .steps import (abstract_serve_state, abstract_train_state,
-                    data_parallel, input_specs, make_decode_step,
-                    make_prefill_step, make_train_step, serving_rules)
+                    input_specs, make_decode_step, make_prefill_step,
+                    make_train_step, serving_rules)
 
 # operator namespaces whose calls move bytes: aten's and the port's
 # kernels' (``repro_torch::flash_attention_fwd``)
@@ -173,16 +176,24 @@ def _nbytes(t: torch.Tensor, shape=None) -> int:
     return n * t.element_size()
 
 
-def _held(t: torch.Tensor, batch_dim: int, rules, batch: int
-          ) -> torch.Tensor:
-    """What this rank holds of a global input or cache leaf: its slice
-    of the batch when the batch axes split it (as ``train.run`` hands
-    out rows), else all of it."""
-    if not data_parallel(rules, batch) or t.ndim <= batch_dim:
-        return t
-    shape = list(t.shape)
-    shape[batch_dim] //= rules.axis_size(rules.batch_axes)
-    return abstract_leaf(shape, t.dtype, t.device, placement_of(t))
+def _tensors(tree) -> list:
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _arguments(cfg, shape, rules, device) -> tuple:
+    """(params, state, batch) of the cell's step as fake tensors of this
+    rank's blocks under ``rules`` (a serving cell's under
+    ``serving_rules``; the batch: its slice along the batch axes, as
+    ``train.run`` hands it out); ``state`` is None for a prefill."""
+    if shape.kind == "train":
+        params, state = abstract_train_state(cfg, rules, device)
+        return params, state, input_specs(cfg, shape, rules, device)
+    srules = serving_rules(cfg, rules)
+    batch = input_specs(cfg, shape, srules, device)
+    if shape.kind == "prefill":
+        return Model(cfg, srules).abstract(device), None, batch
+    params, state = abstract_serve_state(cfg, srules, shape, device)
+    return params, state, batch
 
 
 def trace_step(cfg, shape, rules, *, device: Optional[str] = None,
@@ -194,38 +205,29 @@ def trace_step(cfg, shape, rules, *, device: Optional[str] = None,
     ``flops``, ``bytes`` and ``coll`` (collective operand bytes by
     kind), unscaled, and the trace's ``seconds``."""
     device = device or default_device()
-    B = shape.global_batch
     t0 = time.perf_counter()
     with FakeTensorMode():
+        params, state, batch = _arguments(cfg, shape, rules, device)
         if shape.kind == "train":
             step, _ = make_train_step(cfg, rules)
-            params, state = abstract_train_state(cfg, rules, device)
-            specs = input_specs(cfg, shape, rules, device)
-            batch = {k: _held(v, 0, rules, B) for k, v in specs.items()}
-            held_state = state
-            args, kw = (params, state, batch), {"global_batch": B}
+            args, kw = (params, state, batch), {"global_batch":
+                                                shape.global_batch}
+        elif shape.kind == "prefill":
+            step, _ = make_prefill_step(cfg, serving_rules(cfg, rules))
+            args, kw = (params, batch), {}
         else:
-            srules = serving_rules(cfg, rules)
-            specs = input_specs(cfg, shape, srules, device)
-            batch = {k: _held(v, 0, srules, B) for k, v in specs.items()}
-            if shape.kind == "prefill":
-                step, model = make_prefill_step(cfg, srules)
-                params = model.abstract(device)
-                state = held_state = None
-                args = (params, batch)
-            else:
-                step, _ = make_decode_step(cfg, srules)
-                params, state = abstract_serve_state(cfg, srules, shape,
-                                                     device)
-                held_state = tree_map(lambda v: _held(v, 1, srules, B),
-                                      state)
-                args = (params, held_state, batch["token"], batch["pos"])
-            kw = {}
-        leaves = [t for t in tree_leaves((params, held_state, batch))
-                  if isinstance(t, torch.Tensor)]
-        placed = sum(_nbytes(t, local_shape(t.shape, placement_of(t)))
-                     for t in tree_leaves((params, state, specs))
-                     if isinstance(t, torch.Tensor))
+            step, _ = make_decode_step(cfg, serving_rules(cfg, rules))
+            args, kw = (params, state, batch["token"], batch["pos"]), {}
+        leaves = _tensors((params, state, batch))
+        # the reference's per-device bytes: the config's global shapes
+        # (the same arguments built with no mesh) through each leaf's
+        # placement, apart from the blocks this rank holds
+        whole = _tensors(_arguments(cfg, shape, NO_MESH, device))
+        if len(whole) != len(leaves):
+            raise RuntimeError(f"{len(leaves)} arguments under the mesh, "
+                               f"{len(whole)} without one")
+        placed = sum(_nbytes(w, local_shape(w.shape, placement_of(t)))
+                     for t, w in zip(leaves, whole))
         D.reset_collectives()
         tally = _Tally(costs)
         held = sum(tally.hold(t) for t in leaves)

@@ -3,10 +3,15 @@
 The counterpart of the reference's ``launch/steps.py``.  A train step
 runs the forward pass and autograd's backward pass eagerly, averages the
 gradients over the mesh's batch axes (each data rank holds its slice of
-the global batch), and applies AdamW.  ``input_specs`` and
-``abstract_*`` give the shape-only inputs and states the dry-run
-(``launch/dryrun.py``) traces the steps on: fake tensors with the
-reference's placements, built inside an active ``FakeTensorMode``.
+the global batch), and applies AdamW.  Under a mesh the parameters,
+gradients and moments are held at their placements
+(``models/sharding.py``): a gradient comes out of its layer's gather
+already summed over the batch axes it is sharded on (a reduce-scatter),
+is all-reduced over the others, and AdamW updates each rank's blocks.
+``input_specs`` and ``abstract_*`` give the shape-only inputs and states
+the dry-run (``launch/dryrun.py``) traces the steps on: fake tensors of
+each rank's blocks with the reference's placements, built inside an
+active ``FakeTensorMode``.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import torch.utils.checkpoint
 from ..configs.base import ModelConfig
 from ..core.distributed import all_reduce
 from ..models import Model
-from ..models.sharding import MeshRules, abstract_leaf
+from ..models.sharding import MeshRules, abstract_leaf, sharded_axes
 from ..optim import adamw
 from ..tree import tree_flatten, tree_map, tree_unflatten
 
@@ -74,10 +79,12 @@ def data_parallel(rules: MeshRules, global_batch: int) -> bool:
     return n > 1 and rules.batch_size_divides(global_batch)
 
 
-def _mean_over_batch_axes(t: torch.Tensor, rules: MeshRules
-                          ) -> torch.Tensor:
+def _mean_over_batch_axes(t: torch.Tensor, rules: MeshRules,
+                          summed: tuple = ()) -> torch.Tensor:
+    """The mean over the batch axes of each rank's ``t``, which is
+    summed over the axes in ``summed`` already."""
     for ax in rules.batch_axes:
-        if rules.axis_size(ax) > 1:
+        if rules.axis_size(ax) > 1 and ax not in summed:
             t = all_reduce(t, rules.group(ax))
     return t / rules.axis_size(rules.batch_axes)
 
@@ -85,9 +92,10 @@ def _mean_over_batch_axes(t: torch.Tensor, rules: MeshRules
 # ---------------------------------------------------------------- specs
 def input_specs(cfg: ModelConfig, shape, rules: MeshRules, device="cuda"
                 ) -> dict:
-    """Shape-only inputs of the (arch, shape) cell: fake tensors of the
-    global shapes on ``device``, each with its placement (the batch on
-    the batch axes where they divide it, else replicated)."""
+    """Shape-only inputs of the (arch, shape) cell: fake tensors on
+    ``device`` of this rank's blocks of the global shapes, each with its
+    placement (the batch on the batch axes where they divide it, else
+    replicated)."""
     B, S = shape.global_batch, shape.seq_len
     # single-sequence long decode: batch axis unshardable -> replicate
     b_ax = "batch" if rules.batch_size_divides(B) else None
@@ -124,19 +132,19 @@ def input_specs(cfg: ModelConfig, shape, rules: MeshRules, device="cuda"
 
 
 # ---------------------------------------------------------------- train
-def make_train_step(cfg: ModelConfig, rules: MeshRules,
-                    opt_cfg: Optional[adamw.AdamWConfig] = None):
-    """(train_step, model).  ``train_step(params, opt_state, batch,
-    global_batch=None)`` takes this rank's batch (tensors on the
-    parameters' device) and returns (params, opt_state, metrics);
-    ``global_batch`` (default: the local batch's size) says whether the
-    data ranks split it (:func:`data_parallel`), in which case the model
-    runs with ``rules.batch_split`` (its MoE statistics are over the
-    global batch already) and the gradients and the logged loss are
-    averaged over the batch axes."""
+def make_grad_step(cfg: ModelConfig, rules: MeshRules):
+    """(grad_step, model).  ``grad_step(params, batch, global_batch=None)``
+    takes this rank's batch (tensors on the parameters' device) and
+    returns (grads, loss, aux): each gradient held as its parameter is
+    (this rank's block under a mesh).  ``global_batch`` (default: the
+    local batch's size) says whether the data ranks split it
+    (:func:`data_parallel`), in which case the model runs with
+    ``rules.batch_split`` (its MoE statistics are over the global batch
+    already, and a gather's gradient is summed over the batch axes it
+    gathers on) and the gradients and the loss are averaged over the
+    batch axes."""
     model = Model(cfg, rules)
     split = Model(cfg, dataclasses.replace(rules, batch_split=True))
-    opt_cfg = opt_cfg or adamw.AdamWConfig()
 
     def loss_fn(model, params, batch):
         kw = {}
@@ -166,7 +174,7 @@ def make_train_step(cfg: ModelConfig, rules: MeshRules,
             loss = loss + MTP_WEIGHT * mtp_ce
         return loss, {"ce": ce}
 
-    def train_step(params, opt_state, batch, global_batch=None):
+    def grad_step(params, batch, global_batch=None):
         paths, leaves = tree_flatten(params)
         live = [p.detach().requires_grad_(True) for p in leaves]
         n_local = next(iter(batch.values())).shape[0]
@@ -183,11 +191,30 @@ def make_train_step(cfg: ModelConfig, rules: MeshRules,
         if dp:
             # each rank's loss holds the global MoE aux term and its own
             # CE, so the mean over ranks is the global loss
-            grads = [_mean_over_batch_axes(g, rules) for g in grads]
+            places = tree_flatten(model.placements())[1]
+            grads = [_mean_over_batch_axes(g, rules, sharded_axes(pl))
+                     for g, pl in zip(grads, places)]
             loss = _mean_over_batch_axes(loss, rules)
             aux = tree_map(lambda v: _mean_over_batch_axes(v, rules), aux)
+        return tree_unflatten(paths, grads), loss, aux
+
+    return grad_step, model
+
+
+def make_train_step(cfg: ModelConfig, rules: MeshRules,
+                    opt_cfg: Optional[adamw.AdamWConfig] = None):
+    """(train_step, model).  ``train_step(params, opt_state, batch,
+    global_batch=None)`` takes this rank's batch and returns (params,
+    opt_state, metrics): :func:`make_grad_step`'s gradients, then AdamW
+    on each rank's blocks, clipped by the global gradient's norm."""
+    grad_step, model = make_grad_step(cfg, rules)
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+
+    def train_step(params, opt_state, batch, global_batch=None):
+        grads, loss, aux = grad_step(params, batch, global_batch)
         params, opt_state, opt_metrics = adamw.apply_updates(
-            opt_cfg, params, tree_unflatten(paths, grads), opt_state)
+            opt_cfg, params, grads, opt_state,
+            placements=model.placements())
         metrics = {"loss": loss, **aux, **opt_metrics}
         return params, opt_state, metrics
 

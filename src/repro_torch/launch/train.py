@@ -12,8 +12,11 @@ With ``use_mesh`` every rank of the process group runs this loop (one
 process a rank, e.g. under ``torchrun``); each data rank takes its
 slice of the global batch that ``batch_at_step`` draws from the seed and
 the step, and the train step averages the gradients over the data ranks.
-Parameters and state live on ``device``: the card unless the caller
-asks for the CPU.
+Under the mesh every rank holds its blocks of the parameters, gradients
+and AdamW moments at the reference's placements (FSDP on "data",
+tensor-parallel on "model"); a checkpoint holds the whole arrays, so a
+run resumes on any mesh.  Parameters and state live on ``device``: the
+card unless the caller asks for the CPU.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import Checkpointer
+from ..checkpoint.checkpointer import placing
 from ..configs import get_config
 from ..data import DataConfig, batch_at_step
 from ..models.sharding import NO_MESH, rules_for_mesh
@@ -51,7 +55,7 @@ class TrainConfig:
     global_batch: int = 8
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 20
-    ckpt_async: bool = False
+    ckpt_async: bool = False        # one rank only: a mesh saves blocking
     seed: int = 0
     lr: float = 3e-4
     use_mesh: bool = False          # data-parallel over the process group
@@ -73,7 +77,17 @@ def _batch_rows(rules, global_batch: int) -> slice:
     return slice(index * rows, (index + 1) * rows)
 
 
+def _any_rank(flag: bool, device) -> bool:
+    """``flag`` of any rank of the default group, alike on every rank."""
+    t = torch.tensor([int(flag)], device=device)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def run(tc: TrainConfig) -> dict:
+    if tc.use_mesh and tc.ckpt_async:
+        raise ValueError("ckpt_async does not apply under a mesh: every "
+                         "rank gathers a placed save, which is blocking")
     cfg = get_config(tc.arch)
     if tc.smoke:
         cfg = cfg.reduced()
@@ -87,21 +101,28 @@ def run(tc: TrainConfig) -> dict:
 
     params = model.init(tc.seed, device=tc.device)
     opt_state = adamw.init_state(params)
+    # where each leaf of the checkpointed tree is held (None: whole)
+    places = (None if mesh is None else
+              {"params": model.placements(),
+               "opt": adamw.state_placements(model.placements())})
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=tc.seq_len,
                     global_batch=tc.global_batch, seed=tc.seed)
     rows = _batch_rows(rules, tc.global_batch)
 
     start_step = 0
     ckpt = Checkpointer(tc.ckpt_dir) if tc.ckpt_dir else None
+
+    def restore_latest():
+        like = {"params": params, "opt": opt_state}
+        return ckpt.restore_latest(like, sharding_fn=None if places is None
+                                   else placing(like, places))
+
     if ckpt is not None:
-        latest = ckpt.restore_latest({"params": params, "opt": opt_state})
+        latest = restore_latest()
         if latest is not None:
             start_step, tree, extra = latest
             params, opt_state = tree["params"], tree["opt"]
             print(f"[train] resumed from step {start_step}")
-    # one writer a checkpoint directory: the first rank
-    writer = ckpt is not None and (
-        mesh is None or torch.distributed.get_rank() == 0)
 
     # ---- preemption: save on SIGTERM/SIGINT then exit cleanly
     preempted = {"flag": False}
@@ -140,8 +161,7 @@ def run(tc: TrainConfig) -> dict:
                 if ckpt is None or ckpt.latest_step() is None:
                     raise
                 print(f"[train] step {step} failed ({e}); rolling back")
-                s, tree, _ = ckpt.restore_latest(
-                    {"params": params, "opt": opt_state})
+                s, tree, _ = restore_latest()
                 params, opt_state = tree["params"], tree["opt"]
                 step = s
                 continue
@@ -160,17 +180,22 @@ def run(tc: TrainConfig) -> dict:
                       f"lr={float(metrics['lr']):.2e} "
                       f"gnorm={float(metrics['grad_norm']):.2f} "
                       f"{dt*1e3:.0f}ms")
+            # under the mesh every rank gathers and the first one writes
             if ckpt is not None and step % tc.ckpt_every == 0:
-                if writer:
-                    ckpt.save(step, {"params": params, "opt": opt_state},
-                              extra={"loss": loss},
-                              blocking=not tc.ckpt_async)
+                ckpt.save(step, {"params": params, "opt": opt_state},
+                          extra={"loss": loss}, blocking=not tc.ckpt_async,
+                          placements=places)
                 last_good = step
-            if preempted["flag"]:
+            # under the mesh a signal to any rank stops every rank at
+            # this step, for the save's gathers are collectives
+            stop = preempted["flag"]
+            if mesh is not None:
+                stop = _any_rank(stop, tc.device)
+            if stop:
                 print(f"[train] preemption signal: saving at step {step}")
-                if writer:
+                if ckpt is not None:
                     ckpt.save(step, {"params": params, "opt": opt_state},
-                              extra={"preempted": True})
+                              extra={"preempted": True}, placements=places)
                 break
     finally:
         if ckpt is not None:

@@ -11,7 +11,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .sharding import MeshRules, abstract_leaf, require_fake_mode
+from .sharding import (MeshRules, abstract_leaf, block_of, layer_placement,
+                       local_shape, require_fake_mode)
 
 # gelu is the tanh approximation, as jax.nn.gelu's default is
 ACT = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
@@ -20,17 +21,27 @@ ACT = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
 
 class Maker:
     """Builds the parameter tree on ``device`` (the card unless the
-    caller asks for the CPU): as real tensors drawn from ``generator``
-    (which lives on the same device) in ``init`` mode, or in
-    ``abstract`` mode (the dry-run's) as fake tensors that carry the
-    placement ``rules.fitted_sharding`` gives them, drawing nothing;
-    ``abstract`` raises outside an active ``FakeTensorMode``."""
+    caller asks for the CPU), each leaf at the placement
+    ``rules.fitted_sharding`` gives it:
+
+    * ``init``: real tensors drawn from ``generator`` (which lives on
+      the same device).  A leaf is drawn whole, as it is on one rank, and
+      only this rank's block of it is kept (:func:`sharding.place`), so
+      the blocks of every rank make up one rank's tree bit for bit; a
+      stacked leaf (``stacked=True``, a leading layer dim) is drawn one
+      layer at a time, so no rank ever holds a whole stack;
+    * ``abstract`` (the dry-run's): fake tensors of the placed shapes
+      that carry their placement, drawing nothing; it raises outside an
+      active ``FakeTensorMode``;
+    * ``placement``: the placements alone (``Placement`` or None), the
+      tree a model gathers its leaves by."""
 
     def __init__(self, mode: str, rules: MeshRules, dtype: torch.dtype,
                  generator: Optional[torch.Generator] = None,
                  device="cuda"):
-        if mode not in ("init", "abstract"):
-            raise ValueError(f"Maker mode {mode!r}: 'init' or 'abstract'")
+        if mode not in ("init", "abstract", "placement"):
+            raise ValueError(f"Maker mode {mode!r}: 'init', 'abstract' or "
+                             f"'placement'")
         if mode == "abstract":
             require_fake_mode()
         self.mode = mode
@@ -41,7 +52,8 @@ class Maker:
 
     def param(self, shape: Sequence[int], logical: Sequence[Optional[str]],
               scale: Optional[float] = None, zeros: bool = False,
-              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+              dtype: Optional[torch.dtype] = None, stacked: bool = False
+              ) -> torch.Tensor:
         """Normal(0, 1) x ``scale`` (default 1/sqrt(fan_in), fan_in the
         second-to-last dim), drawn in float32 and cast to ``dtype`` (the
         maker's by default); zeros where ``zeros``."""
@@ -49,30 +61,57 @@ class Maker:
         dtype = dtype or self.dtype
         if len(shape) != len(logical):
             raise ValueError(f"shape {shape} vs logical axes {logical}")
-        if self.mode == "abstract":
-            return self._abstract(shape, logical, dtype)
+        placement = self.rules.fitted_sharding(shape, *logical)
+        if self.mode != "init":
+            return self._other(shape, dtype, placement)
         if zeros:
-            return torch.zeros(shape, dtype=dtype, device=self.device)
+            return torch.zeros(local_shape(shape, placement), dtype=dtype,
+                               device=self.device)
         if scale is None:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             scale = 1.0 / math.sqrt(max(1, fan_in))
-        arr = torch.randn(shape, generator=self.generator,
-                          dtype=torch.float32, device=self.device)
-        # scaled in place: one stack of DeepSeek-V3's 256 experts is 15 GB
-        # in float32, so a second float32 copy is worth saving
-        return arr.mul_(scale).to(dtype)
+
+        def draw(s):
+            # scaled in place: one layer of DeepSeek-V3's 256 experts is
+            # 15 GB in float32, so a second float32 copy is worth saving
+            return torch.randn(s, generator=self.generator,
+                               dtype=torch.float32,
+                               device=self.device).mul_(scale)
+
+        if not stacked:
+            whole = draw(shape)
+            return _kept(whole, block_of(whole, placement), dtype)
+        out = torch.empty(local_shape(shape, placement), dtype=dtype,
+                          device=self.device)
+        layer = layer_placement(placement)
+        for i in range(shape[0]):
+            out[i].copy_(block_of(draw(shape[1:]), layer))
+        return out
 
     def ones(self, shape, logical, dtype: Optional[torch.dtype] = None
              ) -> torch.Tensor:
         shape = tuple(int(s) for s in shape)
-        if self.mode == "abstract":
-            return self._abstract(shape, logical, dtype or self.dtype)
-        return torch.ones(shape, dtype=dtype or self.dtype,
+        dtype = dtype or self.dtype
+        placement = self.rules.fitted_sharding(shape, *logical)
+        if self.mode != "init":
+            return self._other(shape, dtype, placement)
+        return torch.ones(local_shape(shape, placement), dtype=dtype,
                           device=self.device)
 
-    def _abstract(self, shape, logical, dtype) -> torch.Tensor:
-        return abstract_leaf(shape, dtype, self.device,
-                             self.rules.fitted_sharding(shape, *logical))
+    def _other(self, shape, dtype, placement):
+        if self.mode == "placement":
+            return placement
+        return abstract_leaf(shape, dtype, self.device, placement)
+
+
+def _kept(whole: torch.Tensor, block: torch.Tensor, dtype: torch.dtype
+          ) -> torch.Tensor:
+    """``block`` of a whole draw in ``dtype``, in storage of its own
+    where it is a part of the draw, so the draw can be freed."""
+    if block is whole:
+        return whole.to(dtype)
+    return torch.empty(block.shape, dtype=dtype,
+                       device=block.device).copy_(block)
 
 
 # ------------------------------------------------------------------ norms

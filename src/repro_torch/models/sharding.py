@@ -1,4 +1,5 @@
-"""Logical-axis sharding rules (MaxText-style) for the model stack.
+"""Logical-axis sharding rules (MaxText-style) for the model stack, and
+the placement of the leaves they give.
 
 The counterpart of the reference's ``models/sharding.py``.  Parameters
 and activations are annotated with *logical* axes; the rules map them to
@@ -8,16 +9,21 @@ the axes of a ``DeviceMesh``:
   multi-pod   (2, 16, 16) ("pod", "data", "model")
 
 ``spec`` and ``fitted_sharding`` make the reference's per-dim axis
-choices.  The dry-run's abstract leaves (:func:`abstract_leaf`) carry
-them as a ``placement``, as the reference's ``ShapeDtypeStruct``s carry
-their shardings.  The port places nothing by them yet: each rank is one
-eager process that holds every weight whole, its slice of the global batch
-(batch axes), and every other activation dim at its global value.  A
-sharded branch (``layers.row_parallel_matmul``, ``moe._moe_block_sharded``)
-slices this rank's shard, computes, and combines with the collective the
-reference names, so every rank again holds the global value; so
-``constrain`` is the identity.  With no mesh every helper degrades to a
-no-op.
+choices, recorded as a :class:`Placement`.  Each rank is one eager
+process, and under a mesh it *stores* every parameter, gradient and
+optimizer moment at its placement, as the reference's ``device_put``
+does: :func:`place` keeps this rank's block of a whole value (FSDP on
+"data" for the ``embed`` dim, tensor-parallel on "model" for heads, ff,
+vocab and experts; an axis that ``fitted_sharding`` drops leaves its
+dim whole).  A layer gathers its leaves (:meth:`MeshRules.gather`) just
+before it uses them and drops them after, so every activation is its
+global value on every rank (its slice of the global batch along the
+batch axes): a sharded branch (``layers.row_parallel_matmul``,
+``moe._moe_block_sharded``) slices this rank's shard of a gathered
+weight, computes, and combines with the collective the reference
+names.  So ``constrain`` is the identity.  The dry-run's abstract leaves
+(:func:`abstract_leaf`) are fake tensors of their placed shapes that
+carry their placement.  With no mesh every helper degrades to a no-op.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import torch
 from torch._guards import detect_fake_mode
 
 from ..core.distributed import mesh_shape
+from ..tree import tree_map
 
 # logical axis vocabulary
 BATCH = "batch"       # global batch            -> ("pod","data") / ("data",)
@@ -42,7 +49,8 @@ KV = "kv"             # kv heads                -> "model"
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """A mesh and one physical axis (or tuple of axes, or None) a dim:
-    the reference's ``NamedSharding``, recorded, not applied."""
+    the reference's ``NamedSharding``.  Along a dim over several axes
+    the first is the outermost (major) one, as in a ``PartitionSpec``."""
     mesh: Any
     spec: Tuple
 
@@ -111,9 +119,34 @@ class MeshRules:
         return Placement(self.mesh, tuple(fitted))
 
     def constrain(self, x: torch.Tensor, *logical) -> torch.Tensor:
-        """The identity: every rank already holds the value its
-        placement would gather (see the module's docstring)."""
+        """The identity: activations are held at their global values
+        (this rank's slice of the batch), which is what the reference's
+        constraint gathers them to (see the module's docstring)."""
         return x
+
+    def gather(self, t: torch.Tensor, placement: Optional[Placement]
+               ) -> torch.Tensor:
+        """The global value of a leaf stored at ``placement``, gathered
+        over each axis it is sharded on (differentiable).  The gradient
+        of this rank's block is summed over an axis along which the
+        ranks hold different slices of the batch
+        (:meth:`split_batch_axes`), and taken as it is along any other
+        (a model axis, where every rank holds the whole gradient)."""
+        if placement is None:
+            return t
+        from ..core.distributed import gather_shards
+        summed = self.split_batch_axes()
+        for dim, ax in enumerate(placement.spec):
+            for a in reversed(_axes(ax)):   # innermost first
+                t = gather_shards(t, placement.mesh.get_group(a), dim,
+                                  a in summed)
+        return t
+
+    def gather_tree(self, tree, placements):
+        """:meth:`gather` over a tree and its tree of placements."""
+        if self.mesh is None:
+            return tree
+        return tree_map(self.gather, tree, placements)
 
     def group(self, name: str):
         """The process group of mesh axis ``name``."""
@@ -131,18 +164,97 @@ class MeshRules:
         return tuple(a for a in self.batch_axes if self.axis_size(a) > 1)
 
 
+def _axes(ax) -> Tuple[str, ...]:
+    """The mesh axes of one dim's entry of a spec."""
+    return () if ax is None else (tuple(ax) if isinstance(ax, (tuple, list))
+                                  else (ax,))
+
+
+def _ways(placement: Placement, ax) -> int:
+    sizes = mesh_shape(placement.mesh)
+    return math.prod(int(sizes[a]) for a in _axes(ax))
+
+
 def local_shape(shape: Sequence[int], placement: Optional[Placement]
                 ) -> Tuple[int, ...]:
     """One device's shard of ``shape`` under ``placement`` (the global
     shape without one): each dim over the product of its axes' sizes."""
     if placement is None:
         return tuple(shape)
-    sizes = mesh_shape(placement.mesh)
-    out = []
-    for dim, ax in zip(shape, placement.spec):
-        axes = () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
-        out.append(dim // math.prod(int(sizes[a]) for a in axes))
-    return tuple(out)
+    return tuple(dim // _ways(placement, ax)
+                 for dim, ax in zip(shape, placement.spec))
+
+
+def sharded_axes(placement: Optional[Placement]) -> Tuple[str, ...]:
+    """The mesh axes a leaf is split over (none for a replicated one)."""
+    if placement is None:
+        return ()
+    return tuple(a for ax in placement.spec for a in _axes(ax))
+
+
+def layer_placement(placement: Optional[Placement]) -> Optional[Placement]:
+    """One layer's placement of a stacked (leading-L) leaf's."""
+    if placement is None:
+        return None
+    if placement.spec[0] is not None:
+        raise ValueError(f"the layer dim of a stacked leaf is sharded: "
+                         f"{placement.spec}")
+    return Placement(placement.mesh, placement.spec[1:])
+
+
+def block_of(t: torch.Tensor, placement: Optional[Placement]
+             ) -> torch.Tensor:
+    """This rank's block of the whole value ``t`` under ``placement``, as
+    a view of ``t``.  Raises where a dim does not split evenly: a leaf
+    is never held whole in place of its block."""
+    if placement is None:
+        return t
+    if len(placement.spec) != t.ndim:
+        raise ValueError(f"placement {placement.spec} for a tensor of "
+                         f"shape {tuple(t.shape)}")
+    mesh = placement.mesh
+    for dim, ax in enumerate(placement.spec):
+        axes = _axes(ax)
+        if not axes:
+            continue
+        n = _ways(placement, ax)
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of shape {tuple(t.shape)} does "
+                             f"not split over {axes} ({n} ways)")
+        index = 0
+        for a in axes:   # outermost first
+            index = index * mesh_shape(mesh)[a] + mesh.get_local_rank(a)
+        size = t.shape[dim] // n
+        t = t.narrow(dim, index * size, size)
+    return t
+
+
+def place(t: torch.Tensor, placement: Optional[Placement]) -> torch.Tensor:
+    """This rank's block of the whole value ``t`` under ``placement``, in
+    storage of its own (so ``t`` can be freed); ``t`` itself where the
+    placement splits nothing."""
+    block = block_of(t, placement)
+    if block is t:
+        return t
+    return block.clone(memory_format=torch.contiguous_format)
+
+
+def gather(t: torch.Tensor, placement: Optional[Placement]) -> torch.Tensor:
+    """The whole value of ``t`` stored at ``placement`` (for reading it:
+    a checkpoint, a test; a layer uses :meth:`MeshRules.gather`)."""
+    if placement is None:
+        return t
+    return MeshRules(mesh=placement.mesh).gather(t, placement)
+
+
+def global_shape(t: torch.Tensor) -> Tuple[int, ...]:
+    """The whole shape of a leaf held at its placement (an abstract
+    leaf's, which carries it)."""
+    placement = placement_of(t)
+    if placement is None:
+        return tuple(t.shape)
+    return tuple(int(dim) * _ways(placement, ax)
+                 for dim, ax in zip(t.shape, placement.spec))
 
 
 def require_fake_mode() -> None:
@@ -155,13 +267,21 @@ def require_fake_mode() -> None:
 
 def abstract_leaf(shape: Sequence[int], dtype: torch.dtype, device,
                   placement: Optional[Placement] = None) -> torch.Tensor:
-    """A shape-only tensor: a ``FakeTensor`` of the global ``shape`` on
+    """A shape-only tensor: a ``FakeTensor`` of this rank's block of the
+    global ``shape`` under ``placement`` (what a rank holds) on
     ``device``, made with ``torch.empty`` inside the caller's active
     ``FakeTensorMode`` and carrying ``placement`` (the dry-run's inputs,
-    parameters and states).  Outside a fake mode it raises: it never
-    allocates (one DeepSeek-V3 expert stack is 15 GB)."""
+    parameters and states; :func:`global_shape` gives the whole shape
+    back).  Outside a fake mode it raises: it never allocates (one
+    DeepSeek-V3 expert stack is 15 GB)."""
     require_fake_mode()
-    t = torch.empty(tuple(shape), dtype=dtype, device=device)
+    if placement is not None:
+        for dim, ax in zip(shape, placement.spec):
+            if dim % _ways(placement, ax):
+                raise ValueError(f"shape {tuple(shape)} does not split "
+                                 f"by {placement.spec}")
+    t = torch.empty(local_shape(shape, placement), dtype=dtype,
+                    device=device)
     t.placement = placement
     return t
 

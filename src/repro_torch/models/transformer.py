@@ -3,7 +3,13 @@ encdec).
 
 The counterpart of the reference's ``models/transformer.py``.  Layers
 are *stacked* (leading L dim, as in the reference's parameter tree) and
-driven by a Python loop over L in place of ``lax.scan``.
+driven by a Python loop over L in place of ``lax.scan``: each stack is
+unbound once into its layers before the loop, so the backward pass
+writes one stack-sized gradient a stack, as the reference's scan does
+(indexing a layer at a time would write one a layer).  Under a mesh
+every leaf is stored at its placement (``models/sharding.py``) and a
+layer gathers its own leaves just before it runs, inside its remat
+region, so no gathered weight outlives its layer.
 Heterogeneous stacks (DeepSeek's dense then MoE layers; Zamba2's shared
 attention block every ``attn_every`` Mamba layers) are segments of such
 loops.
@@ -32,12 +38,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
-from ..tree import tree_map
+from ..tree import tree_flatten, tree_map, tree_unflatten
 from .attention import gqa_attention, make_attn_params, make_mla_params, \
     mla_attention
 from .layers import Maker, apply_norm, make_mlp_params, mlp
 from .moe import make_moe_params, moe_block
-from .sharding import MeshRules, NO_MESH, abstract_leaf
+from .sharding import (MeshRules, NO_MESH, Placement, abstract_leaf,
+                       block_of, gather, layer_placement, placement_of)
 from .ssm import make_mamba_params, mamba_block
 
 
@@ -50,7 +57,8 @@ class _Stacked:
 
     def param(self, shape, logical, **kw):
         return self._base.param((self._n,) + tuple(shape),
-                                (None,) + tuple(logical), **kw)
+                                (None,) + tuple(logical), stacked=True,
+                                **kw)
 
     def ones(self, shape, logical, **kw):
         return self._base.ones((self._n,) + tuple(shape),
@@ -189,22 +197,72 @@ def _layers(tree, lo: int, hi: int):
     return tree_map(lambda a: a[lo:hi], tree)
 
 
+def _unbind(tree) -> list:
+    """The per-layer trees of a stacked (leading-L) tree: one
+    ``unbind(0)`` a leaf (views), whose backward pass stacks the layers'
+    gradients once."""
+    paths, leaves = tree_flatten(tree)
+    return [tree_unflatten(paths, list(layer))
+            for layer in zip(*(leaf.unbind(0) for leaf in leaves))]
+
+
 def _stack(parts, join=torch.stack):
     """Per-layer (or per-segment) trees joined leaf by leaf."""
     return tree_map(lambda *xs: join(xs), *parts)
 
 
-def _scan_blocks(cfg, rules, stacked, x, positions, *, kind,
-                 caches=None, cache_index=None, make_cache=False,
-                 causal=True, enc_out=None, remat=False, q_chunk=1024):
-    """Run a homogeneous stacked group layer by layer.  Returns
-    (x, caches, aux): with ``make_cache`` the per-layer caches stacked on
-    a new leading L axis; with ``caches`` the same caches, updated in
-    place; ``aux`` the MoE layers' aux loss and drop fraction summed
-    (empty for a group without MoE layers).  With ``remat`` and grad
-    mode on, each layer keeps only its input for the backward pass and
-    recomputes the rest there (the reference's ``jax.checkpoint``)."""
+def _cache_places(cache) -> Any:
+    """One layer's placements of a stacked cache tree, with the batch dim
+    (axis 1) taken as held already (it is this rank's slice of the
+    batch, as every activation is); None for a cache held whole (one
+    made by prefill)."""
+    def one(t):
+        pl = placement_of(t)
+        if pl is None:
+            return None
+        return Placement(pl.mesh, (None,) + tuple(pl.spec[2:]))
+    places = tree_map(one, cache)
+    return (None if all(p is None for p in tree_flatten(places)[1])
+            else places)
+
+
+def _open_cache(held, places):
+    """A layer's cache at its global value: gathered where it is held at
+    a placement (a dry-run's decode), else itself."""
+    if places is None:
+        return held
+    return tree_map(gather, held, places)
+
+
+def _close_cache(held, whole, places) -> None:
+    """Write this rank's block of a gathered layer cache, updated in
+    place by the step, back into the cache it holds."""
+    if places is None:
+        return
+    for h, w, pl in zip(*(tree_flatten(t)[1] for t in (held, whole,
+                                                       places))):
+        if w is not h:
+            h.copy_(block_of(w, pl))
+
+
+def _scan_blocks(cfg, rules, layers, x, positions, *, kind, place=None,
+                 caches=None, cache_places=None, cache_index=None,
+                 make_cache=False, causal=True, enc_out=None, remat=False,
+                 q_chunk=1024):
+    """Run a homogeneous group layer by layer: ``layers`` is its list of
+    per-layer parameter trees (:func:`_unbind`) and ``place`` one layer's
+    placement tree, by which each layer gathers its leaves first (None:
+    nothing is placed).  Returns (x, caches, aux): with ``make_cache``
+    the per-layer caches stacked on a new leading L axis; with
+    ``caches`` the same caches, updated in place (``cache_places``:
+    :func:`_cache_places` of them); ``aux`` the MoE layers' aux loss and
+    drop fraction summed (empty for a group without MoE layers).  With
+    ``remat`` and grad mode on, each layer keeps only its input for the
+    backward pass and recomputes the rest there, its gathers included
+    (the reference's ``jax.checkpoint``)."""
     def block(x, lp, lcache):
+        if place is not None:
+            lp = rules.gather_tree(lp, place)
         if kind == "attn":
             return _attn_block(
                 cfg, rules, lp, x, positions, cache=lcache,
@@ -221,14 +279,13 @@ def _scan_blocks(cfg, rules, stacked, x, positions, *, kind,
             return torch.utils.checkpoint.checkpoint(
                 plain, x, lp, lcache, use_reentrant=False)
 
-    n = next(iter(stacked["attn" if kind == "attn" else "mixer"].values())
-             ).shape[0]
     made, aux_sum = [], None
-    for i in range(n):
-        lp = tree_map(lambda a: a[i], stacked)
-        lcache = (tree_map(lambda a: a[i], caches)
-                  if caches is not None else None)
+    for i, lp in enumerate(layers):
+        held = (tree_map(lambda a: a[i], caches)
+                if caches is not None else None)
+        lcache = _open_cache(held, cache_places)
         x, ncache, aux = block(x, lp, lcache)
+        _close_cache(held, lcache, cache_places)
         if aux:  # a MoE layer
             vec = torch.stack([aux["moe_aux_loss"], aux["moe_drop_frac"]])
             aux_sum = vec if aux_sum is None else aux_sum + vec
@@ -252,11 +309,36 @@ class Model:
     def init(self, seed: int = 0, device="cuda") -> dict:
         """Parameters drawn from a ``torch.Generator`` seeded with
         ``seed`` on ``device`` (the card unless the caller asks for the
-        CPU).  The numbers differ from the reference's ``jax.random``
-        ones; ``models.convert.params_from_reference`` carries the
-        reference's tree over instead."""
+        CPU), each held at its placement under a mesh: every rank draws
+        the same numbers and keeps its block.  The numbers differ from
+        the reference's ``jax.random`` ones;
+        ``models.convert.params_from_reference`` carries the reference's
+        tree over instead."""
         gen = torch.Generator(device=device).manual_seed(seed)
         return build_params(self.cfg, "init", self.rules, gen, device)
+
+    def placements(self) -> dict:
+        """The parameter tree's placements (``Placement`` or None a
+        leaf): where each leaf is held, and what a layer gathers."""
+        if "_placements" not in self.__dict__:
+            self.__dict__["_placements"] = build_params(
+                self.cfg, "placement", self.rules)
+        return self.__dict__["_placements"]
+
+    def _whole(self, params, name):
+        """``params[name]`` (a leaf or a block's tree) at its global
+        value, gathered where it is placed."""
+        if self.rules.mesh is None:
+            return params[name]
+        return self.rules.gather_tree(params[name], self.placements()[name])
+
+    def _group(self, params, name) -> dict:
+        """The keyword arguments of :func:`_scan_blocks` for the stacked
+        group ``name``: its layers and one layer's placements."""
+        place = None
+        if self.rules.mesh is not None:
+            place = tree_map(layer_placement, self.placements()[name])
+        return {"layers": _unbind(params[name]), "place": place}
 
     def abstract(self, device="cuda") -> dict:
         """The parameter tree as fake tensors on ``device``, each with
@@ -348,18 +430,18 @@ class Model:
     def _embed(self, params, tokens=None, embeds=None):
         if embeds is not None:
             return embeds.to(_dtype_of(self.cfg))
-        return params["embed"][tokens]
+        return self._whole(params, "embed")[tokens]
 
     def head_matrix(self, params) -> torch.Tensor:
-        """(d_model, vocab) unembedding matrix."""
-        return (params["embed"].T if self.cfg.tie_embeddings
-                else params["lm_head"])
+        """(d_model, vocab) unembedding matrix, at its global value."""
+        return (self._whole(params, "embed").T if self.cfg.tie_embeddings
+                else self._whole(params, "lm_head"))
 
     def _logits(self, params, x):
         """float32 logits: the reference's dot with
         preferred_element_type=f32, i.e. products of the stored values
         summed in f32 (not a bf16 result widened afterwards)."""
-        x = apply_norm(self.cfg, x, params["final_norm"])
+        x = apply_norm(self.cfg, x, self._whole(params, "final_norm"))
         head = self.head_matrix(params).to(x.dtype)
         logits = torch.matmul(x.float(), head.float())
         return self.rules.constrain(logits, "batch", "seq", "model")
@@ -368,9 +450,10 @@ class Model:
         cfg, rules = self.cfg, self.rules
         x = enc_embeds.to(_dtype_of(cfg))
         pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-        x, _, _ = _scan_blocks(cfg, rules, params["enc_blocks"], x, pos,
+        x, _, _ = _scan_blocks(cfg, rules, x=x, positions=pos,
+                               **self._group(params, "enc_blocks"),
                                kind="attn", causal=False, remat=remat)
-        return apply_norm(cfg, x, params["enc_norm"])
+        return apply_norm(cfg, x, self._whole(params, "enc_norm"))
 
     # ----------------------------------------------------------- forward
     def train_logits(self, params, *, tokens=None, embeds=None,
@@ -387,34 +470,34 @@ class Model:
         remat = cfg.remat
         aux: Dict[str, torch.Tensor] = {}
 
+        def scan(name, x, **kw):
+            return _scan_blocks(cfg, rules, x=x, positions=pos,
+                                **self._group(params, name), remat=remat,
+                                **kw)
+
         if cfg.family == "dense":
-            x, _, _ = _scan_blocks(cfg, rules, params["blocks"], x, pos,
-                                   kind="attn", remat=remat)
+            x, _, _ = scan("blocks", x, kind="attn")
         elif cfg.family == "moe":
             if cfg.n_dense_layers:
-                x, _, _ = _scan_blocks(cfg, rules, params["dense_blocks"], x,
-                                       pos, kind="attn", remat=remat)
-            x, _, aux = _scan_blocks(cfg, rules, params["moe_blocks"], x, pos,
-                                     kind="attn", remat=remat)
+                x, _, _ = scan("dense_blocks", x, kind="attn")
+            x, _, aux = scan("moe_blocks", x, kind="attn")
             if cfg.mtp:
-                xm, _, _ = _attn_block(cfg, rules, params["mtp_block"],
-                                       apply_norm(cfg, x, params["mtp_norm"]),
-                                       pos)
+                xm, _, _ = _attn_block(
+                    cfg, rules, self._whole(params, "mtp_block"),
+                    apply_norm(cfg, x, self._whole(params, "mtp_norm")), pos)
                 aux["mtp_hidden"] = xm
         elif cfg.family == "ssm":
-            x, _, _ = _scan_blocks(cfg, rules, params["blocks"], x, pos,
-                                   kind="mamba", remat=remat)
+            x, _, _ = scan("blocks", x, kind="mamba")
         elif cfg.family == "hybrid":
             x, _ = self._hybrid_stack(params, x, pos, remat=remat)
         elif cfg.family == "encdec":
             enc = self._encode(params, enc_embeds, remat)
-            x, _, _ = _scan_blocks(cfg, rules, params["dec_blocks"], x, pos,
-                                   kind="attn", enc_out=enc, remat=remat)
+            x, _, _ = scan("dec_blocks", x, kind="attn", enc_out=enc)
         if return_hidden:
-            xh = apply_norm(cfg, x, params["final_norm"])
+            final = self._whole(params, "final_norm")
+            xh = apply_norm(cfg, x, final)
             if "mtp_hidden" in aux:
-                aux["mtp_hidden"] = apply_norm(cfg, aux["mtp_hidden"],
-                                               params["final_norm"])
+                aux["mtp_hidden"] = apply_norm(cfg, aux["mtp_hidden"], final)
             return xh, aux
         logits = self._logits(params, x)
         if "mtp_hidden" in aux:
@@ -435,23 +518,30 @@ class Model:
         bounds = [(s * period, (s + 1) * period) for s in range(n_seg)]
         if cfg.n_layers > n_seg * period:
             bounds.append((n_seg * period, cfg.n_layers))
+        group = self._group(params, "blocks")
+        places = {k: _cache_places(v) for k, v in (caches or {}).items()}
         new_mamba, new_attn = [], []
         for s, (lo, hi) in enumerate(bounds):
             seg_cache = (_layers(caches["mamba"], lo, hi)
                          if caches is not None else None)
-            x, nm, _ = _scan_blocks(cfg, rules,
-                                    _layers(params["blocks"], lo, hi), x,
-                                    pos, kind="mamba", caches=seg_cache,
+            x, nm, _ = _scan_blocks(cfg, rules, group["layers"][lo:hi], x,
+                                    pos, kind="mamba", place=group["place"],
+                                    caches=seg_cache,
+                                    cache_places=places.get("mamba"),
                                     make_cache=make_cache,
                                     cache_index=cache_index, remat=remat)
             new_mamba.append(nm)
             if s == n_seg:  # the remainder: no shared block after it
                 break
-            a_cache = (tree_map(lambda a: a[s], caches["attn"])
-                       if caches is not None else None)
-            x, na, _ = _attn_block(cfg, rules, params["shared_attn"], x, pos,
-                                   cache=a_cache, cache_index=cache_index,
+            held = (tree_map(lambda a: a[s], caches["attn"])
+                    if caches is not None else None)
+            a_cache = _open_cache(held, places.get("attn"))
+            x, na, _ = _attn_block(cfg, rules,
+                                   self._whole(params, "shared_attn"), x,
+                                   pos, cache=a_cache,
+                                   cache_index=cache_index,
                                    make_cache=make_cache)
+            _close_cache(held, a_cache, places.get("attn"))
             new_attn.append(na)
         if make_cache:
             return x, {"mamba": _stack(new_mamba, torch.cat),
@@ -481,29 +571,27 @@ class Model:
         x = self._embed(params, tokens, embeds)
         pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         cache: Dict[str, Any] = {}
+
+        def scan(name, x, **kw):
+            return _scan_blocks(cfg, rules, x=x, positions=pos,
+                                **self._group(params, name),
+                                make_cache=True, **kw)
+
         if cfg.family == "dense":
-            x, cache["blocks"], _ = _scan_blocks(
-                cfg, rules, params["blocks"], x, pos, kind="attn",
-                make_cache=True)
+            x, cache["blocks"], _ = scan("blocks", x, kind="attn")
         elif cfg.family == "moe":
             if cfg.n_dense_layers:
-                x, cache["dense_blocks"], _ = _scan_blocks(
-                    cfg, rules, params["dense_blocks"], x, pos, kind="attn",
-                    make_cache=True)
-            x, cache["moe_blocks"], _ = _scan_blocks(
-                cfg, rules, params["moe_blocks"], x, pos, kind="attn",
-                make_cache=True)
+                x, cache["dense_blocks"], _ = scan("dense_blocks", x,
+                                                   kind="attn")
+            x, cache["moe_blocks"], _ = scan("moe_blocks", x, kind="attn")
         elif cfg.family == "ssm":
-            x, cache["blocks"], _ = _scan_blocks(
-                cfg, rules, params["blocks"], x, pos, kind="mamba",
-                make_cache=True)
+            x, cache["blocks"], _ = scan("blocks", x, kind="mamba")
         elif cfg.family == "hybrid":
             x, cache = self._hybrid_stack(params, x, pos, make_cache=True)
         elif cfg.family == "encdec":
             enc = self._encode(params, enc_embeds)
-            x, cache["dec_blocks"], _ = _scan_blocks(
-                cfg, rules, params["dec_blocks"], x, pos, kind="attn",
-                enc_out=enc, make_cache=True)
+            x, cache["dec_blocks"], _ = scan("dec_blocks", x, kind="attn",
+                                             enc_out=enc)
         return self._logits(params, x[:, -1:, :]), cache
 
     def decode(self, params, cache: dict, token: torch.Tensor,
@@ -512,7 +600,7 @@ class Model:
         of tokens already in the cache).  The cache is updated in place
         and returned."""
         cfg, rules = self.cfg, self.rules
-        x = params["embed"][token[:, None]]
+        x = self._embed(params, token[:, None])
         positions = pos_index[:, None]
         if cfg.family == "hybrid":
             x, _ = self._hybrid_stack(params, x, positions, caches=cache,
@@ -524,9 +612,11 @@ class Model:
                 cfg.family, ("blocks",))
             for g in groups:
                 if g in cache:
-                    x, _, _ = _scan_blocks(cfg, rules, params[g], x,
-                                           positions, kind=kind,
-                                           caches=cache[g],
-                                           cache_index=pos_index)
+                    x, _, _ = _scan_blocks(
+                        cfg, rules, x=x, positions=positions,
+                        **self._group(params, g), kind=kind,
+                        caches=cache[g],
+                        cache_places=_cache_places(cache[g]),
+                        cache_index=pos_index)
         logits = self._logits(params, x)
         return logits[:, 0, :], cache

@@ -8,6 +8,12 @@ tensors under ``torch.no_grad()`` and returns new trees, as the
 reference's functional update does.  The scalar arithmetic (schedule,
 bias corrections, clip scale) runs in float32 tensors on the step's
 device, as the reference's runs in float32 arrays.
+
+Under a mesh each parameter, its gradient and its f32 moments are held
+at the parameter's placement (``models/sharding.py``): the update is
+elementwise, so each rank updates its blocks, and the clip's global norm
+sums each leaf's squares over the ranks that hold its blocks.  The int8
+moment states are on no train path and are held whole.
 """
 from __future__ import annotations
 
@@ -47,7 +53,8 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_state(params: Any) -> dict:
-    """m/v in f32 beside each parameter, step an int32 scalar."""
+    """m/v in f32 beside each parameter (of its held shape: this rank's
+    block under a mesh), step an int32 scalar."""
     def zeros(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     device = tree_flatten(params)[1][0].device
@@ -59,29 +66,49 @@ def abstract_state(params: Any) -> dict:
     """The shape-only twin of :func:`init_state` for the dry-run: fake
     f32 moments beside each (fake) parameter, carrying its placement,
     and an int32 scalar step; inside an active ``FakeTensorMode``."""
-    from ..models.sharding import abstract_leaf, placement_of
+    from ..models.sharding import abstract_leaf, global_shape, placement_of
 
     def leaf(p):
-        return abstract_leaf(p.shape, torch.float32, p.device,
+        return abstract_leaf(global_shape(p), torch.float32, p.device,
                              placement_of(p))
     device = tree_flatten(params)[1][0].device
     return {"m": tree_map(leaf, params), "v": tree_map(leaf, params),
             "step": abstract_leaf((), torch.int32, device)}
 
 
+def state_placements(placements: Any) -> dict:
+    """The placements of :func:`init_state`'s tree: each moment at its
+    parameter's, the step whole."""
+    return {"m": placements, "v": placements, "step": None}
+
+
 @torch.no_grad()
-def global_norm(tree: Any) -> torch.Tensor:
-    total = None
-    for g in tree_flatten(tree)[1]:
+def global_norm(tree: Any, placements: Any = None) -> torch.Tensor:
+    """The norm of the whole gradient.  With ``placements`` (the tree's,
+    under a mesh) the squares of the leaves sharded on the same axes are
+    summed locally, then over those axes' ranks, so each element counts
+    once, a replicated leaf's too."""
+    from ..models.sharding import sharded_axes
+    leaves = tree_flatten(tree)[1]
+    places = ([None] * len(leaves) if placements is None
+              else tree_flatten(placements)[1])
+    by_axes = {}
+    for g, pl in zip(leaves, places):
         sq = torch.sum(torch.square(g.float()))
+        key = (sharded_axes(pl), pl and pl.mesh)
+        by_axes[key] = sq if key not in by_axes else by_axes[key] + sq
+    total = None
+    for (axes, mesh), sq in by_axes.items():
+        for ax in axes:
+            sq = all_reduce(sq, mesh.get_group(ax))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Any, max_norm: float
+def clip_by_global_norm(grads: Any, max_norm: float, placements: Any = None
                         ) -> Tuple[Any, torch.Tensor]:
-    norm = global_norm(grads)
+    norm = global_norm(grads, placements)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
@@ -99,10 +126,11 @@ def _leaves_like(params: Any, *trees):
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params: Any, grads: Any, state: dict
-                  ) -> Tuple[Any, dict, dict]:
-    """One AdamW step.  Returns (new_params, new_state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+def apply_updates(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
+                  placements: Any = None) -> Tuple[Any, dict, dict]:
+    """One AdamW step (``placements``: the parameters', under a mesh).
+    Returns (new_params, new_state, metrics)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, placements)
     step = state["step"] + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

@@ -6,7 +6,8 @@ The reference's suite matches ``\\brepro\\.``, which never matches
 
 * every dotted ``repro_torch.*`` path resolves by import + getattr;
 * every ``--flag`` shown next to one of the port's runnables
-  (``python -m repro_torch.<module>``, ``chip_smoke.py``, ``tools/*.py``)
+  (``python -m repro_torch.<module>``, ``chip_smoke.py``, ``tools/*.py``,
+  ``examples/torch_*.py``)
   is registered by that runnable's argparse (its ``--help``; a script
   without argparse is never run, since some need a card);
 * every ``BLASX_*`` variable the section names is read under
@@ -56,6 +57,8 @@ _RUNNABLES = {
     r"chip_smoke\.py": REPO_ROOT / "chip_smoke.py",
     **{re.escape(f"tools/{p.name}"): p
        for p in sorted((REPO_ROOT / "tools").glob("*.py"))},
+    **{re.escape(f"examples/{p.name}"): p
+       for p in sorted((REPO_ROOT / "examples").glob("torch_*.py"))},
 }
 
 
