@@ -2037,13 +2037,54 @@ DRYRUN_EXTRA = (("qwen3_0_6b", "decode_32k", ()),
                  ("--multi-pod", "--no-costs")))
 DRYRUN_WORKERS = 8
 DRYRUN_TIMEOUT_S = 420
+# the parent's figures a rank for each cell of the sweep, before a layer
+# computed on its model blocks: (FLOPs, temp bytes), this phase's (b) on
+# an NVIDIA H100 80GB HBM3 at 700 W (PR 22's last call); the multi-pod
+# cells run without costs
+PR22_DRYRUN = {
+    ("internvl2_26b", "train_4k", "single"): (8076079335997440, 168223157000),
+    ("internvl2_26b", "prefill_32k", "single"): (1637724844154880,
+                                                 26575241216),
+    ("olmo_1b", "train_4k", "single"): (590575183069184, 36913055752),
+    ("olmo_1b", "prefill_32k", "single"): (99506214404096, 17716871168),
+    ("phi3_medium_14b", "train_4k", "single"): (5946468120657920,
+                                                139238983688),
+    ("phi3_medium_14b", "prefill_32k", "single"): (1206887865384960,
+                                                   28185853952),
+    ("qwen3_0_6b", "train_4k", "single"): (485881060261888, 49384610824),
+    ("qwen3_0_6b", "prefill_32k", "single"): (39686120144896, 15300952064),
+    ("glm4_9b", "train_4k", "single"): (3855059565674496, 109203087368),
+    ("glm4_9b", "prefill_32k", "single"): (711077268553728, 11162222592),
+    ("deepseek_v3_671b", "train_4k", "single"): (11660810438836224,
+                                                 371433910284),
+    ("deepseek_v3_671b", "prefill_32k", "single"): (12012073750888448,
+                                                    125275602968),
+    ("olmoe_1b_7b", "train_4k", "single"): (336587997052928, 50538802712),
+    ("olmoe_1b_7b", "prefill_32k", "single"): (35459662086144, 20354043928),
+    ("seamless_m4t_medium", "train_4k", "single"): (464516819189760,
+                                                    53645344520),
+    ("seamless_m4t_medium", "prefill_32k", "single"): (147919723094016,
+                                                       16764895232),
+    ("zamba2_2_7b", "train_4k", "single"): (1471221719891968, 465503573000),
+    ("zamba2_2_7b", "prefill_32k", "single"): (383570971983872,
+                                               38782638336),
+    ("mamba2_780m", "train_4k", "single"): (419203840475136, 34653154696),
+    ("mamba2_780m", "prefill_32k", "single"): (102100271480832,
+                                               38475340288),
+    ("qwen3_0_6b", "decode_32k", "single"): (67463282688, 4360589408),
+    ("qwen3_0_6b", "train_4k", "multi"): (None, 24718826504),
+    ("deepseek_v3_671b", "train_4k", "multi"): (None, 238155313164),
+}
 
 
 def _dryrun_sweep(card: str, smoke: bool):
     """Phase 12 (b): ``python -m repro_torch.launch.dryrun`` for every
     cell of the sweep, one process a cell, DRYRUN_WORKERS at a time (a
     fake process group must not meet this process's NCCL one); every
-    process must exit 0.  Returns the cells' records."""
+    process must exit 0 and hold its arguments at their placements.
+    Each cell's FLOPs and temp bytes a rank are printed beside
+    PR22_DRYRUN's, with its model-axis all-gather bytes.  Returns the
+    cells' records."""
     import tempfile
     from repro_torch.configs import ARCH_IDS
     archs = ["qwen3_0_6b"] if smoke else [a for a in ARCH_IDS
@@ -2091,11 +2132,22 @@ def _dryrun_sweep(card: str, smoke: bool):
             held, placed, temp = (mem.get(k, 0) / 2 ** 30 for k in (
                 "argument_size_in_bytes", "argument_size_placed_in_bytes",
                 "temp_size_in_bytes"))
+            flops = rec.get("flops_per_rank")
+            old_flops, old_temp = PR22_DRYRUN.get(
+                (arch, shape, rec["mesh"]), (None, None))
+            gathers = rec.get("collectives_by_axis", {}).get(
+                "model", {}).get("all-gather", 0)
+            vs = (f"; a rank: FLOPs "
+                  f"{'n/a' if flops is None else f'{flops:.4e}'} (PR 22 "
+                  f"{'n/a' if old_flops is None else f'{old_flops:.4e}'}"
+                  f"), temp {temp:.2f} GiB (PR 22 "
+                  f"{'n/a' if old_temp is None else f'{old_temp / 2**30:.2f}'}"
+                  f"), model-axis all-gather {gathers} bytes")
             print(f"[dryrun] {arch} x {shape} x {rec['mesh']} "
                   f"({rec['status']}, {rec.get('device')}): held "
                   f"{held:.2f} GiB, placed {placed:.3f} GiB, temp "
                   f"{temp:.2f} GiB, trace {rec.get('compile_s', 0):.1f} s"
-                  f"{terms} | {card}", flush=True)
+                  f"{terms}{vs} | {card}", flush=True)
     return records, wall
 
 
@@ -2276,7 +2328,12 @@ def phase_dryrun(card: str, device: str = "cuda", smoke: bool = False):
     numbers["sweep_wall_s"] = wall
     numbers["sweep"] = [
         {k: r.get(k) for k in ("arch", "shape", "mesh", "status", "device",
-                               "compile_s", "memory", "reason")}
+                               "compile_s", "memory", "reason",
+                               "flops_per_rank", "collectives_by_axis")}
+        | {"pr22_flops_per_rank": PR22_DRYRUN.get(
+            (r["arch"], r["shape"], r["mesh"]), (None, None))[0],
+           "pr22_temp_bytes": PR22_DRYRUN.get(
+            (r["arch"], r["shape"], r["mesh"]), (None, None))[1]}
         | ({} if "roofline" not in r else {"roofline": {
             k: r["roofline"][k] for k in (
                 "hlo_flops", "hlo_bytes", "coll_bytes", "compute_s",

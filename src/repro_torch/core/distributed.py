@@ -32,7 +32,14 @@ Every collective a call issues is counted in :data:`COLLECTIVES` (P2P
 hops, all-gathers, reduce-scatters, all-reduces), so a test can see
 what a schedule lowers to, and its operand bytes are added to
 :data:`COLLECTIVE_BYTES` under the reference's HLO kind names (the
-dry-run's collective term, ``launch/roofline.py``).  The local products are ``torch.matmul``,
+dry-run's collective term, ``launch/roofline.py``); both are also kept
+by mesh axis (:data:`COLLECTIVES_BY_AXIS`, :data:`COLLECTIVE_BYTES_BY_AXIS`)
+for the groups taken through :func:`axis_group`.
+
+The model stack's tensor-parallel pieces are here too: the Megatron
+pair :func:`replicated` / :func:`psum`, and the vocab-parallel
+embedding lookup and cross-entropy over a vocab-sharded table or
+logits (:func:`vocab_parallel_embed`, :func:`vocab_parallel_ce`).  The local products are ``torch.matmul``,
 as the reference's are ``jnp.dot``: no Pallas kernel runs there.
 """
 from __future__ import annotations
@@ -54,16 +61,43 @@ COLLECTIVE_BYTES = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0,
                     "all-to-all": 0, "collective-permute": 0}
 
 
+# the same by mesh axis ({axis: {kind: n}}, {axis: {hlo kind: bytes}}):
+# a group taken through axis_group counts under its axis' name, any
+# other under "other"
+COLLECTIVES_BY_AXIS: dict = {}
+COLLECTIVE_BYTES_BY_AXIS: dict = {}
+# id(group) -> (group, axis name), filled by axis_group (the group is
+# kept so that its id is never reused by another)
+_AXIS_OF: dict = {}
+
+
 def reset_collectives() -> None:
     for kind in COLLECTIVES:
         COLLECTIVES[kind] = 0
     for kind in COLLECTIVE_BYTES:
         COLLECTIVE_BYTES[kind] = 0
+    COLLECTIVES_BY_AXIS.clear()
+    COLLECTIVE_BYTES_BY_AXIS.clear()
 
 
-def _count(kind: str, hlo_kind: str, operand: torch.Tensor) -> None:
+def axis_group(mesh, name: str):
+    """The process group of ``mesh``'s axis ``name``, remembered as that
+    axis' so that its collectives are counted by axis."""
+    group = mesh.get_group(name)
+    _AXIS_OF[id(group)] = (group, name)
+    return group
+
+
+def _count(kind: str, hlo_kind: str, operand: torch.Tensor,
+           group=None) -> None:
+    n = operand.numel() * operand.element_size()
     COLLECTIVES[kind] += 1
-    COLLECTIVE_BYTES[hlo_kind] += operand.numel() * operand.element_size()
+    COLLECTIVE_BYTES[hlo_kind] += n
+    axis = _AXIS_OF.get(id(group), (None, "other"))[1]
+    counts = COLLECTIVES_BY_AXIS.setdefault(axis, {})
+    counts[kind] = counts.get(kind, 0) + 1
+    nbytes = COLLECTIVE_BYTES_BY_AXIS.setdefault(axis, {})
+    nbytes[hlo_kind] = nbytes.get(hlo_kind, 0) + n
 
 
 def mesh_shape(mesh) -> dict:
@@ -105,7 +139,7 @@ def _hop(send: torch.Tensor, group) -> tuple:
     reqs = dist.batch_isend_irecv([
         dist.P2POp(dist.isend, send.contiguous(), nxt, group),
         dist.P2POp(dist.irecv, recv, prv, group)])
-    _count("p2p", "collective-permute", send)
+    _count("p2p", "collective-permute", send, group)
     return recv, reqs
 
 
@@ -115,17 +149,19 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     d = dist.get_world_size(group)
     out = x.new_empty((d * x.shape[0],) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-    _count("all_gather", "all-gather", x)
+    _count("all_gather", "all-gather", x, group)
     if dim == 0:
         return out
     return torch.cat(out.chunk(d, dim=0), dim=dim)
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """Sum of the ranks' ``x``, in ``x``'s dtype (``lax.psum``)."""
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """Sum (or, with ``op="max"``, maximum) of the ranks' ``x``, in
+    ``x``'s dtype (``lax.psum`` / ``lax.pmax``)."""
     out = x.clone()
-    dist.all_reduce(out, group=group)
-    _count("all_reduce", "all-reduce", x)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=group)
+    _count("all_reduce", "all-reduce", x, group)
     return out
 
 
@@ -133,7 +169,7 @@ def _reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     d = dist.get_world_size(group)
     out = x.new_empty((x.shape[0] // d,) + tuple(x.shape[1:]))
     dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
-    _count("reduce_scatter", "reduce-scatter", x)
+    _count("reduce_scatter", "reduce-scatter", x, group)
     return out
 
 
@@ -230,6 +266,59 @@ def replicated(x: torch.Tensor, group) -> torch.Tensor:
     """``x``, held alike by every rank of ``group``, entering a region
     where each rank uses its own shard of it (differentiable)."""
     return _Replicated.apply(x, group)
+
+
+def vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor, group,
+                         start: int) -> torch.Tensor:
+    """Rows ``tokens`` of an embedding table whose vocab is split over
+    ``group``: ``table`` is this rank's rows ``start`` .. ``start +
+    len(table)``; a token outside them gives zeros here, and the sum
+    over the group (one all-reduce; exactly one rank adds a nonzero row)
+    is the lookup.  Differentiable: each rank's rows get the gradient
+    of the tokens it holds."""
+    local = tokens.long() - start
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    rows = torch.where(inside[..., None], rows, rows.new_zeros(()))
+    return psum(rows, group)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token cross-entropy ``logsumexp(z) - z[label]`` over logits
+    whose vocab is split over ``group`` (this rank's columns ``start``
+    ..): the row maximum is all-reduced (max), then the sum of
+    exponents and the label's logit, taken from the rank that holds it,
+    in one all-reduce.  Backward, this rank's block of ``softmax -
+    onehot``."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group, start):
+        vl = logits.shape[-1]
+        m = all_reduce(logits.detach().amax(-1), group, op="max")
+        e = torch.exp(logits - m[..., None])
+        local = labels.long() - start
+        inside = (local >= 0) & (local < vl)
+        idx = local.clamp(0, vl - 1)
+        picked = torch.where(inside, logits.gather(-1, idx[..., None])[..., 0],
+                             logits.new_zeros(()))
+        sums = all_reduce(torch.stack([e.sum(-1), picked]), group)
+        ctx.save_for_backward(e, sums[0], idx, inside)
+        return m + torch.log(sums[0]) - sums[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        e, total, idx, inside = ctx.saved_tensors
+        d = e / total[..., None]
+        d.scatter_add_(-1, idx[..., None], -inside.to(d.dtype)[..., None])
+        return d * grad[..., None], None, None, None
+
+
+def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, group,
+                      start: int) -> torch.Tensor:
+    """Per-token cross-entropy (the shape of ``labels``) of logits split
+    over ``group`` by vocab, this rank's columns from ``start``
+    (differentiable in ``logits``)."""
+    return _VocabParallelCE.apply(logits, labels, group, start)
 
 
 # --------------------------------------------------------------------------
@@ -348,7 +437,7 @@ def distributed_gemm(A: torch.Tensor, B: torch.Tensor, mesh, *,
     shape = mesh_shape(mesh)
     dr, dc = shape[row_axis], shape[col_axis]
     r, c = mesh.get_local_rank(row_axis), mesh.get_local_rank(col_axis)
-    rows, cols = mesh.get_group(row_axis), mesh.get_group(col_axis)
+    rows, cols = axis_group(mesh, row_axis), axis_group(mesh, col_axis)
     m, k = A.shape
     mr, kc = -(-m // dr), -(-k // dc)
     A = torch.nn.functional.pad(A, (0, kc * dc - k, 0, mr * dr - m))
@@ -389,7 +478,7 @@ def tp_matmul(x: torch.Tensor, w: torch.Tensor, mesh, *, axis: str = "model",
         raise ValueError(f"kind must be column|row, got {kind}")
     shape = mesh_shape(mesh)
     d, j = shape[axis], mesh.get_local_rank(axis)
-    group = mesh.get_group(axis)
+    group = axis_group(mesh, axis)
     bsz, s = x.shape[0], x.shape[1]
     db = shape[batch_axis] if batch_axis else 1
     if bsz % db:
@@ -422,5 +511,5 @@ def tp_matmul(x: torch.Tensor, w: torch.Tensor, mesh, *, axis: str = "model",
         y = rs(x2, w[j * fl:(j + 1) * fl], group).reshape(bl, sl, -1)
         y = all_gather(y, group, dim=1)                    # (bl, sp, N)
     if batch_axis:
-        y = all_gather(y, mesh.get_group(batch_axis))
+        y = all_gather(y, axis_group(mesh, batch_axis))
     return y[:, :s]

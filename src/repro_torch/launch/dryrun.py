@@ -10,8 +10,13 @@ of the ``fake`` backend, whose collectives move nothing:
   * the single-pod (16, 16) mesh (256 ranks, axes data x model), and
   * the 2-pod (2, 16, 16) mesh (512 ranks, axes pod x data x model).
 
-Nothing is allocated and no card is needed.  What it reports for the
-step, rank 0's per-device program as the reference's HLO is:
+Nothing is allocated and no card is needed.  Rank 0 computes what a
+rank of the mesh computes: its slice of the batch along the batch axes,
+and within it its model block of each layer (its q heads, ff width,
+experts and vocab; k/v whole where the model axis does not divide the
+kv heads, and the SSM mixer and MLA's up-projections whole), its leaves
+gathered over the batch/FSDP axes only.  What it reports for the step,
+rank 0's per-device program as the reference's HLO is:
 
   * ``memory`` — ``argument_size_in_bytes``: the bytes the port's rank
     holds (its blocks of the parameters, optimizer state or cache, and
@@ -33,7 +38,8 @@ step, rank 0's per-device program as the reference's HLO is:
     the input and output bytes of every aten op that is not a view,
     unfused, so the memory term is an upper bound; collective bytes:
     the operand bytes ``core.distributed`` counts by kind.  All three
-    are scaled by the chips, as in the reference.
+    are scaled by the chips, as in the reference.  ``collectives_by_axis``
+    keeps the collective bytes by mesh axis, unscaled (rank 0's).
   * ``roofline`` — ``launch.roofline.Roofline`` with the H100's figures.
 
 ``FlopCounterMode`` counts matmul-class operators (and attention by
@@ -202,8 +208,9 @@ def trace_step(cfg, shape, rules, *, device: Optional[str] = None,
     ``FakeTensorMode``, as this rank of ``rules``' mesh (train, prefill
     with ``serving_rules``, or decode, as the reference's
     ``_lower_step`` builds it).  Returns this rank's ``memory``,
-    ``flops``, ``bytes`` and ``coll`` (collective operand bytes by
-    kind), unscaled, and the trace's ``seconds``."""
+    ``flops``, ``bytes``, ``coll`` (collective operand bytes by kind)
+    and ``coll_by_axis`` (the same by mesh axis), unscaled, and the
+    trace's ``seconds``."""
     device = device or default_device()
     t0 = time.perf_counter()
     with FakeTensorMode():
@@ -247,6 +254,8 @@ def trace_step(cfg, shape, rules, *, device: Optional[str] = None,
             "flops": float(fc.get_total_flops()) if costs else None,
             "bytes": float(tally.accessed) if costs else None,
             "coll": dict(D.COLLECTIVE_BYTES),
+            "coll_by_axis": {a: dict(c) for a, c in
+                             D.COLLECTIVE_BYTES_BY_AXIS.items()},
             "device": device, "seconds": time.perf_counter() - t0}
 
 
@@ -294,7 +303,9 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         tr = trace_step(cfg, shape, rules, device=device, costs=costs)
     result = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
               "status": "ok", "chips": chips, "device": device,
-              "compile_s": tr["seconds"], "memory": tr["memory"]}
+              "compile_s": tr["seconds"], "memory": tr["memory"],
+              "flops_per_rank": tr["flops"],
+              "collectives_by_axis": tr["coll_by_axis"]}
     label = f"{arch} x {shape_name} x {'2x16x16' if multi_pod else '16x16'}"
     if not costs:
         if verbose:
@@ -319,6 +330,7 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         print(f"   cost_analysis: flops={roof.hlo_flops:.3e} "
               f"bytes={roof.hlo_bytes:.3e}")
         print(f"   collectives: { {k: v for k, v in coll.items() if v} }")
+        print(f"   collectives by axis (rank 0): {tr['coll_by_axis']}")
         print(f"   roofline: compute={roof.compute_s:.4f}s "
               f"memory={roof.memory_s:.4f}s "
               f"collective={roof.collective_s:.4f}s "

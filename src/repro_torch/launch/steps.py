@@ -8,6 +8,8 @@ gradients and moments are held at their placements
 (``models/sharding.py``): a gradient comes out of its layer's gather
 already summed over the batch axes it is sharded on (a reduce-scatter),
 is all-reduced over the others, and AdamW updates each rank's blocks.
+The cross-entropy runs on this rank's vocab block of the logits where
+the model axis splits the vocab (``core.distributed.vocab_parallel_ce``).
 ``input_specs`` and ``abstract_*`` give the shape-only inputs and states
 the dry-run (``launch/dryrun.py``) traces the steps on: fake tensors of
 each rank's blocks with the reference's placements, built inside an
@@ -22,7 +24,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
-from ..core.distributed import all_reduce
+from ..core.distributed import all_reduce, replicated
 from ..models import Model
 from ..models.sharding import MeshRules, abstract_leaf, sharded_axes
 from ..optim import adamw
@@ -40,11 +42,14 @@ CE_CHUNKS = 16
 
 def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor,
                 labels: torch.Tensor, rules: MeshRules, mask=None,
-                n_chunks: int = CE_CHUNKS) -> torch.Tensor:
+                n_chunks: int = CE_CHUNKS,
+                vocab: Optional[int] = None) -> torch.Tensor:
     """Mean next-token CE without a full logits tensor.  ``mask``
     (B, S) of {0,1} optionally excludes positions.  Each chunk's logits
     are the stored values' products summed in f32, as the reference's
-    ``preferred_element_type=f32`` dot."""
+    ``preferred_element_type=f32`` dot.  Where the model axis splits
+    ``vocab`` (the global vocab; default ``head``'s width), ``head`` is
+    this rank's column block and the loss is the vocab-parallel one."""
     B, S, d = hidden.shape
     while S % n_chunks != 0 and n_chunks > 1:
         n_chunks //= 2
@@ -52,13 +57,24 @@ def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor,
         mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
     w32 = head.to(hidden.dtype).float()
     cs = S // n_chunks
+    ways = rules.model_ways(vocab or head.shape[1])
+    if ways > 1:
+        from ..core.distributed import vocab_parallel_ce
+        group = rules.group(rules.model_axis)
+        start = rules.coordinate(rules.model_axis) * head.shape[1]
+
+        def token_ce(h, lab, w):
+            logits = torch.matmul(replicated(h, group).float(), w)
+            return vocab_parallel_ce(logits, lab, group, start)
+    else:
+        def token_ce(h, lab, w):
+            logits = rules.constrain(torch.matmul(h.float(), w),
+                                     "batch", "seq", "model")
+            lg = torch.log_softmax(logits, dim=-1)
+            return -torch.gather(lg, -1, lab[..., None].long())[..., 0]
 
     def body(h, lab, m, w):
-        logits = rules.constrain(torch.matmul(h.float(), w),
-                                 "batch", "seq", "model")
-        lg = torch.log_softmax(logits, dim=-1)
-        return -(torch.gather(lg, -1, lab[..., None].long())[..., 0]
-                 * m).sum()
+        return (token_ce(h, lab, w) * m).sum()
 
     total = hidden.new_zeros((), dtype=torch.float32)
     for c in range(n_chunks):
@@ -157,7 +173,8 @@ def make_grad_step(cfg: ModelConfig, rules: MeshRules):
         labels = batch["labels"]
         hidden, aux = model.train_logits(params, return_hidden=True, **kw)
         head = model.head_matrix(params)
-        ce = _chunked_ce(hidden, head, labels, model.rules)
+        ce = _chunked_ce(hidden, head, labels, model.rules,
+                         vocab=cfg.vocab_size)
         loss = ce
         if "moe_aux_loss" in aux:
             loss = loss + MOE_AUX_WEIGHT * aux["moe_aux_loss"]
@@ -170,7 +187,7 @@ def make_grad_step(cfg: ModelConfig, rules: MeshRules):
                             torch.zeros_like(labels[:, :1],
                                              dtype=torch.float32)], dim=1)
             mtp_ce = _chunked_ce(aux["mtp_hidden"], head, l2, model.rules,
-                                 mask=m2)
+                                 mask=m2, vocab=cfg.vocab_size)
             loss = loss + MTP_WEIGHT * mtp_ce
         return loss, {"ce": ce}
 
@@ -239,6 +256,8 @@ def serving_rules(cfg: ModelConfig, rules: MeshRules) -> MeshRules:
 
 # ----------------------------------------------------------------- serve
 def make_prefill_step(cfg: ModelConfig, rules: MeshRules):
+    """prefill_step(params, batch): (logits, cache), both this rank's
+    blocks under a mesh (``Model.prefill``)."""
     model = Model(cfg, rules)
 
     def prefill_step(params, batch):

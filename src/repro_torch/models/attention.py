@@ -8,6 +8,16 @@ qk head dim is not its v head dim, so it never reaches the flash
 kernel, as in the reference); its decode is the *absorbed* formulation
 over a compressed (c_kv, shared RoPE key) cache, the published
 DeepSeek-V3 serving scheme.
+
+Under a model axis of n ranks that divides the q heads, a rank computes
+its H/n heads (``head_split``): ``wq`` is its column block and ``wo``
+its row block (``row_parallel_matmul``); ``wk``/``wv`` are its blocks
+of the kv heads where n divides those too, else whole, and the rank
+picks the kv heads its q heads read (the reference's fitted "kv"
+constraint).  Where n does not divide the q heads the layer computes
+every head, with ``wq``/``wk``/``wv`` gathered whole, and takes its
+block of them at ``wo``; so does MLA, with ``wq_b`` and ``wkv_b``
+gathered whole.
 """
 from __future__ import annotations
 
@@ -16,7 +26,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .layers import Maker, apply_rope, rms_norm, rope_angles, row_parallel_matmul
+from .layers import (Maker, apply_rope, model_replicated, rms_norm,
+                     rope_angles, row_parallel_matmul)
 from .sharding import MeshRules
 
 DEFAULT_Q_CHUNK = 1024
@@ -116,6 +127,28 @@ def _sdpa_chunked(q, k, v, qpos, kpos, *, causal, scale, kv_valid=None,
     return torch.cat(outs, dim=1)
 
 
+# ------------------------------------------------------- tensor parallel
+def head_split(cfg, rules: MeshRules) -> Tuple[int, bool]:
+    """(n, kv_split): the model ways over which a GQA layer splits its q
+    heads (1: every rank computes every head), and whether its kv heads
+    split the same way (else each rank projects them whole and picks
+    the ones its q heads read)."""
+    n = rules.model_ways(cfg.n_heads)
+    return n, n > 1 and cfg.n_kv_heads % n == 0
+
+
+def kv_heads_read(H: int, Hkv: int, n: int, c: int) -> list:
+    """The kv heads that q heads ``c*H/n`` .. ``(c+1)*H/n`` read, in an
+    order that keeps the grouped layout: each kv head once where the
+    block spans whole groups or lies inside one, else one a q head."""
+    G, hl = H // Hkv, H // n
+    if hl % G == 0:
+        return list(range(c * hl // G, (c + 1) * hl // G))
+    if G % hl == 0:
+        return [c * hl // G]
+    return [h // G for h in range(c * hl, (c + 1) * hl)]
+
+
 # ------------------------------------------------------------ GQA module
 def gqa_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                   rules: MeshRules, *,
@@ -140,7 +173,22 @@ def gqa_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     """
     B, S, d = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    n, kv_split = head_split(cfg, rules)
+    wk, wv = p["wk"], p["wv"]
+    q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
+    if n > 1:
+        # this rank's H/n heads: every input and replicated weight it
+        # uses by its block enters with an all-reduced gradient
+        x = model_replicated(x, rules)
+        if kv_input is not None and cache is None:
+            kv_input = model_replicated(kv_input, rules)
+        if not kv_split:
+            wk, wv = model_replicated(wk, rules), model_replicated(wv, rules)
+        if cfg.qk_norm:
+            q_norm = model_replicated(q_norm, rules)
+            k_norm = model_replicated(k_norm, rules)
+    Hl, Hk = H // n, (Hkv // n if kv_split else Hkv)
+    q = (x @ p["wq"]).reshape(B, S, Hl, hd)
     kv_src = kv_input if kv_input is not None else x
     Skv_in = kv_src.shape[1]
 
@@ -149,11 +197,11 @@ def gqa_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         k, v = cache["k"], cache["v"]
         new_cache = cache
     else:
-        k = (kv_src @ p["wk"]).reshape(B, Skv_in, Hkv, hd)
-        v = (kv_src @ p["wv"]).reshape(B, Skv_in, Hkv, hd)
+        k = (kv_src @ wk).reshape(B, Skv_in, Hk, hd)
+        v = (kv_src @ wv).reshape(B, Skv_in, Hk, hd)
         if cfg.qk_norm:
-            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+            q = rms_norm(q, q_norm, cfg.norm_eps)
+            k = rms_norm(k, k_norm, cfg.norm_eps)
         if kv_input is None:  # RoPE only for self-attention
             cos, sin = rope_angles(positions, hd, cfg.rope_theta)
             q = apply_rope(q, cos, sin)
@@ -169,6 +217,12 @@ def gqa_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
             k, v = k_cache, v_cache
         elif make_cache:
             new_cache = {"k": k, "v": v}
+
+    if n > 1 and not kv_split:
+        # whole kv heads (and caches): the ones this rank's q heads read
+        idx = torch.tensor(kv_heads_read(H, Hkv, n, rules.coordinate(
+            rules.model_axis)), device=k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
 
     if cache is None:
         k = rules.constrain(k, "batch", None, "kv", None)
@@ -197,8 +251,23 @@ def gqa_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         out = _sdpa_chunked(q, k, v, qpos=qpos, kpos=kpos,
                             causal=causal_eff, scale=scale,
                             kv_valid=kv_valid, chunk=q_chunk)
-    y = row_parallel_matmul(out.reshape(B, S, H * hd), p["wo"], rules)
+    out = out.reshape(B, S, Hl * hd)
+    if n == 1:   # every head here: wo's rows still take their block
+        out = _head_block(out, rules)
+    y = row_parallel_matmul(out, p["wo"], rules, H * hd)
     return y, new_cache
+
+
+def _head_block(out: torch.Tensor, rules: MeshRules) -> torch.Tensor:
+    """This rank's model block of the last dim of ``out``, computed alike
+    on every model rank (its gradient all-reduced), where the model
+    axis splits it; else ``out``."""
+    n = rules.model_ways(out.shape[-1])
+    if n == 1:
+        return out
+    f = out.shape[-1] // n
+    lo = rules.coordinate(rules.model_axis) * f
+    return model_replicated(out, rules)[..., lo:lo + f]
 
 
 # ------------------------------------------------------------ MLA module
@@ -252,7 +321,8 @@ def mla_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                             kpos=torch.arange(S, dtype=torch.int32,
                                               device=x.device),
                             causal=True, scale=scale, chunk=q_chunk)
-        y = row_parallel_matmul(out.reshape(B, S, H * vd), p["wo"], rules)
+        y = row_parallel_matmul(_head_block(out.reshape(B, S, H * vd),
+                                            rules), p["wo"], rules, H * vd)
         new_cache = {"ckv": ckv, "k_rope": k_rope} if make_cache else None
         return y, new_cache
 
@@ -281,5 +351,5 @@ def mla_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     o_c = torch.einsum("bhsk,bkr->bshr", w, ckv_c.float())
     out = torch.einsum("bshr,rhv->bshv", o_c, w_uv)
     out = out.to(x.dtype).reshape(B, S, H * vd)
-    y = row_parallel_matmul(out, p["wo"], rules)
+    y = row_parallel_matmul(_head_block(out, rules), p["wo"], rules, H * vd)
     return y, cache

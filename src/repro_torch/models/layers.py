@@ -175,28 +175,31 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
                      dim=-1).to(x.dtype)
 
 
+def model_replicated(x: torch.Tensor, rules: MeshRules) -> torch.Tensor:
+    """``x``, held alike by every model rank, entering a region where
+    each uses its model block of the weights (the Megatron column
+    entry): the identity, whose gradient is all-reduced over the model
+    group, since each rank's part of it comes from its block alone."""
+    from ..core.distributed import replicated
+    return replicated(x, rules.group(rules.model_axis))
+
+
 def row_parallel_matmul(x: torch.Tensor, w: torch.Tensor,
-                        rules: MeshRules) -> torch.Tensor:
+                        rules: MeshRules, features: int) -> torch.Tensor:
     """y = x @ w for w row-sharded on the model axis; psum in x.dtype.
 
-    Under a model axis of n > 1 ranks that divides x's features and w's
-    rows, this rank takes its 1/n of both, multiplies them with an f32
-    accumulator, casts to ``x.dtype`` and all-reduces over the model
+    ``features`` is the global width of x's last dim (w's rows).  Where
+    the model axis splits it (``rules.model_ways(features) > 1``), x and
+    w are this rank's blocks of it: they are multiplied with an f32
+    accumulator, cast to ``x.dtype`` and all-reduced over the model
     group (in x's dtype, bf16 in the models, not f32: half the payload
-    of the dominant tensor-parallel collective); otherwise one matmul."""
-    ax = rules.model_axis
-    n = rules.axis_size(ax)
-    if (rules.mesh is None or n <= 1 or x.ndim != 3 or x.shape[-1] % n
-            or w.shape[0] % n):
+    of the dominant tensor-parallel collective, the reference's
+    ``BF16_ROW_PSUM``); otherwise both are whole and it is one matmul."""
+    if rules.model_ways(features) == 1:
         return x @ w
-    from ..core.distributed import psum, replicated
-    group = rules.group(ax)
-    f = x.shape[-1] // n
-    lo = rules.coordinate(ax) * f
-    xl = replicated(x, group)[..., lo:lo + f]
-    wl = replicated(w, group)[lo:lo + f]
-    part = torch.matmul(xl.float(), wl.float()).to(x.dtype)
-    return psum(part, group)
+    from ..core.distributed import psum
+    part = torch.matmul(x.float(), w.float()).to(x.dtype)
+    return psum(part, rules.group(rules.model_axis))
 
 
 # ------------------------------------------------------------------- MLP
@@ -208,8 +211,16 @@ def make_mlp_params(mk: Maker, d: int, ff: int) -> dict:
     }
 
 
-def mlp(cfg, p: dict, x: torch.Tensor, rules: MeshRules) -> torch.Tensor:
+def mlp(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
+        ff: Optional[int] = None) -> torch.Tensor:
+    """The gated MLP of width ``ff`` (default ``cfg.d_ff``).  Where the
+    model axis splits ``ff``, ``wg``/``wi`` are this rank's column
+    blocks, so the hidden ``h`` is its (B, S, ff/n) block, and ``wo``'s
+    rows finish it in :func:`row_parallel_matmul`."""
+    ff = ff or cfg.d_ff
+    if rules.model_ways(ff) > 1:
+        x = model_replicated(x, rules)
     act = ACT[cfg.act]
     h = act(x @ p["wg"]) * (x @ p["wi"])
     h = rules.constrain(h, "batch", None, "model")
-    return row_parallel_matmul(h, p["wo"], rules)
+    return row_parallel_matmul(h, p["wo"], rules, ff)

@@ -9,9 +9,11 @@ sort.  The expert FFNs are batched matmuls over the (E, C, d) buffers,
 as the reference's einsums are (no Pallas kernel runs there).
 
 Under a model axis that divides E, dispatch is expert-parallel
-(``_moe_block_sharded``): each model rank scatters the tokens it holds
-into its E/n experts' buffers, and one all-reduce over the model group
-combines the partial outputs.
+(``_moe_block_sharded``): each model rank holds its E/n experts' weights
+(its model block, never gathered), scatters the tokens it holds into
+their buffers, and one all-reduce over the model group combines the
+partial outputs.  A shared expert is a tensor-parallel MLP
+(``layers.mlp``).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from typing import Tuple
 
 import torch
 
-from .layers import ACT, Maker
+from .layers import ACT, Maker, mlp
 from .sharding import MeshRules
 
 
@@ -126,17 +128,18 @@ def _aux(cfg, probs, gate_idx, keep, rules: MeshRules):
             "moe_drop_frac": 1.0 - total[2 * E] / (n * K)}
 
 
-def _shared_expert(cfg, p, xt):
-    act = ACT[cfg.act]
-    sp = p["shared"]
-    return (act(xt @ sp["wg"]) * (xt @ sp["wi"])) @ sp["wo"]
+def _shared_expert(cfg, p, x, rules: MeshRules):
+    """The shared experts' MLP on x (B, S, d), as (B*S, d)."""
+    sff = cfg.moe_d_ff * cfg.n_shared_experts
+    return mlp(cfg, p["shared"], x, rules, ff=sff).reshape(-1, x.shape[-1])
 
 
 def _moe_block_sharded(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
                        ) -> Tuple[torch.Tensor, dict]:
     """Expert-parallel dispatch with no token movement: every model rank
-    holds the full token block of its data rank (x), scatters it into
-    ITS E/model_n experts' capacity buffers, computes, and contributes a
+    holds the full token block of its data rank (x) and the weights of
+    ITS E/model_n experts (their model block), scatters the tokens into
+    those experts' capacity buffers, computes, and contributes a
     partial (N, d) output; one all-reduce over the model group combines
     them.  C comes from the tokens this rank holds, as the reference's
     from its data-local block.  The aux loss is taken over the global
@@ -156,8 +159,7 @@ def _moe_block_sharded(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
     C = max(1, int(math.ceil(N * K * cfg.capacity_factor / E)))
     e_local = E // model_n
     lo = rules.coordinate(model_ax) * e_local
-    w_gate, w_up, w_down = (replicated(p[k], group)[lo:lo + e_local]
-                            for k in ("w_gate", "w_up", "w_down"))
+    w_gate, w_up, w_down = p["w_gate"], p["w_up"], p["w_down"]
     xl = replicated(xt, group)
     gw = replicated(gate_w, group)
 
@@ -180,7 +182,7 @@ def _moe_block_sharded(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
                   dim=1)
     y = psum(y.to(x.dtype), group)
     if cfg.n_shared_experts:
-        y = y + _shared_expert(cfg, p, xt)
+        y = y + _shared_expert(cfg, p, x, rules)
     pos_global = pos + _earlier_slots(flat_e, E, rules)
     aux = _aux(cfg, probs, gate_idx, pos_global < C * model_n, rules)
     return y.reshape(B, S, d).to(x.dtype), aux
@@ -226,6 +228,6 @@ def _moe_block_dense(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
     y = torch.sum((gathered * gate_w.reshape(-1)[:, None]).reshape(N, K, d),
                   dim=1)
     if cfg.n_shared_experts:
-        y = y + _shared_expert(cfg, p, xt)
+        y = y + _shared_expert(cfg, p, x, rules)
     return (y.reshape(B, S, d).to(x.dtype),
             _aux(cfg, probs, gate_idx, keep, rules))

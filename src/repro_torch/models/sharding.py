@@ -15,13 +15,20 @@ optimizer moment at its placement, as the reference's ``device_put``
 does: :func:`place` keeps this rank's block of a whole value (FSDP on
 "data" for the ``embed`` dim, tensor-parallel on "model" for heads, ff,
 vocab and experts; an axis that ``fitted_sharding`` drops leaves its
-dim whole).  A layer gathers its leaves (:meth:`MeshRules.gather`) just
-before it uses them and drops them after, so every activation is its
-global value on every rank (its slice of the global batch along the
-batch axes): a sharded branch (``layers.row_parallel_matmul``,
-``moe._moe_block_sharded``) slices this rank's shard of a gathered
-weight, computes, and combines with the collective the reference
-names.  So ``constrain`` is the identity.  The dry-run's abstract leaves
+dim whole).
+
+A layer gathers its leaves (:meth:`MeshRules.gather`) just before it
+uses them and drops them after, over the batch/FSDP axes of their
+placements only: a dim on the model axis stays this rank's block, and
+the layer computes on it, as the reference's GSPMD does under its
+constraints.  Column projections give this rank's block of the heads,
+the ff width or the vocab; ``layers.row_parallel_matmul`` multiplies
+that block by the weight's rows and all-reduces (the reference's bf16
+``psum``); experts are this rank's E/n.  So the activations the
+reference constrains to "model" are this rank's blocks here, produced
+by the layer itself, and ``constrain`` is the identity.  A consumer
+that cannot take its block gathers the model axis too (``whole``, see
+``transformer.whole_on_model``).  The dry-run's abstract leaves
 (:func:`abstract_leaf`) are fake tensors of their placed shapes that
 carry their placement.  With no mesh every helper degrades to a no-op.
 """
@@ -34,8 +41,7 @@ from typing import Any, Optional, Sequence, Tuple
 import torch
 from torch._guards import detect_fake_mode
 
-from ..core.distributed import mesh_shape
-from ..tree import tree_map
+from ..core.distributed import axis_group, mesh_shape
 
 # logical axis vocabulary
 BATCH = "batch"       # global batch            -> ("pod","data") / ("data",)
@@ -118,39 +124,60 @@ class MeshRules:
                                  and dim % n == 0) else None)
         return Placement(self.mesh, tuple(fitted))
 
+    def model_ways(self, dim: int) -> int:
+        """The ways the model axis splits a dim of size ``dim`` under the
+        fitted rule: its size where it divides ``dim``, else 1 (and 1
+        with no mesh or no model axis)."""
+        n = self.axis_size(self.model_axis)
+        return n if (self.mesh is not None and n > 1 and dim % n == 0) \
+            else 1
+
     def constrain(self, x: torch.Tensor, *logical) -> torch.Tensor:
-        """The identity: activations are held at their global values
-        (this rank's slice of the batch), which is what the reference's
-        constraint gathers them to (see the module's docstring)."""
+        """The identity: a layer produces this rank's block of an
+        activation the reference constrains to "model" by computing on
+        its weights' model blocks (see the module's docstring)."""
         return x
 
-    def gather(self, t: torch.Tensor, placement: Optional[Placement]
-               ) -> torch.Tensor:
-        """The global value of a leaf stored at ``placement``, gathered
-        over each axis it is sharded on (differentiable).  The gradient
+    def gather(self, t: torch.Tensor, placement: Optional[Placement],
+               whole: bool = False) -> torch.Tensor:
+        """A leaf stored at ``placement`` as a layer uses it, gathered
+        over the batch/FSDP axes it is sharded on; a dim on the model
+        axis stays this rank's block unless ``whole`` (then it is
+        gathered too: the global value).  Differentiable: the gradient
         of this rank's block is summed over an axis along which the
         ranks hold different slices of the batch
         (:meth:`split_batch_axes`), and taken as it is along any other
-        (a model axis, where every rank holds the whole gradient)."""
+        (where every rank holds the whole gradient)."""
         if placement is None:
             return t
         from ..core.distributed import gather_shards
         summed = self.split_batch_axes()
         for dim, ax in enumerate(placement.spec):
             for a in reversed(_axes(ax)):   # innermost first
-                t = gather_shards(t, placement.mesh.get_group(a), dim,
+                if a == self.model_axis and not whole:
+                    continue
+                t = gather_shards(t, axis_group(placement.mesh, a), dim,
                                   a in summed)
         return t
 
-    def gather_tree(self, tree, placements):
-        """:meth:`gather` over a tree and its tree of placements."""
+    def gather_tree(self, tree, placements, whole=None):
+        """:meth:`gather` over a tree and its tree of placements;
+        ``whole(path)`` (a leaf's tuple of keys within ``tree``) says
+        which leaves are gathered over the model axis too."""
         if self.mesh is None:
             return tree
-        return tree_map(self.gather, tree, placements)
+
+        def walk(node, places, path):
+            if isinstance(node, dict):
+                return {k: walk(v, places[k], path + (k,))
+                        for k, v in node.items()}
+            return self.gather(node, places,
+                               whole=bool(whole and whole(path)))
+        return walk(tree, placements, ())
 
     def group(self, name: str):
         """The process group of mesh axis ``name``."""
-        return self.mesh.get_group(name)
+        return axis_group(self.mesh, name)
 
     def coordinate(self, name: str) -> int:
         """This rank's index along mesh axis ``name``."""
@@ -240,11 +267,13 @@ def place(t: torch.Tensor, placement: Optional[Placement]) -> torch.Tensor:
 
 
 def gather(t: torch.Tensor, placement: Optional[Placement]) -> torch.Tensor:
-    """The whole value of ``t`` stored at ``placement`` (for reading it:
-    a checkpoint, a test; a layer uses :meth:`MeshRules.gather`)."""
+    """The whole value of ``t`` stored at ``placement``, over every axis
+    (for reading it: a checkpoint, a test, a cache a layer does not
+    consume by its block; a layer's leaves go through
+    :meth:`MeshRules.gather`)."""
     if placement is None:
         return t
-    return MeshRules(mesh=placement.mesh).gather(t, placement)
+    return MeshRules(mesh=placement.mesh).gather(t, placement, whole=True)
 
 
 def global_shape(t: torch.Tensor) -> Tuple[int, ...]:

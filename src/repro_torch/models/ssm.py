@@ -10,6 +10,11 @@ attention-like quadratic form with a decay mask; across chunks only the
 (H, P, N) boundary states are carried, here by a Python loop over the
 chunks in place of the reference's ``lax.scan``.  The state is float32
 in every config dtype.
+
+Under a mesh the mixer's leaves are gathered whole over the model axis
+too (``transformer.whole_on_model``) and every model rank computes the
+whole mixer: ``in_proj``'s columns concatenate z, x, B, C and dt, so a
+contiguous column block of it mixes them.
 """
 from __future__ import annotations
 

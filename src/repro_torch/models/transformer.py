@@ -9,7 +9,11 @@ writes one stack-sized gradient a stack, as the reference's scan does
 (indexing a layer at a time would write one a layer).  Under a mesh
 every leaf is stored at its placement (``models/sharding.py``) and a
 layer gathers its own leaves just before it runs, inside its remat
-region, so no gathered weight outlives its layer.
+region, so no gathered weight outlives its layer.  It gathers them over
+the batch/FSDP axes only and computes on its model blocks (heads, ff,
+experts; the vocab of the embedding and the logits, by
+``core.distributed``'s vocab-parallel lookup and cross-entropy), but for
+the leaves :func:`whole_on_model` names.
 Heterogeneous stacks (DeepSeek's dense then MoE layers; Zamba2's shared
 attention block every ``attn_every`` Mamba layers) are segments of such
 loops.
@@ -26,9 +30,16 @@ in the reference: ``{"blocks": {"k": (L, B, S, Hkv, hd), "v": ...}}``
 ``ckv`` / ``k_rope``), ``{"blocks": {"conv", "ssm"}}`` (ssm),
 ``{"mamba": ..., "attn": ...}`` (hybrid) and ``{"dec_blocks": {"k",
 "v", "cross_k", "cross_v"}}`` (encdec).  Decode updates a cache in
-place and returns it.  ``abstract`` and ``abstract_cache`` give the
-same trees as fake tensors carrying their placements, for the dry-run
-(``launch/dryrun.py``).
+place and returns it.  Under a mesh a cache is held at the reference's
+cache placement (kv heads on the model axis where it divides them, else
+the head dim; the sequence on "data" where the batch axes do not divide
+the batch): prefill keeps each layer's block and marks every leaf with
+its placement, and decode gathers a layer's cache over the axes the
+layer does not consume by block, then writes its block back.
+``abstract`` and ``abstract_cache`` give the same trees as fake tensors
+carrying their placements, for the dry-run (``launch/dryrun.py``).  With
+a mesh, prefill and decode return this rank's vocab block of the
+logits.
 """
 from __future__ import annotations
 
@@ -39,12 +50,13 @@ import torch
 import torch.utils.checkpoint
 
 from ..tree import tree_flatten, tree_map, tree_unflatten
-from .attention import gqa_attention, make_attn_params, make_mla_params, \
-    mla_attention
-from .layers import Maker, apply_norm, make_mlp_params, mlp
+from .attention import gqa_attention, head_split, make_attn_params, \
+    make_mla_params, mla_attention
+from .layers import Maker, apply_norm, make_mlp_params, mlp, model_replicated
 from .moe import make_moe_params, moe_block
 from .sharding import (MeshRules, NO_MESH, Placement, abstract_leaf,
-                       block_of, gather, layer_placement, placement_of)
+                       block_of, gather, global_shape, layer_placement,
+                       place, placement_of)
 from .ssm import make_mamba_params, mamba_block
 
 
@@ -67,6 +79,42 @@ class _Stacked:
 
 def _dtype_of(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def whole_on_model(cfg, rules: MeshRules):
+    """``whole(path)`` for ``MeshRules.gather_tree``: whether a block's
+    leaf at ``path`` (its keys within the block) is gathered over the
+    model axis too, for a consumer that does not take its model block:
+
+    * the SSM mixer ("mixer"): ``in_proj``'s columns concatenate z, x,
+      B, C and dt, so a contiguous column block mixes them;
+    * MLA's ``wq_b``/``wkv_b``: their columns interleave each head's
+      nope and rope (or k and v) parts; every rank computes every head
+      and takes its block at ``wo``;
+    * GQA's ``wk``/``wv`` where the model axis does not divide the kv
+      heads (the rank picks the ones its q heads read), and ``wq`` too
+      where it does not divide the q heads (every head, as the
+      reference's fitted constraint leaves q whole)."""
+    n, kv_split = head_split(cfg, rules) if cfg.n_heads else (1, False)
+    split_model = rules.axis_size(rules.model_axis) > 1
+    gqa = set()
+    if split_model and not cfg.use_mla:
+        if not kv_split:
+            gqa |= {"wk", "wv"}
+        if n == 1:
+            gqa.add("wq")
+
+    def whole(path) -> bool:
+        if not path:   # a top-level leaf (embed, lm_head, norms)
+            return False
+        if "mixer" in path:
+            return True
+        leaf = path[-1]
+        if leaf in ("wq_b", "wkv_b"):
+            return True
+        return leaf in gqa and len(path) >= 2 and path[-2] in ("attn",
+                                                               "cross")
+    return whole
 
 
 # ==========================================================================
@@ -211,25 +259,47 @@ def _stack(parts, join=torch.stack):
     return tree_map(lambda *xs: join(xs), *parts)
 
 
-def _cache_places(cache) -> Any:
-    """One layer's placements of a stacked cache tree, with the batch dim
-    (axis 1) taken as held already (it is this rank's slice of the
-    batch, as every activation is); None for a cache held whole (one
-    made by prefill)."""
-    def one(t):
-        pl = placement_of(t)
-        if pl is None:
+# the leaves of a KV cache whose kv-heads dim (axis 3 of the stacked
+# leaf) a layer consumes by its model block
+_KV_LEAVES = ("k", "v", "cross_k", "cross_v")
+
+
+def _cache_places(places) -> Any:
+    """One layer's placements of the dims a layer's cache is cut to at
+    prefill and gathered over at decode, from the stacked cache's tree of
+    placements (None: held whole): every axis of the placement but the
+    batch dim (axis 1: this rank's slice of the batch, as every
+    activation is) and a model axis on a KV leaf's kv heads (the layer
+    makes and reads its block of them).  None when nothing is placed."""
+    if places is None:
+        return None
+
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if node is None:
             return None
-        return Placement(pl.mesh, (None,) + tuple(pl.spec[2:]))
-    places = tree_map(one, cache)
-    return (None if all(p is None for p in tree_flatten(places)[1])
-            else places)
+        spec = [None] + list(node.spec[2:])
+        if name in _KV_LEAVES and spec[2] is not None:
+            spec[2] = None
+        if all(a is None for a in spec):
+            return None
+        return Placement(node.mesh, tuple(spec))
+    out = walk(places)
+    return (None if all(p is None for p in tree_flatten(out)[1])
+            else out)
+
+
+def _held_places(cache) -> Any:
+    """The placements a held cache's leaves carry (see
+    :meth:`Model.prefill`; the dry-run's abstract caches carry theirs)."""
+    return tree_map(placement_of, cache)
 
 
 def _open_cache(held, places):
-    """A layer's cache at its global value: gathered where it is held at
-    a placement (a dry-run's decode), else itself."""
-    if places is None:
+    """A layer's cache at the value it reads: gathered over the dims of
+    ``places`` (:func:`_cache_places`), else itself."""
+    if places is None or held is None:
         return held
     return tree_map(gather, held, places)
 
@@ -237,12 +307,19 @@ def _open_cache(held, places):
 def _close_cache(held, whole, places) -> None:
     """Write this rank's block of a gathered layer cache, updated in
     place by the step, back into the cache it holds."""
-    if places is None:
+    if places is None or held is None:
         return
     for h, w, pl in zip(*(tree_flatten(t)[1] for t in (held, whole,
                                                        places))):
         if w is not h:
             h.copy_(block_of(w, pl))
+
+
+def _cut_cache(made, places):
+    """A layer's new cache kept at its block (:func:`_cache_places`)."""
+    if places is None or made is None:
+        return made
+    return tree_map(place, made, places)
 
 
 def _scan_blocks(cfg, rules, layers, x, positions, *, kind, place=None,
@@ -252,17 +329,21 @@ def _scan_blocks(cfg, rules, layers, x, positions, *, kind, place=None,
     """Run a homogeneous group layer by layer: ``layers`` is its list of
     per-layer parameter trees (:func:`_unbind`) and ``place`` one layer's
     placement tree, by which each layer gathers its leaves first (None:
-    nothing is placed).  Returns (x, caches, aux): with ``make_cache``
-    the per-layer caches stacked on a new leading L axis; with
-    ``caches`` the same caches, updated in place (``cache_places``:
-    :func:`_cache_places` of them); ``aux`` the MoE layers' aux loss and
-    drop fraction summed (empty for a group without MoE layers).  With
+    nothing is placed; the model axis only for :func:`whole_on_model`'s
+    leaves).  Returns (x, caches, aux): with ``make_cache`` the per-layer
+    caches, each cut to its block by ``cache_places``, stacked on a new
+    leading L axis; with ``caches`` the same caches, updated in place
+    (``cache_places``: :func:`_cache_places` of them); ``aux`` the MoE
+    layers' aux loss and drop fraction summed (empty for a group without
+    MoE layers).  With
     ``remat`` and grad mode on, each layer keeps only its input for the
     backward pass and recomputes the rest there, its gathers included
     (the reference's ``jax.checkpoint``)."""
+    whole = whole_on_model(cfg, rules) if place is not None else None
+
     def block(x, lp, lcache):
         if place is not None:
-            lp = rules.gather_tree(lp, place)
+            lp = rules.gather_tree(lp, place, whole)
         if kind == "attn":
             return _attn_block(
                 cfg, rules, lp, x, positions, cache=lcache,
@@ -290,7 +371,7 @@ def _scan_blocks(cfg, rules, layers, x, positions, *, kind, place=None,
             vec = torch.stack([aux["moe_aux_loss"], aux["moe_drop_frac"]])
             aux_sum = vec if aux_sum is None else aux_sum + vec
         if make_cache:
-            made.append(ncache)
+            made.append(_cut_cache(ncache, cache_places))
     out_caches = _stack(made) if make_cache else caches
     aux = ({} if aux_sum is None else
            {"moe_aux_loss": aux_sum[0], "moe_drop_frac": aux_sum[1]})
@@ -326,11 +407,13 @@ class Model:
         return self.__dict__["_placements"]
 
     def _whole(self, params, name):
-        """``params[name]`` (a leaf or a block's tree) at its global
-        value, gathered where it is placed."""
+        """``params[name]`` (a leaf or a block's tree) as a layer uses it:
+        gathered over the batch/FSDP axes where it is placed (and over
+        the model axis for :func:`whole_on_model`'s leaves)."""
         if self.rules.mesh is None:
             return params[name]
-        return self.rules.gather_tree(params[name], self.placements()[name])
+        return self.rules.gather_tree(params[name], self.placements()[name],
+                                      whole_on_model(self.cfg, self.rules))
 
     def _group(self, params, name) -> dict:
         """The keyword arguments of :func:`_scan_blocks` for the stacked
@@ -350,19 +433,27 @@ class Model:
     def abstract_cache(self, batch: int, max_len: int,
                        enc_len: Optional[int] = None, device="cuda") -> dict:
         """The serving cache's tree as fake tensors with placements, for
-        decode dry-runs (inside an active ``FakeTensorMode``).  The
-        placements are the reference's: the batch on the batch axes, or,
-        when they do not divide it (a long single-sequence decode), the
-        sequence over ``data``; kv heads on the model axis where it
-        divides them, else the head dim."""
+        decode dry-runs (inside an active ``FakeTensorMode``); the
+        placements are :meth:`cache_placements`'."""
+        def leaf(rules, shape, dtype, *logical):
+            return abstract_leaf(shape, dtype, device,
+                                 rules.fitted_sharding(shape, *logical))
+        return self._cache_tree(batch, max_len, enc_len, leaf)
+
+    def cache_placements(self, batch: int, max_len: int,
+                         enc_len: Optional[int] = None) -> dict:
+        """The serving cache's tree of placements (the reference's): the
+        batch on the batch axes, or, when they do not divide it (a long
+        single-sequence decode), the sequence over ``data``; kv heads on
+        the model axis where it divides them, else the head dim."""
+        def leaf(rules, shape, dtype, *logical):
+            return rules.fitted_sharding(shape, *logical)
+        return self._cache_tree(batch, max_len, enc_len, leaf)
+
+    def _cache_tree(self, batch, max_len, enc_len, make) -> dict:
         cfg = self.cfg
         dt = _dtype_of(cfg)
         rules = self.rules
-
-        def leaf(shape, *logical, dtype=dt):
-            return abstract_leaf(shape, dtype, device,
-                                 rules.fitted_sharding(shape, *logical))
-
         hd = cfg.resolved_head_dim
         Hkv = cfg.n_kv_heads
         model_n = rules.axis_size(rules.model_axis)
@@ -377,6 +468,9 @@ class Model:
             h_ax, d_ax = None, "model"
         else:
             h_ax, d_ax = None, None
+
+        def leaf(shape, *logical, dtype=dt):
+            return make(rules, shape, dtype, *logical)
 
         def kv_cache(L):
             return {"k": leaf((L, batch, max_len, Hkv, hd),
@@ -427,22 +521,42 @@ class Model:
         raise ValueError(cfg.family)
 
     # ------------------------------------------------------------ embed
+    def _vocab_block(self):
+        """(model group, first vocab id) of this rank's vocab block where
+        the model axis splits the vocab, else None."""
+        rules, V = self.rules, self.cfg.vocab_size
+        n = rules.model_ways(V)
+        if n == 1:
+            return None
+        return (rules.group(rules.model_axis),
+                rules.coordinate(rules.model_axis) * (V // n))
+
     def _embed(self, params, tokens=None, embeds=None):
         if embeds is not None:
             return embeds.to(_dtype_of(self.cfg))
-        return self._whole(params, "embed")[tokens]
+        table = self._whole(params, "embed")
+        block = self._vocab_block()
+        if block is None:
+            return table[tokens]
+        from ..core.distributed import vocab_parallel_embed
+        return vocab_parallel_embed(table, tokens, *block)
 
     def head_matrix(self, params) -> torch.Tensor:
-        """(d_model, vocab) unembedding matrix, at its global value."""
+        """(d_model, vocab) unembedding matrix: under a mesh this rank's
+        (d_model, vocab / n) block where the model axis splits the
+        vocab."""
         return (self._whole(params, "embed").T if self.cfg.tie_embeddings
                 else self._whole(params, "lm_head"))
 
     def _logits(self, params, x):
         """float32 logits: the reference's dot with
         preferred_element_type=f32, i.e. products of the stored values
-        summed in f32 (not a bf16 result widened afterwards)."""
+        summed in f32 (not a bf16 result widened afterwards); this
+        rank's vocab block under a mesh that splits the vocab."""
         x = apply_norm(self.cfg, x, self._whole(params, "final_norm"))
         head = self.head_matrix(params).to(x.dtype)
+        if self._vocab_block() is not None:
+            x = model_replicated(x, self.rules)
         logits = torch.matmul(x.float(), head.float())
         return self.rules.constrain(logits, "batch", "seq", "model")
 
@@ -505,13 +619,15 @@ class Model:
         return logits, aux
 
     def _hybrid_stack(self, params, x, pos, *, caches=None,
-                      cache_index=None, make_cache=False, remat=False):
+                      cache_index=None, make_cache=False, remat=False,
+                      cut=None):
         """Zamba2: segments of ``attn_every`` Mamba layers, each followed
         by THE shared attention block (weights reused; caches distinct).
         Returns (x, cache): with ``make_cache`` the Mamba states
         concatenated over the layers and the shared block's K/V stacked
-        over its applications; with ``caches`` the same caches, updated
-        in place."""
+        over its applications, each layer's cut by ``cut`` ({"mamba",
+        "attn"}: :func:`_cache_places`); with ``caches`` the same
+        caches, updated in place."""
         cfg, rules = self.cfg, self.rules
         period = cfg.attn_every
         n_seg = cfg.n_layers // period
@@ -519,7 +635,9 @@ class Model:
         if cfg.n_layers > n_seg * period:
             bounds.append((n_seg * period, cfg.n_layers))
         group = self._group(params, "blocks")
-        places = {k: _cache_places(v) for k, v in (caches or {}).items()}
+        places = ({k: _cache_places(_held_places(v))
+                   for k, v in caches.items()} if caches is not None
+                  else (cut or {}))
         new_mamba, new_attn = [], []
         for s, (lo, hi) in enumerate(bounds):
             seg_cache = (_layers(caches["mamba"], lo, hi)
@@ -542,7 +660,8 @@ class Model:
                                    cache_index=cache_index,
                                    make_cache=make_cache)
             _close_cache(held, a_cache, places.get("attn"))
-            new_attn.append(na)
+            new_attn.append(_cut_cache(na, places.get("attn"))
+                            if make_cache else na)
         if make_cache:
             return x, {"mamba": _stack(new_mamba, torch.cat),
                        "attn": _stack(new_attn)}
@@ -553,29 +672,60 @@ class Model:
     def pad_cache(cache: dict, pad_to: int) -> dict:
         """Grow prompt-sized KV caches to the serving max length (the
         sequence axis is axis 2 of the k/v/ckv/k_rope leaves; SSM states
-        and cross-attention K/V are length-free)."""
+        and cross-attention K/V are length-free).  A leaf held at a
+        placement keeps it: where the sequence is split, it is gathered,
+        grown and cut again, so each rank holds its block of the grown
+        sequence."""
         def pad(name, leaf):
             if isinstance(leaf, dict):
                 return {k: pad(k, v) for k, v in leaf.items()}
-            if name in ("k", "v", "ckv", "k_rope") and leaf.shape[2] < pad_to:
-                extra = list(leaf.shape)
-                extra[2] = pad_to - leaf.shape[2]
-                return torch.cat([leaf, leaf.new_zeros(extra)], dim=2)
-            return leaf
+            placement = placement_of(leaf)
+            if name not in ("k", "v", "ckv", "k_rope") or \
+                    global_shape(leaf)[2] >= pad_to:
+                return leaf
+            seq = None
+            if placement is not None and placement.spec[2] is not None:
+                seq = Placement(placement.mesh, tuple(
+                    ax if i == 2 else None
+                    for i, ax in enumerate(placement.spec)))
+            whole = gather(leaf, seq)
+            extra = list(whole.shape)
+            extra[2] = pad_to - whole.shape[2]
+            out = place(torch.cat([whole, whole.new_zeros(extra)], dim=2),
+                        seq)
+            if placement is not None:
+                out.placement = placement
+            return out
         return pad(None, cache)
 
-    def prefill(self, params, *, tokens=None, embeds=None, enc_embeds=None
+    def prefill(self, params, *, tokens=None, embeds=None, enc_embeds=None,
+                global_batch: Optional[int] = None
                 ) -> Tuple[torch.Tensor, dict]:
-        """Process the prompt; return (last-position logits, cache)."""
+        """Process the prompt; return (last-position logits, cache).
+        Under a mesh the cache is held at :meth:`cache_placements` for
+        ``global_batch`` (default: this rank's batch is its slice along
+        the batch axes; pass the batch's size where every rank holds it
+        whole), each leaf carrying its placement for :meth:`decode`."""
         cfg, rules = self.cfg, self.rules
         x = self._embed(params, tokens, embeds)
         pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         cache: Dict[str, Any] = {}
+        places = None
+        if rules.mesh is not None:
+            places = self.cache_placements(
+                global_batch or x.shape[0] * rules.axis_size(
+                    rules.batch_axes),
+                x.shape[1], None if enc_embeds is None
+                else enc_embeds.shape[1])
+
+        def cut(name):
+            return None if places is None else _cache_places(places[name])
 
         def scan(name, x, **kw):
             return _scan_blocks(cfg, rules, x=x, positions=pos,
                                 **self._group(params, name),
-                                make_cache=True, **kw)
+                                make_cache=True, cache_places=cut(name),
+                                **kw)
 
         if cfg.family == "dense":
             x, cache["blocks"], _ = scan("blocks", x, kind="attn")
@@ -587,11 +737,17 @@ class Model:
         elif cfg.family == "ssm":
             x, cache["blocks"], _ = scan("blocks", x, kind="mamba")
         elif cfg.family == "hybrid":
-            x, cache = self._hybrid_stack(params, x, pos, make_cache=True)
+            x, cache = self._hybrid_stack(
+                params, x, pos, make_cache=True,
+                cut=None if places is None else {k: cut(k) for k in places})
         elif cfg.family == "encdec":
             enc = self._encode(params, enc_embeds)
             x, cache["dec_blocks"], _ = scan("dec_blocks", x, kind="attn",
                                              enc_out=enc)
+        if places is not None:
+            for leaf, pl in zip(tree_flatten(cache)[1],
+                                tree_flatten(places)[1]):
+                leaf.placement = pl
         return self._logits(params, x[:, -1:, :]), cache
 
     def decode(self, params, cache: dict, token: torch.Tensor,
@@ -616,7 +772,7 @@ class Model:
                         cfg, rules, x=x, positions=positions,
                         **self._group(params, g), kind=kind,
                         caches=cache[g],
-                        cache_places=_cache_places(cache[g]),
+                        cache_places=_cache_places(_held_places(cache[g])),
                         cache_index=pos_index)
         logits = self._logits(params, x)
         return logits[:, 0, :], cache

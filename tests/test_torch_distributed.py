@@ -271,19 +271,35 @@ for shape in ((1, 4), (2, 2)):
         x = torch.tensor(rng.standard_normal((4, 5, 64)), dtype=dtype)
         w = torch.tensor(rng.standard_normal((64, 24)) / 8, dtype=dtype)
         xl = x[2 * di:2 * di + 2] if shape[0] == 2 else x
-        for name, r in (("mesh", rules), ("none", NO_MESH)):
-            y, _, g = grads(lambda a, b: layers.row_parallel_matmul(a, b, r),
-                            xl, w)
-            R["row", shape, str(dtype), name] = (y.double().numpy(),
-                                                 [t.double().numpy() for t in g])
+        # the mesh's rank holds its blocks of x's features and w's rows;
+        # one matmul's gradients are cut to the same blocks
+        f = 64 // shape[1]
+        lo = mesh.get_local_rank("model") * f
+        y, _, g = grads(lambda a, b: layers.row_parallel_matmul(
+            a, b, rules, 64), xl[..., lo:lo + f], w[lo:lo + f])
+        R["row", shape, str(dtype), "mesh"] = (
+            y.double().numpy(), [t.double().numpy() for t in g])
+        y, _, (gx, gw) = grads(lambda a, b: layers.row_parallel_matmul(
+            a, b, NO_MESH, 64), xl, w)
+        R["row", shape, str(dtype), "none"] = (
+            y.double().numpy(), [gx[..., lo:lo + f].double().numpy(),
+                                 gw[lo:lo + f].double().numpy()])
     tokens = torch.tensor(np.random.default_rng(4).standard_normal(
         (4, 6, cfg.d_model)), dtype=torch.float32)
     tl = tokens[2 * di:2 * di + 2] if shape[0] == 2 else tokens
     names = ("router", "w_gate", "w_up", "w_down")
+    # the mesh's rank holds its block of the experts; the dense
+    # dispatch's expert gradients are cut to the same block
+    e_l = cfg.n_experts // shape[1]
+    elo = mesh.get_local_rank("model") * e_l
     for name, r in (("mesh", rules), ("none", NO_MESH)):
         def f(x, *ws):
             return moe.moe_block(cfg, dict(mp, **dict(zip(names, ws))), x, r)
-        y, out, g = grads(f, tl, *(mp[k] for k in names))
+        ws = [mp[k] if k == "router" or name == "none"
+              else mp[k][elo:elo + e_l] for k in names]
+        y, out, g = grads(f, tl, *ws)
+        g = [t if i < 2 or name == "mesh" else t[elo:elo + e_l]
+             for i, t in enumerate(g)]
         aux = {k: float(v) for k, v in out[1].items()}
         R["moe", shape, name] = (y.numpy(), [t.numpy() for t in g], aux)
     # the reference's drop estimate on the sharded path: pos < C * model_n
@@ -485,9 +501,10 @@ def test_mesh_builders(port8):
 @pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
 @pytest.mark.parametrize("dtype", ["torch.float32", "torch.bfloat16"])
 def test_row_parallel_psum_branch_equals_no_mesh(port4, shape, dtype):
-    """Each rank's slice of the features and rows, an f32 product, a
-    psum in x's dtype: the same y and gradients (x and w) as one matmul
-    on the rank's tokens."""
+    """Each rank's block of the features and rows (held, not sliced from
+    whole operands), an f32 product, a psum in x's dtype: the same y as
+    one matmul on the rank's tokens, and that matmul's gradients of x
+    and w cut to the rank's blocks."""
     tol = 1e-5 if dtype == "torch.float32" else 2e-2
     for R in port4:
         (y, g), (y0, g0) = (R["row", shape, dtype, n]
@@ -500,10 +517,11 @@ def test_row_parallel_psum_branch_equals_no_mesh(port4, shape, dtype):
 
 @pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
 def test_moe_sharded_dispatch_equals_no_mesh(port4, shape):
-    """Expert-parallel dispatch over the model axis: y, the aux loss and
-    the gradients (tokens, router, experts) equal the dense dispatch on
-    the rank's tokens; the drop fraction is the reference's sharded
-    estimate."""
+    """Expert-parallel dispatch over the model axis, each rank holding
+    its block of the experts: y, the aux loss and the gradients (tokens,
+    router, its experts) equal the dense dispatch on the rank's tokens
+    (its expert gradients cut to the rank's block); the drop fraction
+    is the reference's sharded estimate."""
     for R in port4:
         (y, g, aux), (y0, g0, aux0) = (R["moe", shape, n]
                                        for n in ("mesh", "none"))

@@ -649,7 +649,11 @@ def test_four_card_tool_rehearses_in_gloo_ranks(tmp_path):
     reduced configs, in four gloo ranks) exits 0 with one line a run:
     one rank, Qwen3 on (4, 1) and (2, 2), OLMoE on (4, 1); on every mesh
     a rank holds the reference's placed bytes, less than one rank
-    holds, and imports neither JAX nor the reference."""
+    holds, and its collective bytes a step are printed by mesh axis;
+    then Qwen3's sharded prefill and decodes on (2, 2), each rank on
+    half the q heads and its vocab block of the logits, equal to one
+    rank's within the tool's limit.  The tool imports neither JAX nor
+    the reference."""
     tool = REPO / "tools" / "fsdp_train.py"
     proc = subprocess.run([sys.executable, str(tool), "--device", "cpu",
                            "--cards", "4"], capture_output=True, text=True,
@@ -667,6 +671,21 @@ def test_four_card_tool_rehearses_in_gloo_ranks(tmp_path):
             assert held == placed, r
     for r in rows[1:3]:
         assert r["bytes"]["params"][0] < rows[0]["bytes"]["params"][0]
+    assert set(rows[1]["collective_bytes_per_step_by_axis"]) == {"data"}
+    assert set(rows[2]["collective_bytes_per_step_by_axis"]) == {"data",
+                                                                 "model"}
+    served = [json.loads(line)["fsdp_serve"]
+              for line in proc.stdout.splitlines()
+              if line.startswith('{"fsdp_serve"')]
+    cfg = get_config("qwen3_0_6b").reduced()
+    assert [(r["mesh"], r["q_heads_per_rank"]) for r in served] == [
+        ([1, 1], cfg.n_heads), ([2, 2], cfg.n_heads // 2)]
+    assert served[1]["logits_shape_per_rank"] == [
+        served[1]["batch"] // 2, 1, cfg.vocab_size // 2]
+    assert set(served[1]["prefill_collective_bytes_by_axis"]) == {"model"}
+    rel = served[1]["logits_rel_diff_vs_one_card"]
+    assert len(rel) == 1 + served[1]["decode_steps"]
+    assert max(rel) <= served[1]["logits_rtol"] == 1e-4
     for line in tool.read_text(encoding="utf-8").splitlines():
         words = line.split()
         if words[:1] in (["import"], ["from"]):

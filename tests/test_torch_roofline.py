@@ -322,6 +322,39 @@ DEPTH_CELLS = [("qwen3_0_6b", "prefill_32k"), ("deepseek_v3_671b",
                ("qwen3_0_6b", "train_4k")]
 
 
+# per-rank FLOPs that the parent commit (1b2e91c, whose model ranks
+# computed whole column projections, attention over every head and
+# whole logits) traces for reduced Qwen3 on a fake (2, 4) group, 8 x 32
+# tokens, by the same trace_step
+PARENT_TP_FLOPS = {"train": 55312384, "prefill": 12976128}
+
+
+@pytest.mark.parametrize("kind", sorted(PARENT_TP_FLOPS))
+def test_dryrun_rank_computes_its_model_block(kind):
+    """On a fake (2, 4) group a rank's traced FLOPs fall below half of the
+    parent's for the same cell (the q heads, ff width and vocab split 4
+    ways; the 2 kv heads do not divide 4, so k/v stay whole), while the
+    bytes it holds stay the reference's placed bytes, and its only
+    model-axis all-gathers are those of the whole ``wk``/``wv``."""
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    cfg = get_config("qwen3_0_6b").reduced()
+    shape = ShapeConfig("tp", 32, 8, kind)
+    with dryrun.fake_group(8):
+        rules = rules_for_mesh(make_mesh_for_devices(8, 4, device=DEVICE))
+        tr = dryrun.trace_step(cfg, shape, rules, device=DEVICE)
+    assert not dist.is_initialized()
+    assert tr["flops"] < PARENT_TP_FLOPS[kind] / 2, tr["flops"]
+    mem = tr["memory"]
+    assert mem["argument_size_in_bytes"] == \
+        mem["argument_size_placed_in_bytes"]
+    # wk and wv a layer, each a (d, Hkv*hd/4) f32 block after its "data"
+    # gather (the reduced config does not remat, so once)
+    d, kv = cfg.d_model, cfg.n_kv_heads * cfg.resolved_head_dim
+    assert not cfg.remat
+    want = cfg.n_layers * 2 * d * (kv // 4) * 4
+    assert tr["coll_by_axis"]["model"]["all-gather"] == want
+
+
 @pytest.fixture(scope="module")
 def depth_costs():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
