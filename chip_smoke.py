@@ -2037,44 +2037,71 @@ DRYRUN_EXTRA = (("qwen3_0_6b", "decode_32k", ()),
                  ("--multi-pod", "--no-costs")))
 DRYRUN_WORKERS = 8
 DRYRUN_TIMEOUT_S = 420
-# the parent's figures a rank for each cell of the sweep, before a layer
-# computed on its model blocks: (FLOPs, temp bytes), this phase's (b) on
-# an NVIDIA H100 80GB HBM3 at 700 W (PR 22's last call); the multi-pod
-# cells run without costs
-PR22_DRYRUN = {
-    ("internvl2_26b", "train_4k", "single"): (8076079335997440, 168223157000),
-    ("internvl2_26b", "prefill_32k", "single"): (1637724844154880,
-                                                 26575241216),
-    ("olmo_1b", "train_4k", "single"): (590575183069184, 36913055752),
-    ("olmo_1b", "prefill_32k", "single"): (99506214404096, 17716871168),
-    ("phi3_medium_14b", "train_4k", "single"): (5946468120657920,
-                                                139238983688),
-    ("phi3_medium_14b", "prefill_32k", "single"): (1206887865384960,
-                                                   28185853952),
-    ("qwen3_0_6b", "train_4k", "single"): (485881060261888, 49384610824),
-    ("qwen3_0_6b", "prefill_32k", "single"): (39686120144896, 15300952064),
-    ("glm4_9b", "train_4k", "single"): (3855059565674496, 109203087368),
-    ("glm4_9b", "prefill_32k", "single"): (711077268553728, 11162222592),
-    ("deepseek_v3_671b", "train_4k", "single"): (11660810438836224,
-                                                 371433910284),
-    ("deepseek_v3_671b", "prefill_32k", "single"): (12012073750888448,
-                                                    125275602968),
-    ("olmoe_1b_7b", "train_4k", "single"): (336587997052928, 50538802712),
-    ("olmoe_1b_7b", "prefill_32k", "single"): (35459662086144, 20354043928),
-    ("seamless_m4t_medium", "train_4k", "single"): (464516819189760,
-                                                    53645344520),
-    ("seamless_m4t_medium", "prefill_32k", "single"): (147919723094016,
-                                                       16764895232),
-    ("zamba2_2_7b", "train_4k", "single"): (1471221719891968, 465503573000),
-    ("zamba2_2_7b", "prefill_32k", "single"): (383570971983872,
-                                               38782638336),
+# each cell's figures a rank before the SSM mixer and MLA computed by
+# heads, this phase's (b) on an NVIDIA H100 80GB HBM3 at 700 W: (FLOPs,
+# temp bytes); the multi-pod cells run without costs
+EARLIER_DRYRUN = {
+    ("qwen3_0_6b", "train_4k", "single"): (63063004807168, 8334735376),
+    ("qwen3_0_6b", "prefill_32k", "single"): (10823356481536, 2470580224),
+    ("olmo_1b", "train_4k", "single"): (45157286150144, 11086956552),
+    ("olmo_1b", "prefill_32k", "single"): (8796118777856, 3490578432),
+    ("olmoe_1b_7b", "train_4k", "single"): (55052890800128, 27103718936),
+    ("olmoe_1b_7b", "prefill_32k", "single"): (10720264126464, 11462119448),
+    ("glm4_9b", "train_4k", "single"): (354489420742656, 35609436176),
+    ("glm4_9b", "prefill_32k", "single"): (77137767825408, 6207717376),
+    ("internvl2_26b", "train_4k", "single"): (1248112127508480, 58875824912),
+    ("internvl2_26b", "prefill_32k", "single"): (227601181532160, 9403785216),
+    ("seamless_m4t_medium", "train_4k", "single"): (161463926784000,
+                                                    19272933388),
+    ("seamless_m4t_medium", "prefill_32k", "single"): (10308970930176,
+                                                       2147618816),
+    ("phi3_medium_14b", "train_4k", "single"): (2086151515013120,
+                                                135951693832),
+    ("phi3_medium_14b", "prefill_32k", "single"): (304942806466560,
+                                                   8949747712),
+    ("zamba2_2_7b", "train_4k", "single"): (1122201940000768, 111512227720),
+    ("zamba2_2_7b", "prefill_32k", "single"): (303845334351872, 30867312608),
+    ("deepseek_v3_671b", "train_4k", "single"): (9007293744021504,
+                                                 325020493840),
+    ("deepseek_v3_671b", "prefill_32k", "single"): (11600784207577088,
+                                                    100125769752),
     ("mamba2_780m", "train_4k", "single"): (419203840475136, 34653154696),
-    ("mamba2_780m", "prefill_32k", "single"): (102100271480832,
-                                               38475340288),
-    ("qwen3_0_6b", "decode_32k", "single"): (67463282688, 4360589408),
-    ("qwen3_0_6b", "train_4k", "multi"): (None, 24718826504),
-    ("deepseek_v3_671b", "train_4k", "multi"): (None, 238155313164),
+    ("mamba2_780m", "prefill_32k", "single"): (102100271480832, 18272607296),
+    ("qwen3_0_6b", "decode_32k", "single"): (5234884608, 2684387328),
+    ("qwen3_0_6b", "train_4k", "multi"): (None, 4172249104),
+    ("deepseek_v3_671b", "train_4k", "multi"): (None, 162616223760),
 }
+# the archs whose mixer (Mamba2, Zamba2) or MLA (DeepSeek-V3) a rank
+# computes by heads: below EARLIER_DRYRUN's FLOPs and temp at train_4k
+# and prefill_32k, and at train_4k the FLOPs of the CPU trace (exact)
+BY_HEADS_TRAIN_FLOPS = {"mamba2_780m": 74210592423936,
+                        "zamba2_2_7b": 107878304186368,
+                        "deepseek_v3_671b": 2260243719389184}
+
+
+def _check_against_earlier(rec: dict) -> None:
+    """A sweep cell's FLOPs and temp a rank against EARLIER_DRYRUN: lower
+    for the archs computed by heads (and at train_4k the CPU trace's
+    FLOPs), the same FLOPs to the digit for the others."""
+    key = (rec["arch"], rec["shape"], rec["mesh"])
+    if rec["status"] != "ok" or key not in EARLIER_DRYRUN:
+        return
+    flops = rec.get("flops_per_rank")
+    temp = rec["memory"]["temp_size_in_bytes"]
+    old_flops, old_temp = EARLIER_DRYRUN[key]
+    name = " ".join(key)
+    if rec["arch"] in BY_HEADS_TRAIN_FLOPS and rec["shape"] in DRYRUN_SHAPES \
+            and rec["mesh"] == "single":
+        check(flops < old_flops and temp < old_temp, f"dryrun {name}: "
+              f"FLOPs {flops:.6e} and temp {temp} bytes a rank are not "
+              f"both below {old_flops:.6e} and {old_temp}")
+        if rec["shape"] == "train_4k":
+            want = BY_HEADS_TRAIN_FLOPS[rec["arch"]]
+            check(flops == want, f"dryrun {name}: FLOPs {flops} a rank, the "
+                  f"CPU trace's {want}")
+    elif old_flops is not None:
+        check(flops == old_flops, f"dryrun {name}: FLOPs {flops} a rank "
+              f"changed from {old_flops}")
 
 
 def _dryrun_sweep(card: str, smoke: bool):
@@ -2083,8 +2110,9 @@ def _dryrun_sweep(card: str, smoke: bool):
     fake process group must not meet this process's NCCL one); every
     process must exit 0 and hold its arguments at their placements.
     Each cell's FLOPs and temp bytes a rank are printed beside
-    PR22_DRYRUN's, with its model-axis all-gather bytes.  Returns the
-    cells' records."""
+    EARLIER_DRYRUN's, with its model-axis all-gather bytes, and held
+    against them (:func:`_check_against_earlier`).  Returns the cells'
+    records."""
     import tempfile
     from repro_torch.configs import ARCH_IDS
     archs = ["qwen3_0_6b"] if smoke else [a for a in ARCH_IDS
@@ -2133,14 +2161,14 @@ def _dryrun_sweep(card: str, smoke: bool):
                 "argument_size_in_bytes", "argument_size_placed_in_bytes",
                 "temp_size_in_bytes"))
             flops = rec.get("flops_per_rank")
-            old_flops, old_temp = PR22_DRYRUN.get(
+            old_flops, old_temp = EARLIER_DRYRUN.get(
                 (arch, shape, rec["mesh"]), (None, None))
             gathers = rec.get("collectives_by_axis", {}).get(
                 "model", {}).get("all-gather", 0)
             vs = (f"; a rank: FLOPs "
-                  f"{'n/a' if flops is None else f'{flops:.4e}'} (PR 22 "
+                  f"{'n/a' if flops is None else f'{flops:.6e}'} (earlier "
                   f"{'n/a' if old_flops is None else f'{old_flops:.4e}'}"
-                  f"), temp {temp:.2f} GiB (PR 22 "
+                  f"), temp {temp:.2f} GiB (earlier "
                   f"{'n/a' if old_temp is None else f'{old_temp / 2**30:.2f}'}"
                   f"), model-axis all-gather {gathers} bytes")
             print(f"[dryrun] {arch} x {shape} x {rec['mesh']} "
@@ -2148,6 +2176,8 @@ def _dryrun_sweep(card: str, smoke: bool):
                   f"{held:.2f} GiB, placed {placed:.3f} GiB, temp "
                   f"{temp:.2f} GiB, trace {rec.get('compile_s', 0):.1f} s"
                   f"{terms}{vs} | {card}", flush=True)
+            if not smoke:
+                _check_against_earlier(rec)
     return records, wall
 
 
@@ -2330,10 +2360,9 @@ def phase_dryrun(card: str, device: str = "cuda", smoke: bool = False):
         {k: r.get(k) for k in ("arch", "shape", "mesh", "status", "device",
                                "compile_s", "memory", "reason",
                                "flops_per_rank", "collectives_by_axis")}
-        | {"pr22_flops_per_rank": PR22_DRYRUN.get(
-            (r["arch"], r["shape"], r["mesh"]), (None, None))[0],
-           "pr22_temp_bytes": PR22_DRYRUN.get(
-            (r["arch"], r["shape"], r["mesh"]), (None, None))[1]}
+        | dict(zip(("earlier_flops_per_rank", "earlier_temp_bytes"),
+                   EARLIER_DRYRUN.get((r["arch"], r["shape"], r["mesh"]),
+                                      (None, None))))
         | ({} if "roofline" not in r else {"roofline": {
             k: r["roofline"][k] for k in (
                 "hlo_flops", "hlo_bytes", "coll_bytes", "compute_s",

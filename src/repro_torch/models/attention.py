@@ -16,8 +16,13 @@ of the kv heads where n divides those too, else whole, and the rank
 picks the kv heads its q heads read (the reference's fitted "kv"
 constraint).  Where n does not divide the q heads the layer computes
 every head, with ``wq``/``wk``/``wv`` gathered whole, and takes its
-block of them at ``wo``; so does MLA, with ``wq_b`` and ``wkv_b``
-gathered whole.
+block of them at ``wo``.  MLA splits its heads the same way: the
+columns of ``wq_b`` (nope then rope a head) and ``wkv_b`` (k then v a
+head) are head-major, so their stored column blocks are this rank's H/n
+whole heads, used as they are held; ``cq``, ``ckv`` and the RoPE key,
+which every rank computes alike, enter with an all-reduced gradient.
+Where n does not divide MLA's heads, ``wq_b``/``wkv_b`` are gathered
+whole and the rank takes its block at ``wo``, as GQA does.
 """
 from __future__ import annotations
 
@@ -271,16 +276,23 @@ def _head_block(out: torch.Tensor, rules: MeshRules) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ MLA module
-def _mla_qkv(cfg, p, x):
+def _mla_qkv(cfg, p, x, rules: MeshRules, n: int):
+    """q of this rank's H/n heads (every head where n is 1), c_kv and the
+    RoPE key.  Where n > 1, ``wq_b`` is this rank's column block, and
+    ``cq``, c_kv and the RoPE key, used by every rank's heads alike,
+    enter with an all-reduced gradient."""
     B, S, _ = x.shape
-    H = cfg.n_heads
+    H = cfg.n_heads // n
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     cq = rms_norm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps)
-    q = (cq @ p["wq_b"]).reshape(B, S, H, nope + rope)
     ckv_full = x @ p["wkv_a"]
     ckv = rms_norm(ckv_full[..., :cfg.kv_lora_rank], p["kv_a_norm"],
                    cfg.norm_eps)
     k_rope = ckv_full[..., cfg.kv_lora_rank:]
+    if n > 1:
+        cq, ckv, k_rope = (model_replicated(t, rules)
+                           for t in (cq, ckv, k_rope))
+    q = (cq @ p["wq_b"]).reshape(B, S, H, nope + rope)
     return q, ckv, k_rope
 
 
@@ -297,14 +309,17 @@ def mla_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     Decode: this step's c_kv and RoPE key are written into the cache at
     ``cache_index`` IN PLACE (as gqa_attention's K/V are), and attention
     runs against the compressed cache with W_uk absorbed into q and W_uv
-    applied after, in f32."""
+    applied after, in f32.  Where the model axis splits the heads n
+    ways, a rank runs both on its H/n heads (``wkv_b``'s column block
+    gives its W_uk/W_uv) against the whole c_kv and RoPE key."""
     B, S, d = x.shape
-    H = cfg.n_heads
+    n = rules.model_ways(cfg.n_heads)
+    H = cfg.n_heads // n
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     vd = cfg.v_head_dim
     scale = 1.0 / math.sqrt(nope + rope_d)
 
-    q, ckv, k_rope = _mla_qkv(cfg, p, x)
+    q, ckv, k_rope = _mla_qkv(cfg, p, x, rules, n)
     cos, sin = rope_angles(positions, rope_d, cfg.rope_theta)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, cos, sin)
@@ -321,10 +336,9 @@ def mla_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                             kpos=torch.arange(S, dtype=torch.int32,
                                               device=x.device),
                             causal=True, scale=scale, chunk=q_chunk)
-        y = row_parallel_matmul(_head_block(out.reshape(B, S, H * vd),
-                                            rules), p["wo"], rules, H * vd)
         new_cache = {"ckv": ckv, "k_rope": k_rope} if make_cache else None
-        return y, new_cache
+        return _mla_out(cfg, p, out.reshape(B, S, H * vd), rules, n), \
+            new_cache
 
     # ---------------- absorbed decode: cache is compressed (c_kv, k_rope)
     idx = cache_index  # (B,)
@@ -351,5 +365,15 @@ def mla_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     o_c = torch.einsum("bhsk,bkr->bshr", w, ckv_c.float())
     out = torch.einsum("bshr,rhv->bshv", o_c, w_uv)
     out = out.to(x.dtype).reshape(B, S, H * vd)
-    y = row_parallel_matmul(_head_block(out, rules), p["wo"], rules, H * vd)
-    return y, cache
+    return _mla_out(cfg, p, out, rules, n), cache
+
+
+def _mla_out(cfg, p, out: torch.Tensor, rules: MeshRules, n: int
+             ) -> torch.Tensor:
+    """``wo`` on MLA's attention output of this rank's H/n heads (its
+    rows' block); where n is 1 on every head, of which ``wo``'s rows
+    still take their block."""
+    if n == 1:
+        out = _head_block(out, rules)
+    return row_parallel_matmul(out, p["wo"], rules,
+                               cfg.n_heads * cfg.v_head_dim)

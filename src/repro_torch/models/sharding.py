@@ -27,8 +27,11 @@ that block by the weight's rows and all-reduces (the reference's bf16
 ``psum``); experts are this rank's E/n.  So the activations the
 reference constrains to "model" are this rank's blocks here, produced
 by the layer itself, and ``constrain`` is the identity.  A consumer
-that cannot take its block gathers the model axis too (``whole``, see
-``transformer.whole_on_model``).  The dry-run's abstract leaves
+that cannot take its block gathers the model axis too: ``"whole"``
+where every model rank then computes on the whole leaf alike,
+``"parts"`` where each uses its own parts of it (see
+``transformer.whole_on_model``).
+The dry-run's abstract leaves
 (:func:`abstract_leaf`) are fake tensors of their placed shapes that
 carry their placement.  With no mesh every helper degrades to a no-op.
 """
@@ -139,31 +142,50 @@ class MeshRules:
         return x
 
     def gather(self, t: torch.Tensor, placement: Optional[Placement],
-               whole: bool = False) -> torch.Tensor:
+               model: str = "block") -> torch.Tensor:
         """A leaf stored at ``placement`` as a layer uses it, gathered
-        over the batch/FSDP axes it is sharded on; a dim on the model
-        axis stays this rank's block unless ``whole`` (then it is
-        gathered too: the global value).  Differentiable: the gradient
-        of this rank's block is summed over an axis along which the
-        ranks hold different slices of the batch
+        over the batch/FSDP axes it is sharded on.  Differentiable: the
+        gradient of this rank's block is summed over an axis along which
+        the ranks hold different slices of the batch
         (:meth:`split_batch_axes`), and taken as it is along any other
-        (where every rank holds the whole gradient)."""
+        (where every rank holds the whole gradient).  ``model`` says what
+        becomes of the model axis:
+
+        * ``"block"``: a dim on it stays this rank's block;
+        * ``"whole"``: it is gathered too (the global value), and every
+          model rank computes on the whole leaf alike;
+        * ``"parts"``: it is gathered too, but each model rank uses its
+          own parts of the whole leaf (the SSM mixer's ``in_proj``
+          columns of its heads), so its gradient covers only those and
+          is summed over the model group: a reduce-scatter where the
+          leaf is split on the model axis, an all-reduce where it is
+          held whole."""
+        if model not in ("block", "whole", "parts"):
+            raise ValueError(f"model={model!r}: block, whole or parts")
         if placement is None:
             return t
-        from ..core.distributed import gather_shards
+        from ..core.distributed import gather_shards, replicated
         summed = self.split_batch_axes()
+        on_model = False
         for dim, ax in enumerate(placement.spec):
             for a in reversed(_axes(ax)):   # innermost first
-                if a == self.model_axis and not whole:
-                    continue
+                if a == self.model_axis:
+                    if model == "block":
+                        continue
+                    on_model = True
                 t = gather_shards(t, axis_group(placement.mesh, a), dim,
-                                  a in summed)
+                                  a in summed or (model == "parts" and
+                                                  a == self.model_axis))
+        if (model == "parts" and not on_model
+                and self.axis_size(self.model_axis) > 1):
+            t = replicated(t, self.group(self.model_axis))
         return t
 
-    def gather_tree(self, tree, placements, whole=None):
+    def gather_tree(self, tree, placements, model=None):
         """:meth:`gather` over a tree and its tree of placements;
-        ``whole(path)`` (a leaf's tuple of keys within ``tree``) says
-        which leaves are gathered over the model axis too."""
+        ``model(path)`` (a leaf's tuple of keys within ``tree``) gives
+        each leaf's ``model`` mode ("block" for every leaf where
+        None)."""
         if self.mesh is None:
             return tree
 
@@ -172,7 +194,7 @@ class MeshRules:
                 return {k: walk(v, places[k], path + (k,))
                         for k, v in node.items()}
             return self.gather(node, places,
-                               whole=bool(whole and whole(path)))
+                               model=model(path) if model else "block")
         return walk(tree, placements, ())
 
     def group(self, name: str):
@@ -273,7 +295,8 @@ def gather(t: torch.Tensor, placement: Optional[Placement]) -> torch.Tensor:
     :meth:`MeshRules.gather`)."""
     if placement is None:
         return t
-    return MeshRules(mesh=placement.mesh).gather(t, placement, whole=True)
+    return MeshRules(mesh=placement.mesh).gather(t, placement,
+                                               model="whole")
 
 
 def global_shape(t: torch.Tensor) -> Tuple[int, ...]:

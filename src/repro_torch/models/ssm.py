@@ -11,10 +11,23 @@ attention-like quadratic form with a decay mask; across chunks only the
 chunks in place of the reference's ``lax.scan``.  The state is float32
 in every config dtype.
 
-Under a mesh the mixer's leaves are gathered whole over the model axis
-too (``transformer.whole_on_model``) and every model rank computes the
-whole mixer: ``in_proj``'s columns concatenate z, x, B, C and dt, so a
-contiguous column block of it mixes them.
+Under a model axis of n ranks that divides the heads, a rank computes
+its H/n heads, as the reference's GSPMD does under its placements
+(``in_proj`` on "model" by columns, ``conv_w``/``conv_b``/``norm`` on
+"model", ``out_proj`` by rows).  ``in_proj``, ``conv_w`` and ``conv_b``
+are still gathered whole over the model axis
+(``transformer.whole_on_model``): their columns concatenate z, x, B, C
+and dt (x, B and C for the conv), so their stored contiguous blocks mix
+the parts.  The rank takes from them its heads' z, x and dt columns and
+all of B and C, which every rank computes alike (their gradient, like
+the whole leaves', is summed over the model group).  ``norm`` and
+``out_proj`` are its heads' blocks as they are held; the gated norm
+sums its squares over the model group, and ``out_proj``'s rows finish
+the output in ``layers.row_parallel_matmul``.  The decode state holds
+the ssm state by heads (the rank's own) and the conv state whole over
+the conv channels here: the rank reads its parts of it and all-gathers
+its new x channels back.  Where n does not divide the heads, every
+model rank computes the whole mixer from leaves gathered whole.
 """
 from __future__ import annotations
 
@@ -23,7 +36,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import Maker, rms_norm
+from .layers import Maker, model_replicated, rms_norm, row_parallel_matmul
 from .sharding import MeshRules
 
 
@@ -92,8 +105,13 @@ def _ssd_chunked(xh, dt, a_log, Bmat, Cmat, chunk: int):
     li = csum[:, :, :, None, :] - csum[:, :, None, :, :]   # (B,nc,L,S,H)
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=xh.device))
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(li),
-                        li.new_zeros(()))
+    # masked before the exp, not after (the reference's order): above
+    # the diagonal li is a sum of decays that grows with the chunk and
+    # overflows exp at a full chunk of 256, and a masked inf turns the
+    # gradient into 0 * inf = NaN; exp(-inf) is the same 0 with a zero
+    # gradient
+    decay = torch.exp(li.masked_fill(~mask[None, None, :, :, None],
+                                     float("-inf")))
     y_intra = torch.einsum("bclsh,bcshp->bclhp",
                            scores[..., None] * decay, xc)
 
@@ -117,38 +135,101 @@ def _ssd_chunked(xh, dt, a_log, Bmat, Cmat, chunk: int):
     return y.to(xh.dtype), h
 
 
+def _head_parts(cfg, rules: MeshRules, n: int):
+    """The column indices, within ``in_proj`` and within the conv
+    channels, of what this rank's H/n heads read: their z, x and dt
+    columns and all of B and C; and the slice of its heads."""
+    di, ds, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    c = rules.coordinate(rules.model_axis)
+    dl, hl = di // n, H // n
+    own = slice(c * dl, (c + 1) * dl)
+    heads = slice(c * hl, (c + 1) * hl)
+    in_cols = (own, slice(di + own.start, di + own.stop),
+               slice(2 * di, 2 * di + 2 * ds),
+               slice(2 * di + 2 * ds + heads.start,
+                     2 * di + 2 * ds + heads.stop))
+    conv_cols = (own, slice(di, di + 2 * ds))
+    return in_cols, conv_cols, heads
+
+
+def _cols(t: torch.Tensor, cols) -> torch.Tensor:
+    """The columns ``cols`` (slices of the last dim) of ``t``, joined."""
+    return torch.cat([t[..., sl] for sl in cols], dim=-1)
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor, eps,
+                rules: MeshRules, n: int, features: int) -> torch.Tensor:
+    """``rms_norm(y * silu(z), w)`` over all ``features`` of the last
+    dim, of which y, z and w hold this rank's block where n > 1: the f32
+    sum of squares is summed over the model group (forward and
+    backward: every rank's loss reads the sum)."""
+    g = y * F.silu(z)
+    if n == 1:
+        return rms_norm(g, w, eps)
+    from ..core.distributed import shared_sum
+    gf = g.float()
+    ss = shared_sum(torch.sum(gf * gf, dim=-1, keepdim=True),
+                    rules.group(rules.model_axis))
+    return (gf * torch.rsqrt(ss / features + eps) * w.float()).to(g.dtype)
+
+
 def mamba_block(cfg, p: dict, x: torch.Tensor, rules: MeshRules, *,
                 state: Optional[dict] = None, make_state: bool = False,
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Full Mamba2 mixer.  x: (B, S, d).
     state (decode, S == 1): {"conv": (B, K-1, conv_dim), "ssm":
     (B, H, P, N) float32}, updated IN PLACE and returned (as the
-    attention caches are)."""
+    attention caches are).  Where the model axis splits the heads n
+    ways, "ssm" is this rank's (B, H/n, P, N) block and "conv" is whole
+    (see the module's docstring), and so is a prefill's new state."""
     B, S, d = x.shape
     di, ds, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-
-    zxbcdt = x @ p["in_proj"]
-    z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di:di + di + 2 * ds]
-    dt_raw = zxbcdt[..., -H:]
-    dt = F.softplus(dt_raw.float() + p["dt_bias"][None, None, :])
-
+    n = rules.model_ways(H)
+    dl, hl = di // n, H // n
+    w_in, conv_w, conv_b = p["in_proj"], p["conv_w"], p["conv_b"]
+    a_log, d_skip, dt_bias = p["A_log"], p["D"], p["dt_bias"]
     conv_state = state["conv"] if state is not None else None
-    xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
-    xs = xbc[..., :di].reshape(B, S, H, P)
-    Bmat = xbc[..., di:di + ds]
-    Cmat = xbc[..., di + ds:]
+    if n > 1:
+        # this rank's H/n heads: its parts of the whole in_proj and conv
+        # (one matmul on the gathered columns), B and C alike on every
+        # rank, and every input it uses by its heads entering with an
+        # all-reduced gradient
+        in_cols, conv_cols, heads = _head_parts(cfg, rules, n)
+        x = model_replicated(x, rules)
+        a_log, d_skip, dt_bias = (model_replicated(t, rules)[heads]
+                                  for t in (a_log, d_skip, dt_bias))
+        w_in = _cols(w_in, in_cols)
+        conv_w, conv_b = _cols(conv_w, conv_cols), _cols(conv_b, conv_cols)
+        if conv_state is not None:
+            conv_state = _cols(conv_state, conv_cols)
+
+    zxbcdt = x @ w_in
+    z = zxbcdt[..., :dl]
+    xbc = zxbcdt[..., dl:dl + dl + 2 * ds]
+    dt_raw = zxbcdt[..., -hl:]
+    dt = F.softplus(dt_raw.float() + dt_bias[None, None, :])
+
+    xbc, new_conv = _causal_conv(xbc, conv_w, conv_b, conv_state)
+    xs = xbc[..., :dl].reshape(B, S, hl, P)
+    Bmat = xbc[..., dl:dl + ds]
+    Cmat = xbc[..., dl + ds:]
+    if n > 1 and (state is not None or make_state):
+        # the whole conv state: every rank's x channels, then B and C
+        from ..core.distributed import all_gather
+        new_conv = torch.cat([
+            all_gather(new_conv[..., :dl], rules.group(rules.model_axis),
+                       dim=-1), new_conv[..., dl:]], dim=-1)
 
     if state is not None:
         # -------- decode: O(1) recurrent update (S == 1)
         h = state["ssm"]                               # (B, H, P, N) f32
-        a = torch.exp(-torch.exp(p["A_log"].float()) * dt[:, 0, :])  # (B, H)
+        a = torch.exp(-torch.exp(a_log.float()) * dt[:, 0, :])  # (B, H)
         xdt = xs[:, 0].float() * dt[:, 0, :, None]
         upd = torch.einsum("bhp,bn->bhpn", xdt, Bmat[:, 0].float())
         h = h * a[..., None, None] + upd
         y = torch.einsum("bn,bhpn->bhp", Cmat[:, 0].float(), h)
-        y = y + p["D"].float()[None, :, None] * xs[:, 0].float()
-        y = y.reshape(B, 1, di).to(x.dtype)
+        y = y + d_skip.float()[None, :, None] * xs[:, 0].float()
+        y = y.reshape(B, 1, dl).to(x.dtype)
         state["conv"].copy_(new_conv)
         state["ssm"].copy_(h)
         new_state = state
@@ -164,13 +245,14 @@ def mamba_block(cfg, p: dict, x: torch.Tensor, rules: MeshRules, *,
             C_p = F.pad(Cmat, (0, 0, 0, pad))
         else:
             xs_p, dt_p, B_p, C_p = xs, dt, Bmat, Cmat
-        y, h_last = _ssd_chunked(xs_p, dt_p, p["A_log"], B_p, C_p, chunk)
+        y, h_last = _ssd_chunked(xs_p, dt_p, a_log, B_p, C_p, chunk)
         y = y[:, :S]
-        y = y + p["D"].float()[None, None, :, None] * xs.float()
-        y = y.reshape(B, S, di).to(x.dtype)
+        y = y + d_skip.float()[None, None, :, None] * xs.float()
+        y = y.reshape(B, S, dl).to(x.dtype)
         new_state = ({"conv": new_conv, "ssm": h_last}
                      if make_state else None)
 
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"]
-    return out, new_state
+    y = _gated_norm(y, z, p["norm"], cfg.norm_eps, rules, n, di)
+    if n == 1:
+        return y @ p["out_proj"], new_state
+    return row_parallel_matmul(y, p["out_proj"], rules, di), new_state

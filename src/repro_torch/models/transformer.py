@@ -81,40 +81,53 @@ def _dtype_of(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def whole_on_model(cfg, rules: MeshRules):
-    """``whole(path)`` for ``MeshRules.gather_tree``: whether a block's
-    leaf at ``path`` (its keys within the block) is gathered over the
-    model axis too, for a consumer that does not take its model block:
+# the SSM mixer's leaves whose stored blocks mix its parts (z, x, B, C
+# and dt; x, B and C for the conv): gathered whole and used by parts
+_MIXER_PARTS = ("in_proj", "conv_w", "conv_b")
 
-    * the SSM mixer ("mixer"): ``in_proj``'s columns concatenate z, x,
-      B, C and dt, so a contiguous column block mixes them;
-    * MLA's ``wq_b``/``wkv_b``: their columns interleave each head's
-      nope and rope (or k and v) parts; every rank computes every head
-      and takes its block at ``wo``;
+
+def whole_on_model(cfg, rules: MeshRules):
+    """The ``model`` argument of ``MeshRules.gather_tree``: a block's
+    leaf at ``path`` (its keys within the block) to its mode over the
+    model axis, "block" (taken as held) but for a consumer that does
+    not take its model block as it is held.
+
+    "whole" (every model rank computes on the whole leaf alike):
+
     * GQA's ``wk``/``wv`` where the model axis does not divide the kv
       heads (the rank picks the ones its q heads read), and ``wq`` too
       where it does not divide the q heads (every head, as the
-      reference's fitted constraint leaves q whole)."""
-    n, kv_split = head_split(cfg, rules) if cfg.n_heads else (1, False)
-    split_model = rules.axis_size(rules.model_axis) > 1
-    gqa = set()
-    if split_model and not cfg.use_mla:
-        if not kv_split:
-            gqa |= {"wk", "wv"}
-        if n == 1:
-            gqa.add("wq")
+      reference's fitted constraint leaves q whole);
+    * MLA's ``wq_b``/``wkv_b`` where it does not divide MLA's heads
+      (every rank computes every head and takes its block at ``wo``);
+    * every leaf of the SSM mixer ("mixer") where it does not divide the
+      SSM heads (every rank computes the whole mixer).
 
-    def whole(path) -> bool:
-        if not path:   # a top-level leaf (embed, lm_head, norms)
-            return False
+    "parts" (each model rank uses its own parts of the whole leaf): the
+    mixer's ``in_proj``, ``conv_w`` and ``conv_b`` where the model axis
+    divides the SSM heads.  Their columns concatenate z, x, B, C and dt
+    (x, B and C), so a contiguous column block mixes them; the rank
+    takes its heads' columns and all of B and C (``ssm.py``).  The
+    mixer's ``norm`` and ``out_proj`` are its heads' blocks as held."""
+    split_model = rules.axis_size(rules.model_axis) > 1
+    n, kv_split = head_split(cfg, rules) if cfg.n_heads else (1, False)
+    attn = set()
+    if split_model and n == 1:
+        attn |= {"wq_b", "wkv_b"} if cfg.use_mla else {"wq"}
+    if split_model and not cfg.use_mla and not kv_split:
+        attn |= {"wk", "wv"}
+    mixer_split = rules.model_ways(cfg.ssm_heads) > 1
+
+    def mode(path) -> str:
         if "mixer" in path:
-            return True
-        leaf = path[-1]
-        if leaf in ("wq_b", "wkv_b"):
-            return True
-        return leaf in gqa and len(path) >= 2 and path[-2] in ("attn",
-                                                               "cross")
-    return whole
+            if mixer_split:
+                return "parts" if path[-1] in _MIXER_PARTS else "block"
+            return "whole" if split_model else "block"
+        if (len(path) >= 2 and path[-1] in attn
+                and path[-2] in ("attn", "cross")):
+            return "whole"
+        return "block"
+    return mode
 
 
 # ==========================================================================
@@ -259,9 +272,10 @@ def _stack(parts, join=torch.stack):
     return tree_map(lambda *xs: join(xs), *parts)
 
 
-# the leaves of a KV cache whose kv-heads dim (axis 3 of the stacked
-# leaf) a layer consumes by its model block
-_KV_LEAVES = ("k", "v", "cross_k", "cross_v")
+# the cache leaves of which a layer makes and reads its model block, by
+# the dim (of one layer's leaf, batch first) that holds it: a KV cache's
+# kv heads and the SSM state's heads
+_BLOCK_DIM = {"k": 2, "v": 2, "cross_k": 2, "cross_v": 2, "ssm": 1}
 
 
 def _cache_places(places) -> Any:
@@ -269,8 +283,10 @@ def _cache_places(places) -> Any:
     prefill and gathered over at decode, from the stacked cache's tree of
     placements (None: held whole): every axis of the placement but the
     batch dim (axis 1: this rank's slice of the batch, as every
-    activation is) and a model axis on a KV leaf's kv heads (the layer
-    makes and reads its block of them).  None when nothing is placed."""
+    activation is) and a model axis on the heads of a KV cache or an
+    SSM state (the layer makes and reads its block of them; the conv
+    state's channels and MLA's ``ckv`` are gathered).  None when nothing
+    is placed."""
     if places is None:
         return None
 
@@ -280,8 +296,8 @@ def _cache_places(places) -> Any:
         if node is None:
             return None
         spec = [None] + list(node.spec[2:])
-        if name in _KV_LEAVES and spec[2] is not None:
-            spec[2] = None
+        if name in _BLOCK_DIM:
+            spec[_BLOCK_DIM[name]] = None
         if all(a is None for a in spec):
             return None
         return Placement(node.mesh, tuple(spec))
@@ -339,11 +355,11 @@ def _scan_blocks(cfg, rules, layers, x, positions, *, kind, place=None,
     ``remat`` and grad mode on, each layer keeps only its input for the
     backward pass and recomputes the rest there, its gathers included
     (the reference's ``jax.checkpoint``)."""
-    whole = whole_on_model(cfg, rules) if place is not None else None
+    how = whole_on_model(cfg, rules) if place is not None else None
 
     def block(x, lp, lcache):
         if place is not None:
-            lp = rules.gather_tree(lp, place, whole)
+            lp = rules.gather_tree(lp, place, model=how)
         if kind == "attn":
             return _attn_block(
                 cfg, rules, lp, x, positions, cache=lcache,
@@ -413,7 +429,8 @@ class Model:
         if self.rules.mesh is None:
             return params[name]
         return self.rules.gather_tree(params[name], self.placements()[name],
-                                      whole_on_model(self.cfg, self.rules))
+                                      model=whole_on_model(self.cfg,
+                                                           self.rules))
 
     def _group(self, params, name) -> dict:
         """The keyword arguments of :func:`_scan_blocks` for the stacked

@@ -323,6 +323,30 @@ def test_ssd_chunked_matches_the_reference():
     _close(h, rh)
 
 
+def test_ssd_chunked_gradient_is_finite_at_a_full_chunk():
+    """At a full chunk of 256 steps with the published decays the sum of
+    decays above the diagonal overflows exp (in f32 past ~88).  The
+    forward is the reference's; the gradient is finite, where a mask
+    applied after the exp (the reference's order) gives 0 * inf = NaN."""
+    rng = np.random.default_rng(3)
+    B, S, H, P, N, chunk = 1, 256, 2, 4, 8, 256
+    args = (rng.standard_normal((B, S, H, P)).astype(np.float32),
+            rng.uniform(0.5, 1.0, (B, S, H)).astype(np.float32),
+            np.ones((H,), np.float32),
+            rng.standard_normal((B, S, N)).astype(np.float32),
+            rng.standard_normal((B, S, N)).astype(np.float32))
+    csum = np.cumsum(-np.e * args[1], axis=1)
+    assert (csum[:, :1] - csum[:, -1:]).max() > 88   # exp overflows
+    ins = [torch.from_numpy(a).requires_grad_() for a in args]
+    y, h = ssm._ssd_chunked(*ins, chunk=chunk)
+    ry, rh = ref_ssm._ssd_chunked(*map(jnp.asarray, args), chunk=chunk)
+    _close(y.detach(), ry)
+    _close(h.detach(), rh)
+    (y.sum() + h.sum()).backward()
+    for t in ins:
+        assert torch.isfinite(t.grad).all()
+
+
 @pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_2_7b"])
 def test_mamba_block_and_decode_state_match_the_reference(arch):
     """mamba_block at a prompt length that is not a chunk multiple (13,

@@ -6,7 +6,9 @@ ranks (``torch_ranks.run_ranks``) held against one rank: losses, the
 clip's global norm, the gathered parameters, and checkpoints that
 resume on another mesh and stay readable by the reference's
 checkpointer.  Reduced configs (f32): dense Qwen3 and OLMoE, whose
-experts sit on "model".
+experts sit on "model"; the training against the reference's sharded
+jitted step also for Mamba2, Zamba2 and DeepSeek-V3, whose SSM mixer
+and MLA a rank computes by heads on "model".
 """
 import json
 import os
@@ -32,6 +34,12 @@ from repro_torch.tree import keystr, tree_flatten
 from torch_ranks import REPO, run_ranks
 
 ARCHS = ("qwen3_0_6b", "olmoe_1b_7b")
+# the archs held against the reference's sharded jitted step: also those
+# whose SSM mixer (Mamba2, Zamba2) or MLA (DeepSeek-V3) a rank computes
+# by heads on "model" (tests/test_torch_tensor_parallel_mixers.py); SEQ
+# is shorter than a full SSD chunk, where the reference's scan has a NaN
+# gradient
+REF_ARCHS = ARCHS + ("mamba2_780m", "zamba2_2_7b", "deepseek_v3_671b")
 HELD_MESHES = ((8, 1), (2, 4), (4, 2))
 # sharded against one rank: the same arithmetic but for the order of the
 # batch-axis sums (a reduce-scatter or an all-reduce of two or four
@@ -261,7 +269,7 @@ def host(tree):
 mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(2, 2),
                          ("data", "model"))
 out = {{}}
-for arch in {ARCHS!r}:
+for arch in {REF_ARCHS!r}:
     cfg = get_config(arch).reduced()
     step, model = steps.make_train_step(
         cfg, rules_for_mesh(mesh), adamw.AdamWConfig(grad_clip={CLIP!r},
@@ -306,7 +314,7 @@ rules = rules_for_mesh(init_device_mesh("cpu", (2, 2),
                                         mesh_dim_names=("data", "model")))
 rows = _batch_rows(rules, {GLOBAL_BATCH})
 out = {{}}
-for arch in {ARCHS!r}:
+for arch in {REF_ARCHS!r}:
     cfg = get_config(arch).reduced()
     step, model = steps.make_train_step(
         cfg, rules, adamw.AdamWConfig(grad_clip={CLIP!r}, **{OPT!r}))
@@ -504,7 +512,7 @@ def from_reference(tmp_path_factory):
         return pickle.load(f), ranks
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", REF_ARCHS)
 def test_sharded_training_equals_the_references_sharded_step(
         from_reference, arch):
     """Both packages start from one tree on a (2, 2) mesh: the
@@ -647,13 +655,20 @@ def test_placed_checkpoint_reads_in_the_reference(resumed):
 def test_four_card_tool_rehearses_in_gloo_ranks(tmp_path):
     """``tools/fsdp_train.py --device cpu`` (the four-card runs at the
     reduced configs, in four gloo ranks) exits 0 with one line a run:
-    one rank, Qwen3 on (4, 1) and (2, 2), OLMoE on (4, 1); on every mesh
-    a rank holds the reference's placed bytes, less than one rank
-    holds, and its collective bytes a step are printed by mesh axis;
-    then Qwen3's sharded prefill and decodes on (2, 2), each rank on
-    half the q heads and its vocab block of the logits, equal to one
-    rank's within the tool's limit.  The tool imports neither JAX nor
-    the reference."""
+    one rank, Qwen3 on (4, 1) and (2, 2), OLMoE on (4, 1), Mamba2 on
+    one rank, (4, 1) and (2, 2) in its config's dtype and in f32; on
+    every mesh a rank holds the reference's placed bytes, less than one
+    rank holds, and its collective bytes a step are printed by mesh
+    axis, and its first gradient, gathered, is one rank's leaf by leaf,
+    as is the mean of the gradients of one rank's four row blocks;
+    then the sharded prefill and decodes on (2, 2) of Qwen3, Zamba2 (in
+    its config's dtype and in f32) and DeepSeek-V3 (at its capacity
+    factor and at 4), each rank on half the q heads (and half the SSM
+    heads) and its vocab block of the logits, equal to one rank's within
+    the tool's limit, and one rank's share of dropped expert slots
+    printed (none at the reduced configs).  ``--archs`` keeps the runs
+    of the archs it names.  The tool imports neither JAX nor the
+    reference."""
     tool = REPO / "tools" / "fsdp_train.py"
     proc = subprocess.run([sys.executable, str(tool), "--device", "cpu",
                            "--cards", "4"], capture_output=True, text=True,
@@ -665,27 +680,52 @@ def test_four_card_tool_rehearses_in_gloo_ranks(tmp_path):
             if line.startswith('{"fsdp_train"')]
     assert [(r["arch"].split("-")[0], r["mesh"]) for r in rows] == [
         ("qwen3", [1, 1]), ("qwen3", [4, 1]), ("qwen3", [2, 2]),
-        ("olmoe", [4, 1])]
+        ("olmoe", [4, 1]), ("mamba2", [1, 1]), ("mamba2", [4, 1]),
+        ("mamba2", [2, 2]), ("mamba2", [1, 1]), ("mamba2", [4, 1]),
+        ("mamba2", [2, 2])]
+    assert {r["dtype"] for r in rows} == {"float32"}
     for r in rows:
         for held, placed in r["bytes"].values():
             assert held == placed, r
     for r in rows[1:3]:
         assert r["bytes"]["params"][0] < rows[0]["bytes"]["params"][0]
-    assert set(rows[1]["collective_bytes_per_step_by_axis"]) == {"data"}
-    assert set(rows[2]["collective_bytes_per_step_by_axis"]) == {"data",
-                                                                 "model"}
+    for r in rows[5:7] + rows[8:]:
+        assert r["bytes"]["params"][0] < rows[4]["bytes"]["params"][0]
+        assert max(r["loss_rel_diff_vs_one_card"]) <= r["loss_rtol"] == 1e-4
+    for r in rows[1:3] + rows[5:7] + rows[8:]:
+        errs = r["first_grad_rel_err_by_leaf"]
+        assert errs and max(errs.values()) <= 1e-4, errs
+    for r in (rows[0], rows[4], rows[7]):
+        errs = r["first_grad_split_rel_err_by_leaf"]
+        assert errs and max(errs.values()) <= 1e-4, errs
+    for r in (rows[1], rows[5], rows[8]):
+        assert set(r["collective_bytes_per_step_by_axis"]) == {"data"}
+    for r in (rows[2], rows[6], rows[9]):
+        assert set(r["collective_bytes_per_step_by_axis"]) == {"data",
+                                                               "model"}
     served = [json.loads(line)["fsdp_serve"]
               for line in proc.stdout.splitlines()
               if line.startswith('{"fsdp_serve"')]
-    cfg = get_config("qwen3_0_6b").reduced()
-    assert [(r["mesh"], r["q_heads_per_rank"]) for r in served] == [
-        ([1, 1], cfg.n_heads), ([2, 2], cfg.n_heads // 2)]
-    assert served[1]["logits_shape_per_rank"] == [
-        served[1]["batch"] // 2, 1, cfg.vocab_size // 2]
-    assert set(served[1]["prefill_collective_bytes_by_axis"]) == {"model"}
-    rel = served[1]["logits_rel_diff_vs_one_card"]
-    assert len(rel) == 1 + served[1]["decode_steps"]
-    assert max(rel) <= served[1]["logits_rtol"] == 1e-4
+    archs = ("qwen3_0_6b", "zamba2_2_7b", "deepseek_v3_671b",
+             "deepseek_v3_671b", "zamba2_2_7b")
+    assert [r["arch"] for r in served] == [
+        get_config(a).reduced().name for a in archs for _ in (0, 1)]
+    assert [r.get("capacity_factor") for r in served[::2]] == [
+        None, None, 2.0, 4.0, None]
+    assert [r["moe_drop_frac_summed"] for r in served[4:8:2]] == [0.0, 0.0]
+    for arch, (one, sharded) in zip(archs, zip(served[::2], served[1::2])):
+        cfg = get_config(arch).reduced()
+        assert [(r["mesh"], r["q_heads_per_rank"]) for r in (one, sharded)
+                ] == [([1, 1], cfg.n_heads), ([2, 2], cfg.n_heads // 2)]
+        if cfg.family == "hybrid":
+            assert (one["ssm_heads_per_rank"], sharded["ssm_heads_per_rank"]
+                    ) == (cfg.ssm_heads, cfg.ssm_heads // 2)
+        assert sharded["logits_shape_per_rank"] == [
+            sharded["batch"] // 2, 1, cfg.vocab_size // 2]
+        assert set(sharded["prefill_collective_bytes_by_axis"]) == {"model"}
+        rel = sharded["logits_rel_diff_vs_one_card"]
+        assert len(rel) == 1 + sharded["decode_steps"]
+        assert max(rel) <= sharded["logits_rtol"] == 1e-4
     for line in tool.read_text(encoding="utf-8").splitlines():
         words = line.split()
         if words[:1] in (["import"], ["from"]):

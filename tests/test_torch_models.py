@@ -419,13 +419,9 @@ def test_family_init_shapes_equal_the_reference_tree(family_pairs, arch):
             assert p["blocks"]["mixer"][key].dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", FAMILY_ARCHS)
-def test_family_logits_match_the_reference(family_pairs, arch):
-    """Train logits (with the MoE aux and DeepSeek's MTP logits),
-    prefill logits and two decode steps, port against reference, within
-    the reference's 2e-4; the padded caches have the reference's
-    shapes."""
-    cfg, ref_model, ref_params, model, params = family_pairs(arch)
+def _family_inputs(cfg):
+    """The family twins' tokens (2 x 12, the last two decoded) and, for
+    encdec, encoder states, from a seed."""
     rng = np.random.default_rng(11)
     B, S = 2, 12
     tok = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
@@ -433,6 +429,77 @@ def test_family_logits_match_the_reference(family_pairs, arch):
     if cfg.family == "encdec":
         kw["enc_embeds"] = rng.standard_normal(
             (B, 8, cfg.d_model)).astype(np.float32)
+    return B, S, tok, kw
+
+
+def _family_logits(model, params, cache_len, kw, tok, to, run):
+    """Train logits, prefill logits (10 tokens) and two decodes' logits
+    of one package's ``model``, as float32 numpy: ``to`` makes that
+    package's arrays from numpy, ``run`` readies its outputs for numpy
+    (the two packages' calls differ only in their arrays)."""
+    logits, _ = model.train_logits(params, **{k: to(v) for k, v in
+                                             kw.items()})
+    lg, cache = model.prefill(params, **{k: to(v) for k, v in
+                                         dict(kw, tokens=tok[:, :10]).items()})
+    out = [logits, lg]
+    cache = model.pad_cache(cache, cache_len)
+    for t in (10, 11):
+        lg, cache = model.decode(params, cache, to(tok[:, t]),
+                                 to(np.full((tok.shape[0],), t, np.int32)))
+        out.append(lg)
+    return [np.asarray(run(x), np.float32) for x in out]
+
+
+def _normwise(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _bf16_logits_twin(arch, family_pairs):
+    """The port's bf16 logits against the reference's bf16 logits from
+    the same tree (the reference's float32 init cast to each leaf's
+    bf16-config dtype), normwise, within twice the reference's own
+    bf16-against-f32 normwise drift on that input plus 1e-3."""
+    cfg, ref_model, ref_params, _, _ = family_pairs(arch)
+    ref_cfg = dataclasses.replace(ref_get_config(arch).reduced(),
+                                  dtype="bfloat16")
+    ref16 = RefModel(ref_cfg)
+    dtypes = jax.eval_shape(ref16.init, jax.random.PRNGKey(0))
+    tree16 = jax.tree.map(lambda a, s: a.astype(s.dtype), ref_params, dtypes)
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    port16 = params_from_reference(_np_tree(tree16), torch.float32, "cpu")
+    port16 = jax.tree.map(
+        lambda t, s: t.to(torch.bfloat16 if s.dtype == jnp.bfloat16
+                          else torch.float32), port16, dtypes)
+    _, S, tok, kw = _family_inputs(cfg)
+    jx = lambda a: jnp.asarray(a)
+    th = lambda a: torch.from_numpy(a)
+    ref32 = _family_logits(ref_model, ref_params, S, kw, tok, jx,
+                           lambda x: x)
+    ref16_lg = _family_logits(ref16, tree16, S, kw, tok, jx, lambda x: x)
+    got = _family_logits(Model(cfg16), port16, S, kw, tok, th,
+                         lambda x: x.float())
+    for i, (g, r16, r32) in enumerate(zip(got, ref16_lg, ref32)):
+        assert g.shape == r16.shape
+        drift = _normwise(r16, r32)
+        assert _normwise(g, r16) <= 2 * drift + 1e-3, (i, _normwise(g, r16),
+                                                       drift)
+
+
+@pytest.mark.parametrize("arch,dtype", [
+    pytest.param(a, d, id=a if d == "float32" else f"{a}-bf16")
+    for d in ("float32", "bfloat16") for a in FAMILY_ARCHS])
+def test_family_logits_match_the_reference(family_pairs, arch, dtype):
+    """Train logits (with the MoE aux and DeepSeek's MTP logits),
+    prefill logits and two decode steps, port against reference, within
+    the reference's 2e-4; the padded caches have the reference's
+    shapes.  In bf16 (``-bf16`` ids) the same logits against the
+    reference's bf16 logits from the same tree, normwise, within twice
+    the reference's own bf16-against-f32 drift on that input + 1e-3."""
+    if dtype == "bfloat16":
+        _bf16_logits_twin(arch, family_pairs)
+        return
+    cfg, ref_model, ref_params, model, params = family_pairs(arch)
+    B, S, tok, kw = _family_inputs(cfg)
     jx = lambda d: {k: jnp.asarray(v) for k, v in d.items()}
     th = lambda d: {k: torch.from_numpy(v) for k, v in d.items()}
     want, raux = ref_model.train_logits(ref_params, **jx(kw))

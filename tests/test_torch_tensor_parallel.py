@@ -20,299 +20,32 @@ reference's GSPMD does under its constraints.  Gloo ranks
   from the same tree, each rank's cache block at the reference's cache
   shard shape.
 """
-import functools
-import json
-import os
-import pickle
-import subprocess
-import sys
-import textwrap
-
 import numpy as np
 import pytest
-import torch
 
 from repro_torch.configs import get_config
-from repro_torch.launch import steps
-from repro_torch.models import Model, NO_MESH
-from repro_torch.models.convert import params_from_reference
-from repro_torch.optim import adamw
-from repro_torch.tree import keystr, tree_flatten
 
-from torch_ranks import REPO, run_ranks
+from torch_tp_harness import (BATCH, DECODE_STEPS, PROMPT,
+                              assert_training_equals_one_rank, close,
+                              local_batch, one_rank_serving, run_served,
+                              run_shapes)
 
 ARCHS = ("qwen3_0_6b", "olmoe_1b_7b")
 MESHES = ((1, 2), (2, 2), (2, 4))
 MESH_IDS = ("1x2", "2x2", "2x4")
-# prompt and batch of the forward checks; a global batch that every
-# mesh's data axis splits
-BATCH, PROMPT = 4, 8
-DECODE_STEPS = 4
-# sharded against one rank and against the reference: the same f32
-# arithmetic but for the order of the row-parallel sums and of the
-# vocab-parallel softmax's sums, max abs difference against max abs
-# logit (the reference's prefill/decode consistency limit)
-LOGIT_RTOL = 1e-4
-# training against one rank: tests/test_torch_fsdp.py's limits
-LOSS_RTOL = 1e-4
-PARAM_ATOL = 2e-5
-STEPS = 3
-OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
-TRAIN_BATCH, TRAIN_SEQ = 4, 16
-
-# each rank on @MESH@: local shapes seen by the layers, collectives by
-# axis and FLOPs of a prefill (with the same prefill of one rank on this
-# rank's rows), FLOPs of one gradient step, the cache's held shapes, and
-# STEPS train steps' losses and gathered parameters
-PORT_SHAPES = f"""
-from torch.distributed.device_mesh import init_device_mesh
-from torch.utils.flop_counter import FlopCounterMode
-from repro_torch.configs import get_config
-from repro_torch.core import distributed as D
-from repro_torch.data import DataConfig, batch_at_step
-from repro_torch.kernels import flash_attention as kfa
-from repro_torch.launch import steps
-from repro_torch.launch.train import _batch_rows
-from repro_torch.models import Model, attention, layers, transformer
-from repro_torch.models.sharding import NO_MESH, gather, rules_for_mesh
-from repro_torch.optim import adamw
-from repro_torch.tree import keystr, tree_flatten
-
-SEEN = []
-_sdpa, _flash = attention._sdpa_chunked, kfa.flash_attention
-_row, _moe = layers.row_parallel_matmul, transformer.moe_block
-
-def sdpa(q, k, v, *a, **kw):
-    SEEN.append(["attn", list(q.shape), list(k.shape)])
-    return _sdpa(q, k, v, *a, **kw)
-
-def flash(q, k, v, **kw):
-    SEEN.append(["attn", list(q.shape), list(k.shape)])
-    return _flash(q, k, v, **kw)
-
-def row(x, w, rules, features):
-    SEEN.append(["row", list(x.shape), list(w.shape), features])
-    return _row(x, w, rules, features)
-
-def moe_block(cfg, p, x, rules):
-    SEEN.append(["experts", list(p["w_gate"].shape)])
-    return _moe(cfg, p, x, rules)
-
-attention._sdpa_chunked, kfa.flash_attention = sdpa, flash
-layers.row_parallel_matmul = attention.row_parallel_matmul = row
-transformer.moe_block = moe_block
-
-def flops(fn):
-    with FlopCounterMode(display=False) as fc:
-        out = fn()
-    counts = fc.get_flop_counts()["Global"]
-    counts = {{str(k): int(v) for k, v in counts.items()}}
-    return out, counts
-
-shape = tuple(json.loads("@MESH@"))
-mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
-rules = rules_for_mesh(mesh)
-out = {{}}
-for arch in {ARCHS!r}:
-    cfg = get_config(arch).reduced()
-    rec = out[arch] = {{}}
-    model, one = Model(cfg, rules), Model(cfg, NO_MESH)
-    params, whole = model.init(0, device="cpu"), one.init(0, device="cpu")
-    rows = _batch_rows(rules, {BATCH})
-    tokens = torch.tensor(np.random.default_rng(5).integers(
-        0, cfg.vocab_size, ({BATCH}, {PROMPT})), dtype=torch.int32)[rows]
-    with torch.no_grad():
-        del SEEN[:]
-        D.reset_collectives()
-        (logits, cache), rec["prefill_flops"] = flops(
-            lambda: model.prefill(params, tokens=tokens))
-        rec["seen"] = list(SEEN)
-        rec["collectives"] = {{a: dict(c) for a, c in
-                              D.COLLECTIVES_BY_AXIS.items()}}
-        rec["logits"] = list(logits.shape)
-        rec["cache"] = {{keystr(p): list(t.shape)
-                        for p, t in zip(*tree_flatten(cache))}}
-        _, rec["prefill_flops_one"] = flops(
-            lambda: one.prefill(whole, tokens=tokens))
-    labels = torch.roll(tokens, -1, 1)
-    grad_step, _ = steps.make_grad_step(cfg, rules)
-    grad_one, _ = steps.make_grad_step(cfg, NO_MESH)
-    batch = {{"tokens": tokens, "labels": labels}}
-    _, rec["grad_flops"] = flops(
-        lambda: grad_step(params, batch, global_batch={BATCH}))
-    _, rec["grad_flops_one"] = flops(lambda: grad_one(whole, batch))
-    # training from the seed, as tests/test_torch_fsdp.py's twins
-    step, _ = steps.make_train_step(cfg, rules, adamw.AdamWConfig(**{OPT!r}))
-    state = adamw.init_state(params)
-    dc = DataConfig(cfg.vocab_size, {TRAIN_SEQ}, {TRAIN_BATCH}, seed=3)
-    trows = _batch_rows(rules, {TRAIN_BATCH})
-    losses, norms = [], []
-    for i in range({STEPS}):
-        b = {{k: torch.from_numpy(v[trows])
-             for k, v in batch_at_step(dc, i).items()}}
-        params, state, m = step(params, state, b,
-                                global_batch={TRAIN_BATCH})
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-    paths, leaves = tree_flatten(params)
-    rec["train"] = (losses, norms, {{keystr(p): gather(t, pl).numpy()
-                    for p, t, pl in zip(paths, leaves,
-                                        tree_flatten(model.placements())[1])}})
-with open(os.path.join(OUT, f"shapes.{{RANK}}.pkl"), "wb") as f:
-    pickle.dump(out, f)
-"""
-
-# the reference's jitted prefill and DECODE_STEPS decodes on a (2, 2)
-# XLA CPU mesh (its XLA attention), from its init; the tree as float32
-# numpy, the prompt, the decode tokens, the logits, and the shard shapes
-# of its cache placements (Model.abstract_cache)
-REF_SERVE = f"""
-import pickle, sys
-import jax, jax.numpy as jnp, numpy as np
-from repro.configs import get_config
-from repro.models import Model
-from repro.models.sharding import rules_for_mesh
-
-def host(tree):
-    return jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
-
-mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(2, 2),
-                         ("data", "model"))
-out = {{}}
-for arch in {ARCHS!r}:
-    cfg = get_config(arch).reduced()
-    model = Model(cfg, rules_for_mesh(mesh))
-    params = model.init(jax.random.PRNGKey(0))
-    rng = np.random.default_rng(7)
-    prompt = rng.integers(0, cfg.vocab_size, ({BATCH}, {PROMPT}))
-    toks = rng.integers(0, cfg.vocab_size, ({DECODE_STEPS}, {BATCH}))
-    prefill = jax.jit(lambda p, t: model.prefill(p, tokens=t))
-    decode = jax.jit(model.decode)
-    logits, cache = prefill(params, jnp.asarray(prompt, jnp.int32))
-    cache = model.pad_cache(cache, {PROMPT + DECODE_STEPS})
-    got = [np.asarray(logits[:, -1], np.float32)]
-    for i in range({DECODE_STEPS}):
-        pos = jnp.full(({BATCH},), {PROMPT} + i, jnp.int32)
-        lg, cache = decode(params, cache, jnp.asarray(toks[i], jnp.int32),
-                           pos)
-        got.append(np.asarray(lg, np.float32))
-    places = model.abstract_cache({BATCH}, {PROMPT + DECODE_STEPS})
-    flat, _ = jax.tree_util.tree_flatten_with_path(places)
-    shards = {{jax.tree_util.keystr(p): list(s.sharding.shard_shape(s.shape))
-              for p, s in flat}}
-    out[arch] = (host(params), prompt, toks, got, shards)
-with open(sys.argv[1], "wb") as f:
-    pickle.dump(out, f)
-"""
-
-# the port on (2, 2) from the reference's tree (each rank its blocks):
-# prefill on its rows, the cache grown to hold the decodes, DECODE_STEPS
-# decodes; logits gathered over vocab and batch
-PORT_SERVE = f"""
-from torch.distributed.device_mesh import init_device_mesh
-from repro_torch.configs import get_config
-from repro_torch.core.distributed import all_gather
-from repro_torch.launch.train import _batch_rows
-from repro_torch.models import Model
-from repro_torch.models.convert import params_from_reference
-from repro_torch.models.sharding import rules_for_mesh
-from repro_torch.tree import keystr, tree_flatten
-
-with open(os.path.join(OUT, "ref.pkl"), "rb") as f:
-    ref = pickle.load(f)
-rules = rules_for_mesh(init_device_mesh("cpu", (2, 2),
-                                        mesh_dim_names=("data", "model")))
-rows = _batch_rows(rules, {BATCH})
-
-def whole(logits):
-    lg = all_gather(logits, rules.group("model"), dim=-1)
-    return all_gather(lg, rules.group("data"), dim=0).numpy()
-
-out = {{}}
-for arch in {ARCHS!r}:
-    cfg = get_config(arch).reduced()
-    model = Model(cfg, rules)
-    tree, prompt, toks, _, _ = ref[arch]
-    params = params_from_reference(tree, torch.float32, "cpu",
-                                   placements=model.placements())
-    with torch.no_grad():
-        logits, cache = model.prefill(
-            params, tokens=torch.tensor(prompt[rows], dtype=torch.int32))
-        cache = model.pad_cache(cache, {PROMPT + DECODE_STEPS})
-        held = {{keystr(p): list(t.shape)
-                for p, t in zip(*tree_flatten(cache))}}
-        got = [whole(logits[:, -1])]
-        for i in range({DECODE_STEPS}):
-            pos = torch.full((rows.stop - rows.start,), {PROMPT} + i,
-                             dtype=torch.int32)
-            lg, cache = model.decode(
-                params, cache, torch.tensor(toks[i][rows], dtype=torch.int32),
-                pos)
-            got.append(whole(lg))
-    out[arch] = (got, held)
-# one sequence held whole by every rank (global_batch=1, which the data
-# axis does not divide): the cache's sequence on "data"
-tree, prompt, toks, _, _ = ref["qwen3_0_6b"]
-model = Model(get_config("qwen3_0_6b").reduced(), rules)
-params = params_from_reference(tree, torch.float32, "cpu",
-                               placements=model.placements())
-with torch.no_grad():
-    logits, cache = model.prefill(
-        params, tokens=torch.tensor(prompt[:1], dtype=torch.int32),
-        global_batch=1)
-    cache = model.pad_cache(cache, {PROMPT + DECODE_STEPS})
-    held = {{keystr(p): list(t.shape) for p, t in zip(*tree_flatten(cache))}}
-    got = [all_gather(logits[:, -1], rules.group("model"), dim=-1).numpy()]
-    for i in range({DECODE_STEPS}):
-        lg, cache = model.decode(
-            params, cache, torch.tensor(toks[i][:1], dtype=torch.int32),
-            torch.full((1,), {PROMPT} + i, dtype=torch.int32))
-        got.append(all_gather(lg, rules.group("model"), dim=-1).numpy())
-out["single"] = (got, held)
-with open(os.path.join(OUT, f"serve.{{RANK}}.pkl"), "wb") as f:
-    pickle.dump(out, f)
-"""
-PORT_SERVE = "import pickle\n" + PORT_SERVE
 
 
 # ------------------------------------------------------------- fixtures
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """{mesh: [each rank's record]} from PORT_SHAPES on every mesh."""
-    out = {}
-    for shape in MESHES:
-        d = tmp_path_factory.mktemp("tp" + "x".join(map(str, shape)))
-        world = shape[0] * shape[1]
-        run_ranks(d, world, "import pickle\n" + PORT_SHAPES.replace(
-            "@MESH@", json.dumps(list(shape))), timeout=600)
-        out[shape] = []
-        for r in range(world):
-            with open(d / f"shapes.{r}.pkl", "rb") as f:
-                out[shape].append(pickle.load(f))
-    return out
+    """{mesh: [each rank's record]} from the harness's rank body on
+    every mesh."""
+    return run_shapes(tmp_path_factory, ARCHS, MESHES)
 
 
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
-    d = tmp_path_factory.mktemp("serve")
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    env["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
-                        + env.get("XLA_FLAGS", "")).strip()
-    ref = subprocess.run([sys.executable, "-c", textwrap.dedent(REF_SERVE),
-                          str(d / "ref.pkl")], env=env, capture_output=True,
-                         text=True, timeout=300)
-    assert ref.returncode == 0, ref.stderr[-4000:]
-    run_ranks(d, 4, PORT_SERVE)
-    port = []
-    for r in range(4):
-        with open(d / f"serve.{r}.pkl", "rb") as f:
-            port.append(pickle.load(f))
-    with open(d / "ref.pkl", "rb") as f:
-        return pickle.load(f), port
-
-
-def _local_batch(shape):
-    return BATCH // shape[0]
+    return run_served(tmp_path_factory, ARCHS)
 
 
 # ---------------------------------------------------------- local shapes
@@ -326,7 +59,7 @@ def test_each_rank_computes_its_model_block(ranks, arch, shape):
     cfg = get_config(arch).reduced()
     n = shape[1]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    b = _local_batch(shape)
+    b = local_batch(shape)
     kv = Hkv // n if Hkv % n == 0 else max(1, H // n // (H // Hkv))
     for rec in ranks[shape]:
         rec = rec[arch]
@@ -359,7 +92,7 @@ def test_prefill_cache_holds_the_references_cache_block(ranks, arch, shape):
     n = shape[1]
     Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     heads = [Hkv // n, hd] if Hkv % n == 0 else [Hkv, hd // n]
-    want = [cfg.n_layers, _local_batch(shape), PROMPT] + heads
+    want = [cfg.n_layers, local_batch(shape), PROMPT] + heads
     group = "blocks" if cfg.family == "dense" else "moe_blocks"
     for rec in ranks[shape]:
         assert rec[arch]["cache"] == {f"['{group}']['{k}']": want
@@ -408,7 +141,7 @@ def test_split_projections_do_one_nth_of_the_flops(ranks, arch, shape):
     whole."""
     cfg = get_config(arch).reduced()
     n = shape[1]
-    fixed = _unsplit_mm(cfg, shape, _local_batch(shape) * PROMPT)
+    fixed = _unsplit_mm(cfg, shape, local_batch(shape) * PROMPT)
     for rec in ranks[shape]:
         got, one = rec[arch]["prefill_flops"], rec[arch]["prefill_flops_one"]
         assert set(got) == set(one)
@@ -432,27 +165,6 @@ def test_dense_gradient_step_does_one_nth_of_the_flops(ranks, shape):
 
 
 # ------------------------------------------------------------- training
-@functools.lru_cache(maxsize=None)
-def _one_rank(arch):
-    from repro_torch.data import DataConfig, batch_at_step
-    cfg = get_config(arch).reduced()
-    step, model = steps.make_train_step(cfg, NO_MESH,
-                                        adamw.AdamWConfig(**OPT))
-    params = model.init(0, device="cpu")
-    state = adamw.init_state(params)
-    dc = DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=3)
-    losses, norms = [], []
-    for i in range(STEPS):
-        batch = {k: torch.from_numpy(v) for k, v in
-                 batch_at_step(dc, i).items()}
-        params, state, m = step(params, state, batch)
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-    paths, leaves = tree_flatten(params)
-    return losses, norms, {keystr(p): t.numpy() for p, t in
-                           zip(paths, leaves)}
-
-
 @pytest.mark.parametrize("shape", MESHES, ids=MESH_IDS)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_tensor_parallel_training_equals_one_rank(ranks, arch, shape):
@@ -461,40 +173,10 @@ def test_tensor_parallel_training_equals_one_rank(ranks, arch, shape):
     gradients, the replicated weights used by block (the whole k/v
     projections and qk-norms on (2, 4)) all-reduced, the vocab-parallel
     loss's."""
-    want_l, want_n, want_p = _one_rank(arch)
-    for rec in ranks[shape]:
-        losses, norms, whole = rec[arch]["train"]
-        np.testing.assert_allclose(losses, want_l, rtol=LOSS_RTOL)
-        np.testing.assert_allclose(norms, want_n, rtol=LOSS_RTOL)
-        assert set(whole) == set(want_p)
-        for key, got in whole.items():
-            np.testing.assert_allclose(got, want_p[key], rtol=0,
-                                       atol=PARAM_ATOL, err_msg=key)
+    assert_training_equals_one_rank(ranks[shape], arch)
 
 
 # -------------------------------------------------------------- serving
-def _close(got, want):
-    return np.abs(got - want).max() <= LOGIT_RTOL * np.abs(want).max()
-
-
-def _one_rank_serving(arch, tree, prompt, toks):
-    """One rank's prefill logits and DECODE_STEPS decodes' logits."""
-    cfg = get_config(arch).reduced()
-    one = Model(cfg, NO_MESH)
-    params = params_from_reference(tree, torch.float32, "cpu")
-    with torch.no_grad():
-        logits, cache = one.prefill(params, tokens=torch.tensor(
-            prompt, dtype=torch.int32))
-        cache = one.pad_cache(cache, PROMPT + DECODE_STEPS)
-        want = [logits[:, -1].numpy()]
-        for i in range(DECODE_STEPS):
-            lg, cache = one.decode(
-                params, cache, torch.tensor(toks[i], dtype=torch.int32),
-                torch.full((len(prompt),), PROMPT + i, dtype=torch.int32))
-            want.append(lg.numpy())
-    return want
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_prefill_and_decode_equal_one_rank(served, arch):
     """The prefill's last logits and 4 decodes' on (2, 2), gathered over
@@ -502,13 +184,13 @@ def test_sharded_prefill_and_decode_equal_one_rank(served, arch):
     ref, port = served
     tree, prompt, toks, _, _ = ref[arch]
     cfg = get_config(arch).reduced()
-    want = _one_rank_serving(arch, tree, prompt, toks)
+    want = one_rank_serving(arch, tree, prompt, toks)
     for rank in port:
         got, _ = rank[arch]
         assert len(got) == DECODE_STEPS + 1
         for i, (g, w) in enumerate(zip(got, want)):
             assert g.shape == (BATCH, cfg.vocab_size)
-            assert _close(g, w), (i, np.abs(g - w).max())
+            assert close(g, w), (i, np.abs(g - w).max())
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -521,7 +203,7 @@ def test_sharded_prefill_and_decode_equal_the_references(served, arch):
     for rank in port:
         got, held = rank[arch]
         for i, (g, w) in enumerate(zip(got, want)):
-            assert _close(g, w), (i, np.abs(g - w).max())
+            assert close(g, w), (i, np.abs(g - w).max())
         assert held == shards
 
 
@@ -535,7 +217,7 @@ def test_a_batch_the_data_axis_does_not_split_holds_the_sequence_on_data(
     ref, port = served
     tree, prompt, toks, _, _ = ref["qwen3_0_6b"]
     cfg = get_config("qwen3_0_6b").reduced()
-    want = _one_rank_serving("qwen3_0_6b", tree, prompt[:1],
+    want = one_rank_serving("qwen3_0_6b", tree, prompt[:1],
                              [t[:1] for t in toks])
     shape = [cfg.n_layers, 1, (PROMPT + DECODE_STEPS) // 2,
              cfg.n_kv_heads // 2, cfg.resolved_head_dim]
@@ -543,4 +225,4 @@ def test_a_batch_the_data_axis_does_not_split_holds_the_sequence_on_data(
         got, held = rank["single"]
         assert held == {"['blocks']['k']": shape, "['blocks']['v']": shape}
         for i, (g, w) in enumerate(zip(got, want)):
-            assert _close(g, w), (i, np.abs(g - w).max())
+            assert close(g, w), (i, np.abs(g - w).max())
