@@ -1609,6 +1609,7 @@ def _drive_server(cfg, model, params, rng, fs):
                 wall_s=wall, prefill_s=prefill_s, decode_s=decode_s,
                 tok_per_s=toks / wall,
                 nonfinite_logits=server.nonfinite_logits,
+                decode_drops=server.decode_drops,
                 outputs={r.rid: r.out for r in finished}), dict(tokens=first)
 
 
@@ -1756,6 +1757,19 @@ def phase_families(card: str, device: str = "cuda", smoke: bool = False):
               f"GiB, flash launches "
               f"{run_counts['flash_shape']} {run_counts['flash_path']} "
               f"| {card}", flush=True)
+        if cfg.family == "moe":
+            # each decode step's expert slots dropped at the config's
+            # capacity factor (models.moe.count_drops, exact), of its
+            # batch (the server's slots) x top-k x MoE layers
+            batch = (serve_kw["batch_slots"] if route == "serve"
+                     else server_sizes["slots"])
+            slots = batch * cfg.top_k * (cfg.n_layers - cfg.n_dense_layers)
+            print(f"[families] {cfg.name} capacity factor "
+                  f"{cfg.capacity_factor}: dropped slots each decode "
+                  f"{out['decode_drops']} of {slots} | {card}", flush=True)
+            check(len(out["decode_drops"]) == out["steps"],
+                  f"{arch}: {len(out['decode_drops'])} decode drop counts "
+                  f"for {out['steps']} steps")
         check(out["requests"] == want_req, f"{arch}: {out['requests']} of "
               f"{want_req} requests finished")
         check(all(len(t) == want_new for t in out["outputs"].values())
@@ -1784,7 +1798,7 @@ def phase_families(card: str, device: str = "cuda", smoke: bool = False):
             prefill_s=out["prefill_s"], decode_s=out["decode_s"],
             tok_per_s=out["tok_per_s"], peak_gib=peak,
             launches=run_counts["flash_shape"], flash_vs_sdpa=err,
-            card=card)
+            decode_drops=out.get("decode_drops"), card=card)
         counts[arch] = run_counts
         del model, params, out, prompt
     gc.collect()
@@ -2079,10 +2093,51 @@ BY_HEADS_TRAIN_FLOPS = {"mamba2_780m": 74210592423936,
                         "deepseek_v3_671b": 2260243719389184}
 
 
+# the single-pod production mesh (data, model)
+DRYRUN_MESH = (16, 16)
+K5_OP = "repro_torch.flash_attention_fwd"
+
+
+def k5_prefill_flops(cfg, shape) -> int:
+    """K5's FLOPs by its registered formula (4 b h Sq Sk D,
+    ``kernels/flash_attention._flash_flops``) that a rank of the
+    single-pod mesh counts in a prefill cell: a launch for each
+    self-attention layer (the hybrid's shared block once a segment, the
+    encoder's layers too; none for MLA or the SSM), on its B / data rows
+    and its H / model q heads (every head where the model axis does not
+    divide them), over the cell's whole sequence."""
+    data, model = DRYRUN_MESH
+    layers = {"dense": cfg.n_layers, "moe": cfg.n_layers,
+              "hybrid": cfg.n_layers // max(1, cfg.attn_every),
+              "encdec": cfg.n_layers + cfg.n_encoder_layers}.get(
+        cfg.family, 0)
+    if cfg.use_mla or not layers:
+        return 0
+    heads = cfg.n_heads // model if cfg.n_heads % model == 0 \
+        else cfg.n_heads
+    return (layers * 4 * (shape.global_batch // data) * heads
+            * shape.seq_len ** 2 * cfg.resolved_head_dim)
+
+
+def _check_k5_flops(rec: dict) -> None:
+    """A prefill cell traced on fake CUDA tensors counts K5's operator
+    by its formula at the cell's local shapes: nonzero for every arch
+    with self-attention layers."""
+    from repro_torch.configs import SHAPES, get_config
+    if rec["status"] != "ok" or rec.get("device") != "cuda" \
+            or SHAPES[rec["shape"]].kind != "prefill":
+        return
+    want = k5_prefill_flops(get_config(rec["arch"]), SHAPES[rec["shape"]])
+    got = (rec.get("flops_by_operator_per_rank") or {}).get(K5_OP, 0)
+    check(got == want, f"dryrun {rec['arch']} {rec['shape']}: K5 FLOPs a "
+          f"rank {got}, the formula's {want}")
+
+
 def _check_against_earlier(rec: dict) -> None:
     """A sweep cell's FLOPs and temp a rank against EARLIER_DRYRUN: lower
     for the archs computed by heads (and at train_4k the CPU trace's
-    FLOPs), the same FLOPs to the digit for the others."""
+    FLOPs), the same FLOPs to the digit for the others, less K5's in a
+    prefill cell (which EARLIER_DRYRUN's card runs did not count)."""
     key = (rec["arch"], rec["shape"], rec["mesh"])
     if rec["status"] != "ok" or key not in EARLIER_DRYRUN:
         return
@@ -2100,8 +2155,9 @@ def _check_against_earlier(rec: dict) -> None:
             check(flops == want, f"dryrun {name}: FLOPs {flops} a rank, the "
                   f"CPU trace's {want}")
     elif old_flops is not None:
-        check(flops == old_flops, f"dryrun {name}: FLOPs {flops} a rank "
-              f"changed from {old_flops}")
+        k5 = (rec.get("flops_by_operator_per_rank") or {}).get(K5_OP, 0)
+        check(flops - k5 == old_flops, f"dryrun {name}: FLOPs {flops} a "
+              f"rank less K5's {k5} changed from {old_flops}")
 
 
 def _dryrun_sweep(card: str, smoke: bool):
@@ -2176,6 +2232,11 @@ def _dryrun_sweep(card: str, smoke: bool):
                   f"{held:.2f} GiB, placed {placed:.3f} GiB, temp "
                   f"{temp:.2f} GiB, trace {rec.get('compile_s', 0):.1f} s"
                   f"{terms}{vs} | {card}", flush=True)
+            if rec.get("flops_by_operator_per_rank"):
+                print(f"[dryrun] {arch} x {shape}: FLOPs a rank by "
+                      f"operator {rec['flops_by_operator_per_rank']} | "
+                      f"{card}", flush=True)
+            _check_k5_flops(rec)
             if not smoke:
                 _check_against_earlier(rec)
     return records, wall
@@ -2359,7 +2420,8 @@ def phase_dryrun(card: str, device: str = "cuda", smoke: bool = False):
     numbers["sweep"] = [
         {k: r.get(k) for k in ("arch", "shape", "mesh", "status", "device",
                                "compile_s", "memory", "reason",
-                               "flops_per_rank", "collectives_by_axis")}
+                               "flops_per_rank", "flops_by_operator_per_rank",
+                               "collectives_by_axis")}
         | dict(zip(("earlier_flops_per_rank", "earlier_temp_bytes"),
                    EARLIER_DRYRUN.get((r["arch"], r["shape"], r["mesh"]),
                                       (None, None))))

@@ -208,9 +208,11 @@ def trace_step(cfg, shape, rules, *, device: Optional[str] = None,
     ``FakeTensorMode``, as this rank of ``rules``' mesh (train, prefill
     with ``serving_rules``, or decode, as the reference's
     ``_lower_step`` builds it).  Returns this rank's ``memory``,
-    ``flops``, ``bytes``, ``coll`` (collective operand bytes by kind)
-    and ``coll_by_axis`` (the same by mesh axis), unscaled, and the
-    trace's ``seconds``."""
+    ``flops``, ``flops_by_op`` (the same by operator: K5's
+    ``repro_torch.flash_attention_fwd`` on a CUDA device, the plain
+    version's ``aten.bmm`` on the CPU), ``bytes``, ``coll`` (collective
+    operand bytes by kind) and ``coll_by_axis`` (the same by mesh axis),
+    unscaled, and the trace's ``seconds``."""
     device = device or default_device()
     t0 = time.perf_counter()
     with FakeTensorMode():
@@ -252,6 +254,9 @@ def trace_step(cfg, shape, rules, *, device: Optional[str] = None,
               "generated_code_size_in_bytes": None}
     return {"memory": memory,
             "flops": float(fc.get_total_flops()) if costs else None,
+            "flops_by_op": ({str(k): int(v) for k, v in
+                             fc.get_flop_counts()["Global"].items()}
+                            if costs else None),
             "bytes": float(tally.accessed) if costs else None,
             "coll": dict(D.COLLECTIVE_BYTES),
             "coll_by_axis": {a: dict(c) for a, c in
@@ -305,6 +310,7 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
               "status": "ok", "chips": chips, "device": device,
               "compile_s": tr["seconds"], "memory": tr["memory"],
               "flops_per_rank": tr["flops"],
+              "flops_by_operator_per_rank": tr["flops_by_op"],
               "collectives_by_axis": tr["coll_by_axis"]}
     label = f"{arch} x {shape_name} x {'2x16x16' if multi_pod else '16x16'}"
     if not costs:

@@ -30,6 +30,7 @@ import torch
 
 from ..configs import get_config
 from ..models import Model
+from ..models.moe import count_drops
 from ..models.sharding import NO_MESH
 from ..models.transformer import tree_map
 
@@ -71,6 +72,9 @@ class Server:
         self.device = params["embed"].device
         self.cache = None        # batched cache, built from first prefill
         self.nonfinite_logits = 0  # prefills and steps with a NaN/inf logit
+        # each decode step's dropped expert slots (a MoE model's; the
+        # free slots' tokens are routed too)
+        self.decode_drops: List[int] = []
         self.pos = np.zeros((batch_slots,), np.int32)
         self.active: List[Optional[Request]] = [None] * batch_slots
         self.last_token = np.zeros((batch_slots,), np.int32)
@@ -106,10 +110,13 @@ class Server:
         """One batched decode step; returns requests that finished."""
         tok = self._tensor(self.last_token)
         pos = self._tensor(self.pos)
-        logits, self.cache = self.model.decode(self.params, self.cache, tok,
-                                               pos)
+        with count_drops() as drops:
+            logits, self.cache = self.model.decode(self.params, self.cache,
+                                                   tok, pos)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         self.nonfinite_logits += int(not torch.isfinite(logits).all())
+        if drops:
+            self.decode_drops.append(int(sum(drops)))
         done: List[Request] = []
         for s, req in enumerate(self.active):
             if req is None or req.done:
@@ -165,6 +172,7 @@ def run(sc: ServeConfig) -> dict:
             "decode_s": decode_s, "requests": len(finished),
             "tokens": toks, "tok_per_s": toks / dt if dt else 0.0,
             "nonfinite_logits": server.nonfinite_logits,
+            "decode_drops": server.decode_drops,
             "device": str(params["embed"].device),
             "outputs": {r.rid: r.out for r in finished}}
 

@@ -26,6 +26,7 @@ import torch.utils.checkpoint
 from ..configs.base import ModelConfig
 from ..core.distributed import all_reduce, replicated
 from ..models import Model
+from ..models.layers import wide
 from ..models.sharding import MeshRules, abstract_leaf, sharded_axes
 from ..optim import adamw
 from ..tree import tree_flatten, tree_map, tree_unflatten
@@ -55,7 +56,7 @@ def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor,
         n_chunks //= 2
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
-    w32 = head.to(hidden.dtype).float()
+    w32 = wide(head.to(hidden.dtype))
     cs = S // n_chunks
     ways = rules.model_ways(vocab or head.shape[1])
     if ways > 1:
@@ -64,11 +65,11 @@ def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor,
         start = rules.coordinate(rules.model_axis) * head.shape[1]
 
         def token_ce(h, lab, w):
-            logits = torch.matmul(replicated(h, group).float(), w)
+            logits = torch.matmul(wide(replicated(h, group)), w)
             return vocab_parallel_ce(logits, lab, group, start)
     else:
         def token_ce(h, lab, w):
-            logits = rules.constrain(torch.matmul(h.float(), w),
+            logits = rules.constrain(torch.matmul(wide(h), w),
                                      "batch", "seq", "model")
             lg = torch.log_softmax(logits, dim=-1)
             return -torch.gather(lg, -1, lab[..., None].long())[..., 0]
@@ -76,7 +77,7 @@ def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor,
     def body(h, lab, m, w):
         return (token_ce(h, lab, w) * m).sum()
 
-    total = hidden.new_zeros((), dtype=torch.float32)
+    total = hidden.new_zeros((), dtype=w32.dtype)
     for c in range(n_chunks):
         sl = slice(c * cs, (c + 1) * cs)
         args = (hidden[:, sl], labels[:, sl], mask[:, sl], w32)

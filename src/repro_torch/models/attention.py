@@ -31,8 +31,12 @@ from typing import Optional, Tuple
 
 import torch
 
+# imported with the model, not at the first prefill: importing it
+# registers K5's operator and its FLOP formula, which a FlopCounterMode
+# copies when it is made (the dry-run makes one before its first layer)
+from ..kernels import flash_attention as _kfa
 from .layers import (Maker, apply_rope, model_replicated, rms_norm,
-                     rope_angles, row_parallel_matmul)
+                     rope_angles, row_parallel_matmul, wide)
 from .sharding import MeshRules
 
 DEFAULT_Q_CHUNK = 1024
@@ -96,8 +100,8 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, H, Dk = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
-    qf = q.reshape(B, Sq, Hkv, G, Dk).float()
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    qf = wide(q.reshape(B, Sq, Hkv, G, Dk))
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, wide(k)) * scale
 
     if qpos.ndim == 1:
         qpos = qpos[None, :]
@@ -111,7 +115,7 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          torch.tensor(-1e30, dtype=scores.dtype,
                                       device=scores.device))
     w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, wide(v))
     return out.reshape(B, Sq, H, v.shape[-1]).to(v.dtype)
 
 
@@ -208,7 +212,8 @@ def gqa_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
             q = rms_norm(q, q_norm, cfg.norm_eps)
             k = rms_norm(k, k_norm, cfg.norm_eps)
         if kv_input is None:  # RoPE only for self-attention
-            cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+            cos, sin = rope_angles(positions, hd, cfg.rope_theta,
+                                   wide(q).dtype)
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
         new_cache = None
@@ -250,8 +255,7 @@ def gqa_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         q.requires_grad or k.requires_grad or v.requires_grad)
     if (ATTENTION_BACKEND == "flash" and cache is None
             and kv_input is None and kv_valid is None and not wants_grad):
-        from ..kernels.flash_attention import flash_attention
-        out = flash_attention(q, k, v, causal=causal_eff, scale=scale)
+        out = _kfa.flash_attention(q, k, v, causal=causal_eff, scale=scale)
     else:
         out = _sdpa_chunked(q, k, v, qpos=qpos, kpos=kpos,
                             causal=causal_eff, scale=scale,
@@ -320,7 +324,8 @@ def mla_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     scale = 1.0 / math.sqrt(nope + rope_d)
 
     q, ckv, k_rope = _mla_qkv(cfg, p, x, rules, n)
-    cos, sin = rope_angles(positions, rope_d, cfg.rope_theta)
+    cos, sin = rope_angles(positions, rope_d, cfg.rope_theta,
+                           wide(q).dtype)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
@@ -348,21 +353,21 @@ def mla_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     krope_c[rows, idx] = k_rope[:, 0]
 
     wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, H, nope + vd)
-    w_uk = wkv_b[..., :nope].float()   # (r, H, nope)
-    w_uv = wkv_b[..., nope:].float()   # (r, H, vd)
+    w_uk = wide(wkv_b[..., :nope])   # (r, H, nope)
+    w_uv = wide(wkv_b[..., nope:])   # (r, H, vd)
     # absorb W_uk into q: q_c (B, S=1, H, r)
-    q_c = torch.einsum("bshn,rhn->bshr", q_nope.float(), w_uk)
+    q_c = torch.einsum("bshn,rhn->bshr", wide(q_nope), w_uk)
     Skv = ckv_c.shape[1]
     kpos = torch.arange(Skv, dtype=torch.int32, device=x.device)
     valid = (idx + 1)[:, None, None, None]
-    scores = (torch.einsum("bshr,bkr->bhsk", q_c, ckv_c.float())
-              + torch.einsum("bshr,bkr->bhsk", q_rope.float(),
-                             krope_c.float())) * scale
+    scores = (torch.einsum("bshr,bkr->bhsk", q_c, wide(ckv_c))
+              + torch.einsum("bshr,bkr->bhsk", wide(q_rope),
+                             wide(krope_c))) * scale
     scores = torch.where(kpos[None, None, None, :] < valid, scores,
                          torch.tensor(-1e30, dtype=scores.dtype,
                                       device=scores.device))
     w = torch.softmax(scores, dim=-1)
-    o_c = torch.einsum("bhsk,bkr->bshr", w, ckv_c.float())
+    o_c = torch.einsum("bhsk,bkr->bshr", w, wide(ckv_c))
     out = torch.einsum("bshr,rhv->bshv", o_c, w_uv)
     out = out.to(x.dtype).reshape(B, S, H * vd)
     return _mla_out(cfg, p, out, rules, n), cache

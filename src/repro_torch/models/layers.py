@@ -1,7 +1,9 @@
 """Shared building blocks: parameter maker, norms, RoPE, activations.
 
 The counterpart of the reference's ``models/layers.py``.  Norms and
-RoPE compute in float32 and cast back to the input's type, as there.
+RoPE compute in float32 and cast back to the input's type, as there
+(a float64 model, which the reference has not, computes them in float64:
+:func:`wide`).
 """
 from __future__ import annotations
 
@@ -58,7 +60,7 @@ class Maker:
         second-to-last dim), drawn in float32 and cast to ``dtype`` (the
         maker's by default); zeros where ``zeros``."""
         shape = tuple(int(s) for s in shape)
-        dtype = dtype or self.dtype
+        dtype = self._dtype(dtype)
         if len(shape) != len(logical):
             raise ValueError(f"shape {shape} vs logical axes {logical}")
         placement = self.rules.fitted_sharding(shape, *logical)
@@ -91,12 +93,20 @@ class Maker:
     def ones(self, shape, logical, dtype: Optional[torch.dtype] = None
              ) -> torch.Tensor:
         shape = tuple(int(s) for s in shape)
-        dtype = dtype or self.dtype
+        dtype = self._dtype(dtype)
         placement = self.rules.fitted_sharding(shape, *logical)
         if self.mode != "init":
             return self._other(shape, dtype, placement)
         return torch.ones(local_shape(shape, placement), dtype=dtype,
                           device=self.device)
+
+    def _dtype(self, dtype: Optional[torch.dtype]) -> torch.dtype:
+        """A leaf's dtype: its own (the float32 leaves) or the maker's; a
+        float64 model holds every leaf in float64, drawn as the float32
+        model's, so the two start from the same values."""
+        if self.dtype == torch.float64:
+            return torch.float64
+        return dtype or self.dtype
 
     def _other(self, shape, dtype, placement):
         if self.mode == "placement":
@@ -115,13 +125,19 @@ def _kept(whole: torch.Tensor, block: torch.Tensor, dtype: torch.dtype
 
 
 # ------------------------------------------------------------------ norms
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the dtype the stack computes its sums in: float32, or
+    float64 in a float64 model (a yardstick of the float32 runs)."""
+    return x.to(torch.promote_types(torch.float32, x.dtype))
+
+
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
              eps: float = 1e-5) -> torch.Tensor:
     dt = x.dtype
-    xf = x.float()
+    xf = wide(x)
     y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     if weight is not None:
-        y = y * weight.float()
+        y = y * wide(weight)
     return y.to(dt)
 
 
@@ -130,14 +146,14 @@ def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
                ) -> torch.Tensor:
     """Supports OLMo's non-parametric LN (weight=bias=None)."""
     dt = x.dtype
-    xf = x.float()
+    xf = wide(x)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
     if weight is not None:
-        y = y * weight.float()
+        y = y * wide(weight)
     if bias is not None:
-        y = y + bias.float()
+        y = y + wide(bias)
     return y.to(dt)
 
 
@@ -149,14 +165,15 @@ def apply_norm(cfg, x: torch.Tensor, p: Optional[torch.Tensor]
 
 
 # ------------------------------------------------------------------- RoPE
-def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                dtype: torch.dtype = torch.float32
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions: (...,) int -> cos/sin of shape (..., head_dim//2)."""
+    """positions: (...,) int -> cos/sin of shape (..., head_dim//2), in
+    ``dtype`` (float32; float64 in a float64 model)."""
     half = head_dim // 2
-    exps = torch.arange(half, dtype=torch.float32,
-                        device=positions.device) / half
+    exps = torch.arange(half, dtype=dtype, device=positions.device) / half
     freqs = 1.0 / (theta ** exps)
-    ang = positions.float()[..., None] * freqs
+    ang = positions.to(dtype)[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -170,7 +187,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
         cos, sin = cos[None, :, None, :], sin[None, :, None, :]
     elif cos.ndim == 3:      # (B, S, D/2) -> (B, S, 1, D/2)
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-    xf1, xf2 = x1.float(), x2.float()
+    xf1, xf2 = wide(x1), wide(x2)
     return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
                      dim=-1).to(x.dtype)
 
@@ -198,7 +215,7 @@ def row_parallel_matmul(x: torch.Tensor, w: torch.Tensor,
     if rules.model_ways(features) == 1:
         return x @ w
     from ..core.distributed import psum
-    part = torch.matmul(x.float(), w.float()).to(x.dtype)
+    part = torch.matmul(wide(x), wide(w)).to(x.dtype)
     return psum(part, rules.group(rules.model_axis))
 
 

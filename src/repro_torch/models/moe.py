@@ -14,16 +14,53 @@ Under a model axis that divides E, dispatch is expert-parallel
 their buffers, and one all-reduce over the model group combines the
 partial outputs.  A shared expert is a tensor-parallel MLP
 (``layers.mlp``).
+
+Within :func:`count_drops` each layer call also counts the slots it
+dropped, exactly (the aux's ``moe_drop_frac`` is the reference's
+capacity estimate under expert-parallel dispatch).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
-from .layers import ACT, Maker, mlp
+from .layers import ACT, Maker, mlp, wide
 from .sharding import MeshRules
+
+
+# the open :func:`count_drops` list, else None
+_DROPS: Optional[List[torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def count_drops():
+    """Yields a list to which each MoE layer call in the block appends
+    the (token, slot)s this rank dropped, a 0-dim tensor (no sync).  On a
+    mesh each dropped slot of this rank's tokens is counted once: by the
+    model rank that holds its expert in the expert-parallel dispatch, by
+    model rank 0 in the dense one.  So the sum over the calls, summed
+    over the ranks that split the batch, is the batch's dropped slots
+    (where every data rank holds the batch whole, each counts it)."""
+    global _DROPS
+    outer, _DROPS = _DROPS, []
+    try:
+        yield _DROPS
+    finally:
+        _DROPS = outer
+
+
+def _count(dropped: torch.Tensor, rules: Optional[MeshRules] = None
+           ) -> None:
+    """Append ``dropped``'s count while :func:`count_drops` is open;
+    with ``rules``, on model rank 0 alone (a dispatch every model rank
+    computes alike)."""
+    if _DROPS is None or (rules is not None and rules.axis_size(
+            rules.model_axis) > 1 and rules.coordinate(rules.model_axis)):
+        return
+    _DROPS.append(dropped.sum())
 
 
 def make_moe_params(mk: Maker, cfg) -> dict:
@@ -75,7 +112,7 @@ def moe_block(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
 
 
 def _router(cfg, p, xt):
-    logits = xt.float() @ p["router"].float()
+    logits = wide(xt) @ wide(p["router"])
     probs = torch.softmax(logits, dim=-1)
     gate_w, gate_idx = torch.topk(probs, cfg.top_k, dim=-1)
     gate_w = gate_w / (torch.sum(gate_w, dim=-1, keepdim=True) + 1e-9)
@@ -167,6 +204,7 @@ def _moe_block_sharded(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
     pos = _positions_in_expert(flat_e, E)
     mine = (flat_e >= lo) & (flat_e < lo + e_local)
     keep = (pos < C) & mine
+    _count(mine & ~keep)
     local_e = torch.where(mine, flat_e - lo, 0)
     dest = torch.where(keep, local_e * C + pos, e_local * C)
     x_rep = torch.repeat_interleave(xl, K, dim=0)
@@ -207,6 +245,7 @@ def _moe_block_dense(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
     flat_e = gate_idx.reshape(-1)                            # (N*K,)
     pos = _positions_in_expert(flat_e, E)                    # (N*K,)
     keep = pos + _earlier_slots(flat_e, E, rules) < C
+    _count(~keep, rules)
     Cb = min(C, N)
     # a dropped slot lands on an overflow row past the E*Cb buffer rows
     dest = torch.where(keep, flat_e * Cb + pos, E * Cb)

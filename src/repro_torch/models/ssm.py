@@ -36,7 +36,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import Maker, model_replicated, rms_norm, row_parallel_matmul
+from .layers import (Maker, model_replicated, rms_norm, row_parallel_matmul,
+                     wide)
 from .sharding import MeshRules
 
 
@@ -82,14 +83,15 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def _ssd_chunked(xh, dt, a_log, Bmat, Cmat, chunk: int):
     """Chunked SSD scan.
     xh: (B, S, H, P); dt: (B, S, H); Bmat/Cmat: (B, S, N).
-    Returns y: (B, S, H, P) and final state (B, H, P, N), float32."""
+    Returns y: (B, S, H, P) and final state (B, H, P, N), float32
+    (float64 in a float64 model)."""
     Bsz, S, H, P = xh.shape
     N = Bmat.shape[-1]
     nc = S // chunk
     if S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
 
-    f32 = torch.float32
+    f32 = wide(xh).dtype
     lg_a = -torch.exp(a_log.to(f32))[None, None, :] * dt.to(f32)  # log decay
     xdt = xh.to(f32) * dt.to(f32)[..., None]           # (B, S, H, P)
 
@@ -167,10 +169,10 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor, eps,
     if n == 1:
         return rms_norm(g, w, eps)
     from ..core.distributed import shared_sum
-    gf = g.float()
+    gf = wide(g)
     ss = shared_sum(torch.sum(gf * gf, dim=-1, keepdim=True),
                     rules.group(rules.model_axis))
-    return (gf * torch.rsqrt(ss / features + eps) * w.float()).to(g.dtype)
+    return (gf * torch.rsqrt(ss / features + eps) * wide(w)).to(g.dtype)
 
 
 def mamba_block(cfg, p: dict, x: torch.Tensor, rules: MeshRules, *,
@@ -207,7 +209,7 @@ def mamba_block(cfg, p: dict, x: torch.Tensor, rules: MeshRules, *,
     z = zxbcdt[..., :dl]
     xbc = zxbcdt[..., dl:dl + dl + 2 * ds]
     dt_raw = zxbcdt[..., -hl:]
-    dt = F.softplus(dt_raw.float() + dt_bias[None, None, :])
+    dt = F.softplus(wide(dt_raw) + dt_bias[None, None, :])
 
     xbc, new_conv = _causal_conv(xbc, conv_w, conv_b, conv_state)
     xs = xbc[..., :dl].reshape(B, S, hl, P)
@@ -223,12 +225,12 @@ def mamba_block(cfg, p: dict, x: torch.Tensor, rules: MeshRules, *,
     if state is not None:
         # -------- decode: O(1) recurrent update (S == 1)
         h = state["ssm"]                               # (B, H, P, N) f32
-        a = torch.exp(-torch.exp(a_log.float()) * dt[:, 0, :])  # (B, H)
-        xdt = xs[:, 0].float() * dt[:, 0, :, None]
-        upd = torch.einsum("bhp,bn->bhpn", xdt, Bmat[:, 0].float())
+        a = torch.exp(-torch.exp(wide(a_log)) * dt[:, 0, :])  # (B, H)
+        xdt = wide(xs[:, 0]) * dt[:, 0, :, None]
+        upd = torch.einsum("bhp,bn->bhpn", xdt, wide(Bmat[:, 0]))
         h = h * a[..., None, None] + upd
-        y = torch.einsum("bn,bhpn->bhp", Cmat[:, 0].float(), h)
-        y = y + d_skip.float()[None, :, None] * xs[:, 0].float()
+        y = torch.einsum("bn,bhpn->bhp", wide(Cmat[:, 0]), h)
+        y = y + wide(d_skip)[None, :, None] * wide(xs[:, 0])
         y = y.reshape(B, 1, dl).to(x.dtype)
         state["conv"].copy_(new_conv)
         state["ssm"].copy_(h)
@@ -247,7 +249,7 @@ def mamba_block(cfg, p: dict, x: torch.Tensor, rules: MeshRules, *,
             xs_p, dt_p, B_p, C_p = xs, dt, Bmat, Cmat
         y, h_last = _ssd_chunked(xs_p, dt_p, a_log, B_p, C_p, chunk)
         y = y[:, :S]
-        y = y + d_skip.float()[None, None, :, None] * xs.float()
+        y = y + wide(d_skip)[None, None, :, None] * wide(xs)
         y = y.reshape(B, S, dl).to(x.dtype)
         new_state = ({"conv": new_conv, "ssm": h_last}
                      if make_state else None)

@@ -52,7 +52,8 @@ import torch.utils.checkpoint
 from ..tree import tree_flatten, tree_map, tree_unflatten
 from .attention import gqa_attention, head_split, make_attn_params, \
     make_mla_params, mla_attention
-from .layers import Maker, apply_norm, make_mlp_params, mlp, model_replicated
+from .layers import (Maker, apply_norm, make_mlp_params, mlp,
+                     model_replicated, wide)
 from .moe import make_moe_params, moe_block
 from .sharding import (MeshRules, NO_MESH, Placement, abstract_leaf,
                        block_of, gather, global_shape, layer_placement,
@@ -78,7 +79,8 @@ class _Stacked:
 
 
 def _dtype_of(cfg) -> torch.dtype:
-    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    return {"bfloat16": torch.bfloat16,
+            "float64": torch.float64}.get(cfg.dtype, torch.float32)
 
 
 # the SSM mixer's leaves whose stored blocks mix its parts (z, x, B, C
@@ -511,7 +513,7 @@ class Model:
                              None, b_ax, None, c_ax),
                 "ssm": leaf((L, batch, cfg.ssm_heads, cfg.ssm_head_dim,
                              cfg.ssm_state), None, b_ax, h_ax2, None, None,
-                            dtype=torch.float32),
+                            dtype=torch.promote_types(torch.float32, dt)),
             }
 
         if cfg.family == "dense":
@@ -574,7 +576,7 @@ class Model:
         head = self.head_matrix(params).to(x.dtype)
         if self._vocab_block() is not None:
             x = model_replicated(x, self.rules)
-        logits = torch.matmul(x.float(), head.float())
+        logits = torch.matmul(wide(x), wide(head))
         return self.rules.constrain(logits, "batch", "seq", "model")
 
     def _encode(self, params, enc_embeds, remat=False):
@@ -685,6 +687,15 @@ class Model:
         return x, caches
 
     # ----------------------------------------------------------- serving
+    def _split(self, split: bool) -> MeshRules:
+        """The rules a serving step's layers run with: ``batch_split``
+        where ``split`` says each rank holds its own slice of the batch
+        (the MoE's statistics, capacity and slot order are then the
+        global batch's), else this model's."""
+        if not split:
+            return self.rules
+        return dataclasses.replace(self.rules, batch_split=True)
+
     @staticmethod
     def pad_cache(cache: dict, pad_to: int) -> dict:
         """Grow prompt-sized KV caches to the serving max length (the
@@ -722,18 +733,23 @@ class Model:
         Under a mesh the cache is held at :meth:`cache_placements` for
         ``global_batch`` (default: this rank's batch is its slice along
         the batch axes; pass the batch's size where every rank holds it
-        whole), each leaf carrying its placement for :meth:`decode`."""
+        whole), each leaf carrying its placement for :meth:`decode`.
+        Where the ranks hold slices of the batch, the layers run with
+        ``batch_split`` (:meth:`_split`), so the MoE takes its capacity
+        and slot order from the global batch, as the reference's GSPMD
+        prefill does."""
         cfg, rules = self.cfg, self.rules
         x = self._embed(params, tokens, embeds)
         pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         cache: Dict[str, Any] = {}
         places = None
         if rules.mesh is not None:
+            global_batch = global_batch or x.shape[0] * rules.axis_size(
+                rules.batch_axes)
             places = self.cache_placements(
-                global_batch or x.shape[0] * rules.axis_size(
-                    rules.batch_axes),
-                x.shape[1], None if enc_embeds is None
+                global_batch, x.shape[1], None if enc_embeds is None
                 else enc_embeds.shape[1])
+            rules = self._split(global_batch != x.shape[0])
 
         def cut(name):
             return None if places is None else _cache_places(places[name])
@@ -771,8 +787,14 @@ class Model:
                pos_index: torch.Tensor) -> Tuple[torch.Tensor, dict]:
         """One decode step.  token: (B,) int; pos_index: (B,) int (number
         of tokens already in the cache).  The cache is updated in place
-        and returned."""
-        cfg, rules = self.cfg, self.rules
+        and returned.  Whether the ranks hold slices of the batch is read
+        from the cache's placements (:meth:`prefill` places its batch dim
+        on the batch axes only then), and the layers run with
+        ``batch_split`` where they do, as in :meth:`prefill`."""
+        cfg = self.cfg
+        rules = self._split(any(
+            pl is not None and pl.spec[1] is not None
+            for pl in tree_flatten(_held_places(cache))[1]))
         x = self._embed(params, token[:, None])
         positions = pos_index[:, None]
         if cfg.family == "hybrid":

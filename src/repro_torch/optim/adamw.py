@@ -25,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.distributed import all_reduce
+from ..models.layers import wide
 from ..tree import tree_flatten, tree_get, tree_map, tree_unflatten
 
 @dataclasses.dataclass(frozen=True)
@@ -53,10 +54,11 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_state(params: Any) -> dict:
-    """m/v in f32 beside each parameter (of its held shape: this rank's
-    block under a mesh), step an int32 scalar."""
+    """m/v in f32 (f64 beside f64 parameters) beside each parameter (of
+    its held shape: this rank's block under a mesh), step an int32
+    scalar."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros(p.shape, dtype=wide(p).dtype, device=p.device)
     device = tree_flatten(params)[1][0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
@@ -94,7 +96,7 @@ def global_norm(tree: Any, placements: Any = None) -> torch.Tensor:
               else tree_flatten(placements)[1])
     by_axes = {}
     for g, pl in zip(leaves, places):
-        sq = torch.sum(torch.square(g.float()))
+        sq = torch.sum(torch.square(wide(g)))
         key = (sharded_axes(pl), pl and pl.mesh)
         by_axes[key] = sq if key not in by_axes else by_axes[key] + sq
     total = None
@@ -110,7 +112,7 @@ def clip_by_global_norm(grads: Any, max_norm: float, placements: Any = None
                         ) -> Tuple[Any, torch.Tensor]:
     norm = global_norm(grads, placements)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+    return tree_map(lambda g: (wide(g) * scale).to(g.dtype), grads), norm
 
 
 def _bias_corrections(cfg: AdamWConfig, step: torch.Tensor):
@@ -137,14 +139,14 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
     bc1, bc2 = _bias_corrections(cfg, step)
 
     def upd(p, g, m, v):
-        gf = g.float()
+        gf = wide(g)
         m2 = b1 * m + (1 - b1) * gf
         v2 = b2 * v + (1 - b2) * gf * gf
         mh = m2 / bc1
         vh = v2 / bc2
         delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * \
-            p.float()
-        p2 = p.float() - lr * delta
+            wide(p)
+        p2 = wide(p) - lr * delta
         return p2.to(p.dtype), m2, v2
 
     paths, flat_p, (flat_g, flat_m, flat_v) = _leaves_like(

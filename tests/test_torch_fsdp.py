@@ -656,19 +656,25 @@ def test_four_card_tool_rehearses_in_gloo_ranks(tmp_path):
     """``tools/fsdp_train.py --device cpu`` (the four-card runs at the
     reduced configs, in four gloo ranks) exits 0 with one line a run:
     one rank, Qwen3 on (4, 1) and (2, 2), OLMoE on (4, 1), Mamba2 on
-    one rank, (4, 1) and (2, 2) in its config's dtype and in f32; on
-    every mesh a rank holds the reference's placed bytes, less than one
-    rank holds, and its collective bytes a step are printed by mesh
-    axis, and its first gradient, gathered, is one rank's leaf by leaf,
-    as is the mean of the gradients of one rank's four row blocks;
-    then the sharded prefill and decodes on (2, 2) of Qwen3, Zamba2 (in
-    its config's dtype and in f32) and DeepSeek-V3 (at its capacity
-    factor and at 4), each rank on half the q heads (and half the SSM
-    heads) and its vocab block of the logits, equal to one rank's within
-    the tool's limit, and one rank's share of dropped expert slots
-    printed (none at the reduced configs).  ``--archs`` keeps the runs
-    of the archs it names.  The tool imports neither JAX nor the
-    reference."""
+    one rank in f64, then on one rank, (4, 1) and (2, 2) in its config's
+    dtype and in f32; on every mesh a rank holds the reference's placed
+    bytes, less than one rank holds, and its collective bytes a step are
+    printed by mesh axis, and its first gradient, gathered, is one
+    rank's leaf by leaf, as is the mean of the gradients of one rank's
+    four row blocks; each Mamba2 baseline's gradient and that mean are
+    held against the f64 baseline's, and the f32 mesh runs' limits are
+    drawn from the baseline's distance from f64; then the sharded
+    prefill and decodes on (2, 2) of Qwen3, Zamba2 (one rank alone in
+    f64, then in f32 and its config's dtype, the limits drawn from one
+    rank's distance from the wider run) and DeepSeek-V3 (at its
+    capacity factor, and at 5 with 32 for the decodes), each rank on
+    half the q heads (and half the SSM heads) and its vocab block of the
+    logits, equal to one rank's within the tool's limit at every step
+    before which and in which neither drops an expert slot (none drop
+    at the reduced configs; the MoE's statistics all-reduced over "data"
+    too), and each MoE decode's layers equal to one rank's.
+    ``--archs`` keeps the runs of the archs it names.  The tool imports
+    neither JAX nor the reference."""
     tool = REPO / "tools" / "fsdp_train.py"
     proc = subprocess.run([sys.executable, str(tool), "--device", "cpu",
                            "--cards", "4"], capture_output=True, text=True,
@@ -680,53 +686,138 @@ def test_four_card_tool_rehearses_in_gloo_ranks(tmp_path):
             if line.startswith('{"fsdp_train"')]
     assert [(r["arch"].split("-")[0], r["mesh"]) for r in rows] == [
         ("qwen3", [1, 1]), ("qwen3", [4, 1]), ("qwen3", [2, 2]),
-        ("olmoe", [4, 1]), ("mamba2", [1, 1]), ("mamba2", [4, 1]),
-        ("mamba2", [2, 2]), ("mamba2", [1, 1]), ("mamba2", [4, 1]),
-        ("mamba2", [2, 2])]
-    assert {r["dtype"] for r in rows} == {"float32"}
+        ("olmoe", [4, 1]), ("mamba2", [1, 1]), ("mamba2", [1, 1]),
+        ("mamba2", [4, 1]), ("mamba2", [2, 2]), ("mamba2", [1, 1]),
+        ("mamba2", [4, 1]), ("mamba2", [2, 2])]
+    assert [r["dtype"] for r in rows] == ["float32"] * 4 + ["float64"] + [
+        "float32"] * 6
     for r in rows:
         for held, placed in r["bytes"].values():
             assert held == placed, r
     for r in rows[1:3]:
         assert r["bytes"]["params"][0] < rows[0]["bytes"]["params"][0]
-    for r in rows[5:7] + rows[8:]:
-        assert r["bytes"]["params"][0] < rows[4]["bytes"]["params"][0]
         assert max(r["loss_rel_diff_vs_one_card"]) <= r["loss_rtol"] == 1e-4
-    for r in rows[1:3] + rows[5:7] + rows[8:]:
+    for base, meshes in ((rows[5], rows[6:8]), (rows[8], rows[9:])):
+        assert max(base["first_grad_f64_rel_err_by_leaf"].values()) <= 1e-4
+        assert max(base["first_grad_split_f64_rel_err_by_leaf"].values()
+                   ) <= 1e-4
+        for r in meshes:
+            assert r["bytes"]["params"][0] < rows[4]["bytes"]["params"][0]
+            assert r["loss_rtol"] == 2 * max(base["loss_rel_diff_vs_f64"])
+            assert max(r["loss_rel_diff_vs_one_card"]) <= r["loss_rtol"]
+            assert r["first_grad_rtol_by_leaf"] == {
+                k: 2 * v for k, v in
+                base["first_grad_f64_rel_err_by_leaf"].items()}
+    for r in rows[1:3] + rows[6:8] + rows[9:]:
         errs = r["first_grad_rel_err_by_leaf"]
         assert errs and max(errs.values()) <= 1e-4, errs
-    for r in (rows[0], rows[4], rows[7]):
+    for r in (rows[0], rows[4], rows[5], rows[8]):
         errs = r["first_grad_split_rel_err_by_leaf"]
         assert errs and max(errs.values()) <= 1e-4, errs
-    for r in (rows[1], rows[5], rows[8]):
+    for r in (rows[1], rows[6], rows[9]):
         assert set(r["collective_bytes_per_step_by_axis"]) == {"data"}
-    for r in (rows[2], rows[6], rows[9]):
+    for r in (rows[2], rows[7], rows[10]):
         assert set(r["collective_bytes_per_step_by_axis"]) == {"data",
                                                                "model"}
     served = [json.loads(line)["fsdp_serve"]
               for line in proc.stdout.splitlines()
               if line.startswith('{"fsdp_serve"')]
-    archs = ("qwen3_0_6b", "zamba2_2_7b", "deepseek_v3_671b",
-             "deepseek_v3_671b", "zamba2_2_7b")
+    archs = ("qwen3_0_6b", "zamba2_2_7b", "zamba2_2_7b", "deepseek_v3_671b",
+             "deepseek_v3_671b")
     assert [r["arch"] for r in served] == [
-        get_config(a).reduced().name for a in archs for _ in (0, 1)]
-    assert [r.get("capacity_factor") for r in served[::2]] == [
-        None, None, 2.0, 4.0, None]
-    assert [r["moe_drop_frac_summed"] for r in served[4:8:2]] == [0.0, 0.0]
-    for arch, (one, sharded) in zip(archs, zip(served[::2], served[1::2])):
+        get_config(a).reduced().name for a in ("qwen3_0_6b", "qwen3_0_6b",
+                                               "zamba2_2_7b") + tuple(
+            a for a in archs[1:] for _ in (0, 1))]
+    assert (served[2]["mesh"], served[2]["dtype"], served[2]["attention"]
+            ) == ([1, 1], "float64", "sdpa")
+    pairs = [served[0:2]] + [served[i:i + 2] for i in range(3, 11, 2)]
+    assert [(r.get("capacity_factor"), r.get("decode_capacity_factor"))
+            for r, _ in pairs] == [(None, None), (None, None), (None, None),
+                                   (2.0, 2.0), (5.0, 32.0)]
+    for arch, (one, sharded) in zip(archs, pairs):
         cfg = get_config(arch).reduced()
         assert [(r["mesh"], r["q_heads_per_rank"]) for r in (one, sharded)
                 ] == [([1, 1], cfg.n_heads), ([2, 2], cfg.n_heads // 2)]
         if cfg.family == "hybrid":
             assert (one["ssm_heads_per_rank"], sharded["ssm_heads_per_rank"]
                     ) == (cfg.ssm_heads, cfg.ssm_heads // 2)
+            far = max(one["logits_rel_diff_vs_one_card_in"]["float64"])
+            assert sharded["logits_rtol"] == 2 * far
+        else:
+            assert sharded["logits_rtol"] == 1e-4
+        if cfg.family == "moe":
+            assert one["dropped_slots"] == sharded["dropped_slots"] == [
+                0] * (1 + sharded["decode_steps"])
+            # each decode's layers against one rank's: f32 sums in
+            # another order, every token on the same experts
+            layers = sharded["decode_layers_vs_one_card"]
+            assert layers["tokens_rerouted"] == [0] * sharded["decode_steps"]
+            for kind in ("attention", "ffn"):
+                assert [len(s) for s in layers[kind]] == [
+                    cfg.n_layers] * sharded["decode_steps"]
+                assert max(map(max, layers[kind])) <= 1e-4
         assert sharded["logits_shape_per_rank"] == [
             sharded["batch"] // 2, 1, cfg.vocab_size // 2]
-        assert set(sharded["prefill_collective_bytes_by_axis"]) == {"model"}
+        assert set(sharded["prefill_collective_bytes_by_axis"]) == (
+            {"model", "data"} if cfg.family == "moe" else {"model"})
         rel = sharded["logits_rel_diff_vs_one_card"]
         assert len(rel) == 1 + sharded["decode_steps"]
-        assert max(rel) <= sharded["logits_rtol"] == 1e-4
+        assert sharded["logits_held_steps"] == list(range(len(rel)))
+        assert max(rel) <= sharded["logits_rtol"]
     for line in tool.read_text(encoding="utf-8").splitlines():
         words = line.split()
         if words[:1] in (["import"], ["from"]):
             assert words[1].split(".")[0] not in ("jax", "repro"), line
+
+
+def test_one_card_tool_runs_the_depth_sweep_and_the_moe_split_control(
+        tmp_path):
+    """``tools/fsdp_train.py --device cpu --cards 1 --archs
+    mamba2_780m,deepseek_v3_671b`` runs Mamba2's one-rank baselines (f64
+    first) and then the depth sweep: at each depth one batch's f32
+    gradient and the mean of its four row blocks' f32 gradients, each
+    against the f64 gradient leaf by leaf, and the two f32 gradients
+    against each other; at the reduced config all within f32 rounding,
+    the losses within 1e-6 of the f64 one.  Then DeepSeek-V3 served on
+    one rank alone (no mesh), each run with its control: the same
+    decodes with the batch in a (2, 2) mesh's two data-rank blocks, each
+    step's logits and each layer's outputs against the whole batch's,
+    and the tokens routed to other experts (none here)."""
+    tool = REPO / "tools" / "fsdp_train.py"
+    proc = subprocess.run([sys.executable, str(tool), "--device", "cpu",
+                           "--cards", "1", "--archs",
+                           "mamba2_780m,deepseek_v3_671b"],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=tmp_path,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    rows = [json.loads(line)["fsdp_train"]
+            for line in proc.stdout.splitlines()
+            if line.startswith('{"fsdp_train"')]
+    assert [(r["mesh"], r["dtype"]) for r in rows] == [
+        ([1, 1], "float64"), ([1, 1], "float32"), ([1, 1], "float32")]
+    depth = [json.loads(line)["fsdp_depth"]
+             for line in proc.stdout.splitlines()
+             if line.startswith('{"fsdp_depth"')]
+    assert [r["layers"] for r in depth] == [1, 2]
+    names = {k for k in rows[0]["first_grad_split_rel_err_by_leaf"]}
+    for r in depth:
+        for key in ("f64_rel_err_by_leaf", "split_f64_rel_err_by_leaf",
+                    "split_rel_err_by_leaf"):
+            assert set(r[key]) == names
+            assert 0 < max(r[key].values()) <= 1e-4, (key, r[key])
+        assert abs(r["loss_float32"] - r["loss_float64"]) <= 1e-6 * abs(
+            r["loss_float64"])
+    served = [json.loads(line)["fsdp_serve"]
+              for line in proc.stdout.splitlines()
+              if line.startswith('{"fsdp_serve"')]
+    cfg = get_config("deepseek_v3_671b").reduced()
+    assert [(r["mesh"], r["capacity_factor"]) for r in served] == [
+        ([1, 1], cfg.capacity_factor), ([1, 1], 5.0)]
+    for r in served:
+        steps = r["decode_steps"]
+        assert len(r["split_decode_logits_rel_diff"]) == steps
+        assert max(r["split_decode_logits_rel_diff"]) <= 1e-4
+        layers = r["split_decode_layers"]
+        assert layers["tokens_rerouted"] == [0] * steps
+        assert [len(s) for s in layers["attention"]] == [cfg.n_layers] * steps

@@ -386,3 +386,49 @@ def test_dryrun_costs_are_linear_in_depth(depth_costs, cell):
         assert inc[0, k] == inc[1, k], (cell, k, costs[:, k])
     assert inc[0, 0] > 0
     assert depth_costs[cell]["rss_gib"] < 2.0
+
+
+# a fresh interpreter, as each cell of the card's sweep runs: the dry-run
+# module imported, its FlopCounterMode made before the first layer, then
+# K5's operator reached on fake tensors (a CUDA build reaches it from
+# gqa_attention; here it is called as that path calls it)
+_FRESH_K5 = """
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils.flop_counter import FlopCounterMode
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.models import Model, NO_MESH
+
+with FakeTensorMode():
+    fc = FlopCounterMode(display=False)
+    cfg = get_config("qwen3_0_6b").reduced()
+    params = Model(cfg, NO_MESH).abstract("cpu")
+    grads = [t.requires_grad for t in torch.utils._pytree.tree_leaves(
+        params)]
+    q = torch.empty(2, 64, 4, 128)
+    kv = torch.empty(2, 64, 2, 128)
+    o = torch.empty_like(q)
+    with fc:
+        from repro_torch.kernels import flash_attention
+        torch.ops.repro_torch.flash_attention_fwd(q, kv, kv, o, True, 0.1)
+print(any(grads), fc.get_total_flops())
+"""
+
+
+def test_a_fresh_dryrun_counts_the_flash_operator_by_its_formula():
+    """A sweep cell runs in a process of its own, whose FlopCounterMode
+    copies the FLOP formulas registered when it is made, before any
+    layer runs: K5's operator is counted by its formula (4 B H Sq Sk D)
+    there only because the model imports the kernel's module, not at
+    its first prefill.  And the abstract serving parameters do not
+    require grad, so a prefill's trace takes K5 (``gqa_attention`` sends
+    what requires grad to the plain chunked path)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.dirname(__file__)), "src"))
+    proc = subprocess.run([sys.executable, "-c", _FRESH_K5], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    needs_grad, flops = proc.stdout.split()
+    assert needs_grad == "False"
+    assert int(flops) == 4 * 2 * 4 * 64 * 64 * 128

@@ -18,7 +18,12 @@ reference's GSPMD does under its constraints.  Gloo ranks
 * a sharded prefill and 4 decode steps on (2, 2) against one rank and
   against the reference's jitted prefill/decode on a (2, 2) XLA CPU mesh
   from the same tree, each rank's cache block at the reference's cache
-  shard shape.
+  shard shape;
+* OLMoE served on (4, 1) at a capacity factor where slots drop, in the
+  dense dispatch (the model axis of 1 splits no expert): its capacity
+  and slot order are the global batch's, so the same slots drop as on
+  one rank and the logits equal one rank's and the reference's jitted
+  (4, 1) prefill and decodes.
 """
 import numpy as np
 import pytest
@@ -27,10 +32,13 @@ from repro_torch.configs import get_config
 
 from torch_tp_harness import (BATCH, DECODE_STEPS, PROMPT,
                               assert_training_equals_one_rank, close,
-                              local_batch, one_rank_serving, run_served,
-                              run_shapes)
+                              local_batch, one_rank_serving,
+                              one_rank_serving_drops, run_served, run_shapes)
 
 ARCHS = ("qwen3_0_6b", "olmoe_1b_7b")
+# OLMoE on (4, 1) at a capacity factor of 0.5: each expert takes half its
+# mean share of the slots, so the prefill and every decode drop some
+DROPS = (("olmoe_1b_7b", (4, 1), 0.5),)
 MESHES = ((1, 2), (2, 2), (2, 4))
 MESH_IDS = ("1x2", "2x2", "2x4")
 
@@ -45,7 +53,7 @@ def ranks(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
-    return run_served(tmp_path_factory, ARCHS)
+    return run_served(tmp_path_factory, ARCHS, DROPS)
 
 
 # ---------------------------------------------------------- local shapes
@@ -224,5 +232,29 @@ def test_a_batch_the_data_axis_does_not_split_holds_the_sequence_on_data(
     for rank in port:
         got, held = rank["single"]
         assert held == {"['blocks']['k']": shape, "['blocks']['v']": shape}
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert close(g, w), (i, np.abs(g - w).max())
+
+
+@pytest.mark.parametrize("against", ("one_rank", "reference"))
+def test_split_serving_batch_drops_the_global_batchs_slots(served, against):
+    """OLMoE served on (4, 1), each rank its row of the batch, at a
+    capacity factor of 0.5: the dense dispatch takes its capacity and
+    slot order from the global batch, so every step drops the slots one
+    rank drops (counted exactly, summed over the ranks; some in the
+    prefill and in each decode), and the logits equal one rank's and the
+    reference's jitted (4, 1) prefill and decodes from the same tree."""
+    arch, _, factor = DROPS[0]
+    ref, port = served
+    tree, prompt, toks, ref_logits = ref[("drops", arch)]
+    want, want_drops = one_rank_serving_drops(arch, tree, prompt, toks,
+                                              factor)
+    assert all(n > 0 for n in want_drops), want_drops
+    if against == "reference":
+        want = ref_logits
+    for rank in port:
+        got, drops = rank[("drops", arch)]
+        assert drops == want_drops
+        assert len(got) == DECODE_STEPS + 1
         for i, (g, w) in enumerate(zip(got, want)):
             assert close(g, w), (i, np.abs(g - w).max())

@@ -29,7 +29,12 @@ float32, through the harness of ``tests/test_torch_tensor_parallel.py``
   (2, 2) rank's FLOPs;
 * a sharded prefill and 4 decodes on (2, 2) equal to one rank's and to
   the reference's jitted prefill/decode on a (2, 2) XLA CPU mesh from
-  one tree, each cache block at the reference's shard shape.
+  one tree, each cache block at the reference's shard shape;
+* DeepSeek-V3 served on (2, 2) at a capacity factor where every step
+  drops slots: the expert-parallel dispatch takes its capacity from
+  each data rank's tokens, as the reference's does, so the logits equal
+  the reference's jitted (2, 2) prefill and decodes (not one rank's,
+  which takes it from the whole batch).
 """
 import json
 
@@ -45,6 +50,10 @@ from torch_tp_harness import (BATCH, DECODE_STEPS, PROMPT,
 from torch_ranks import run_ranks
 
 ARCHS = ("mamba2_780m", "zamba2_2_7b", "deepseek_v3_671b")
+# DeepSeek-V3 on (2, 2) at a capacity factor of 0.5: a data rank's 2
+# decode tokens give each of the 4 experts one slot, so a step drops
+# wherever two of its 4 slots pick one expert
+DROPS = (("deepseek_v3_671b", (2, 2), 0.5),)
 MESHES = ((1, 2), (2, 2), (2, 4), (1, 3))
 MESH_IDS = ("1x2", "2x2", "2x4", "1x3")
 F32 = 4
@@ -61,7 +70,7 @@ def ranks(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
-    return run_served(tmp_path_factory, ARCHS)
+    return run_served(tmp_path_factory, ARCHS, DROPS)
 
 
 def _ways(dim, shape):
@@ -426,3 +435,21 @@ def test_sharded_prefill_and_decode_equal_the_references(served, arch):
         for i, (g, w) in enumerate(zip(got, want)):
             assert close(g, w), (i, np.abs(g - w).max())
         assert held == shards
+
+
+def test_expert_parallel_serving_keeps_the_references_local_capacity(
+        served):
+    """DeepSeek-V3 served on (2, 2) at a capacity factor of 0.5: every
+    step drops slots (counted exactly, summed over the ranks), each data
+    rank's capacity and slot order are its own tokens' as in the
+    reference's ``_moe_block_sharded``, and the logits equal the
+    reference's jitted (2, 2) prefill and decodes from the same tree."""
+    arch = DROPS[0][0]
+    ref, port = served
+    _, _, _, want = ref[("drops", arch)]
+    for rank in port:
+        got, drops = rank[("drops", arch)]
+        assert len(drops) == DECODE_STEPS + 1
+        assert all(n > 0 for n in drops), drops
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert close(g, w), (i, np.abs(g - w).max())

@@ -14,10 +14,13 @@
 * :func:`run_served` runs the reference's jitted prefill and
   DECODE_STEPS decodes on a (2, 2) XLA CPU mesh (:func:`ref_serve`)
   and the port on a (2, 2) gloo mesh from the same tree
-  (:func:`port_serve`);
+  (:func:`port_serve`), and each of its ``drops`` runs on its own mesh
+  at a capacity factor where slots drop;
 * :func:`one_rank_training` and :func:`one_rank_serving` give one
-  rank's numbers for the same runs.
+  rank's numbers for the same runs (:func:`one_rank_serving_drops` with
+  each step's dropped slots, at a capacity factor of its own).
 """
+import dataclasses
 import functools
 import json
 import os
@@ -207,13 +210,15 @@ with open(os.path.join(OUT, f"shapes.{{RANK}}.pkl"), "wb") as f:
 """
 
 
-def ref_serve(archs) -> str:
+def ref_serve(archs, drops=()) -> str:
     """The reference's jitted prefill and DECODE_STEPS decodes on a
     (2, 2) XLA CPU mesh (its XLA attention), from its init; the tree as
     float32 numpy, the prompt, the decode tokens, the logits, and the
-    shard shapes of its cache placements (``Model.abstract_cache``)."""
+    shard shapes of its cache placements (``Model.abstract_cache``).
+    Each of ``drops`` (arch, mesh shape, capacity factor) runs again on
+    that mesh at that capacity factor, under ``("drops", arch)``."""
     return f"""
-import pickle, sys
+import dataclasses, pickle, sys
 import jax, jax.numpy as jnp, numpy as np
 from repro.configs import get_config
 from repro.models import Model
@@ -222,11 +227,9 @@ from repro.models.sharding import rules_for_mesh
 def host(tree):
     return jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
 
-mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(2, 2),
-                         ("data", "model"))
-out = {{}}
-for arch in {tuple(archs)!r}:
-    cfg = get_config(arch).reduced()
+def serve(cfg, shape):
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(shape),
+                             ("data", "model"))
     model = Model(cfg, rules_for_mesh(mesh))
     params = model.init(jax.random.PRNGKey(0))
     rng = np.random.default_rng(7)
@@ -242,11 +245,20 @@ for arch in {tuple(archs)!r}:
         lg, cache = decode(params, cache, jnp.asarray(toks[i], jnp.int32),
                            pos)
         got.append(np.asarray(lg, np.float32))
+    return model, host(params), prompt, toks, got
+
+out = {{}}
+for arch in {tuple(archs)!r}:
+    model, *rec = serve(get_config(arch).reduced(), (2, 2))
     places = model.abstract_cache({BATCH}, {PROMPT + DECODE_STEPS})
     flat, _ = jax.tree_util.tree_flatten_with_path(places)
     shards = {{jax.tree_util.keystr(p): list(s.sharding.shard_shape(s.shape))
               for p, s in flat}}
-    out[arch] = (host(params), prompt, toks, got, shards)
+    out[arch] = (*rec, shards)
+for arch, shape, factor in {tuple(drops)!r}:
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              capacity_factor=factor)
+    out[("drops", arch)] = tuple(serve(cfg, shape)[1:])
 with open(sys.argv[1], "wb") as f:
     pickle.dump(out, f)
 """
@@ -275,42 +287,52 @@ out["single"] = (got, held)
 """
 
 
-def port_serve(archs) -> str:
+def port_serve(archs, drops=()) -> str:
     """The port on (2, 2) from the reference's tree (each rank its
     blocks): prefill on its rows, the cache grown to hold the decodes,
     DECODE_STEPS decodes; logits gathered over vocab and batch.  With
-    Qwen3 among ``archs``, also one sequence every rank holds whole."""
+    Qwen3 among ``archs``, also one sequence every rank holds whole.
+    Each of ``drops`` runs again on its mesh at its capacity factor,
+    with each step's dropped slots summed over the ranks
+    (``moe.count_drops``)."""
     body = f"""
-import pickle
+import dataclasses, pickle
 from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.configs import get_config
 from repro_torch.core.distributed import all_gather
 from repro_torch.launch.train import _batch_rows
-from repro_torch.models import Model
+from repro_torch.models import Model, moe
 from repro_torch.models.convert import params_from_reference
 from repro_torch.models.sharding import rules_for_mesh
 from repro_torch.tree import keystr, tree_flatten
 
 with open(os.path.join(OUT, "ref.pkl"), "rb") as f:
     ref = pickle.load(f)
-rules = rules_for_mesh(init_device_mesh("cpu", (2, 2),
-                                        mesh_dim_names=("data", "model")))
-rows = _batch_rows(rules, {BATCH})
 
-def whole(logits):
-    lg = all_gather(logits, rules.group("model"), dim=-1)
-    return all_gather(lg, rules.group("data"), dim=0).numpy()
+def mesh_rules(shape):
+    return rules_for_mesh(init_device_mesh("cpu", shape,
+                                           mesh_dim_names=("data", "model")))
 
-out = {{}}
-for arch in {tuple(archs)!r}:
-    cfg = get_config(arch).reduced()
+def serve(cfg, rules, tree, prompt, toks):
+    rows = _batch_rows(rules, {BATCH})
+
+    def whole(logits):
+        lg = all_gather(logits, rules.group("model"), dim=-1)
+        return all_gather(lg, rules.group("data"), dim=0).numpy()
+
+    def dropped(calls):
+        n = sum(calls, torch.zeros((), dtype=torch.long))
+        dist.all_reduce(n)
+        return int(n)
+
     model = Model(cfg, rules)
-    tree, prompt, toks, _, _ = ref[arch]
     params = params_from_reference(tree, torch.float32, "cpu",
                                    placements=model.placements())
     with torch.no_grad():
-        logits, cache = model.prefill(
-            params, tokens=torch.tensor(prompt[rows], dtype=torch.int32))
+        with moe.count_drops() as calls:
+            logits, cache = model.prefill(
+                params, tokens=torch.tensor(prompt[rows], dtype=torch.int32))
+        drops = [dropped(calls)]
         cache = model.pad_cache(cache, {PROMPT + DECODE_STEPS})
         held = {{keystr(p): list(t.shape)
                 for p, t in zip(*tree_flatten(cache))}}
@@ -318,11 +340,26 @@ for arch in {tuple(archs)!r}:
         for i in range({DECODE_STEPS}):
             pos = torch.full((rows.stop - rows.start,), {PROMPT} + i,
                              dtype=torch.int32)
-            lg, cache = model.decode(
-                params, cache, torch.tensor(toks[i][rows], dtype=torch.int32),
-                pos)
+            with moe.count_drops() as calls:
+                lg, cache = model.decode(
+                    params, cache,
+                    torch.tensor(toks[i][rows], dtype=torch.int32), pos)
+            drops.append(dropped(calls))
             got.append(whole(lg))
-    out[arch] = (got, held)
+    return got, held, drops
+
+rules = mesh_rules((2, 2))
+out = {{}}
+for arch in {tuple(archs)!r}:
+    tree, prompt, toks, _, _ = ref[arch]
+    out[arch] = serve(get_config(arch).reduced(), rules, tree, prompt,
+                      toks)[:2]
+for arch, shape, factor in {tuple(drops)!r}:
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              capacity_factor=factor)
+    tree, prompt, toks, _ = ref[("drops", arch)]
+    got, _, drops = serve(cfg, mesh_rules(shape), tree, prompt, toks)
+    out[("drops", arch)] = (got, drops)
 """
     if "qwen3_0_6b" in archs:
         body += _SINGLE
@@ -348,18 +385,20 @@ def run_shapes(tmp_path_factory, archs, meshes) -> dict:
     return out
 
 
-def run_served(tmp_path_factory, archs):
-    """(the reference's record by arch, [each port rank's record])."""
+def run_served(tmp_path_factory, archs, drops=()):
+    """(the reference's record by arch, [each port rank's record]);
+    ``drops``: (arch, mesh shape, capacity factor) runs of both, under
+    ``("drops", arch)``."""
     d = tmp_path_factory.mktemp("serve")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     env["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
                         + env.get("XLA_FLAGS", "")).strip()
     ref = subprocess.run([sys.executable, "-c",
-                          textwrap.dedent(ref_serve(archs)),
+                          textwrap.dedent(ref_serve(archs, drops)),
                           str(d / "ref.pkl")], env=env, capture_output=True,
                          text=True, timeout=300)
     assert ref.returncode == 0, ref.stderr[-4000:]
-    run_ranks(d, 4, port_serve(archs))
+    run_ranks(d, 4, port_serve(archs, drops))
     port = []
     for r in range(4):
         with open(d / f"serve.{r}.pkl", "rb") as f:
@@ -435,17 +474,32 @@ def close(got, want):
 
 def one_rank_serving(arch, tree, prompt, toks):
     """One rank's prefill logits and DECODE_STEPS decodes' logits."""
+    return one_rank_serving_drops(arch, tree, prompt, toks)[0]
+
+
+def one_rank_serving_drops(arch, tree, prompt, toks, capacity_factor=None):
+    """:func:`one_rank_serving`'s logits, and the slots each step dropped
+    (``moe.count_drops``), at the reduced config's capacity factor or
+    ``capacity_factor``."""
+    from repro_torch.models import moe
     cfg = get_config(arch).reduced()
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
     one = Model(cfg, NO_MESH)
     params = params_from_reference(tree, torch.float32, "cpu")
     with torch.no_grad():
-        logits, cache = one.prefill(params, tokens=torch.tensor(
-            prompt, dtype=torch.int32))
+        with moe.count_drops() as calls:
+            logits, cache = one.prefill(params, tokens=torch.tensor(
+                prompt, dtype=torch.int32))
+        drops = [int(sum(calls, torch.zeros((), dtype=torch.long)))]
         cache = one.pad_cache(cache, PROMPT + DECODE_STEPS)
         want = [logits[:, -1].numpy()]
         for i in range(DECODE_STEPS):
-            lg, cache = one.decode(
-                params, cache, torch.tensor(toks[i], dtype=torch.int32),
-                torch.full((len(prompt),), PROMPT + i, dtype=torch.int32))
+            with moe.count_drops() as calls:
+                lg, cache = one.decode(
+                    params, cache, torch.tensor(toks[i], dtype=torch.int32),
+                    torch.full((len(prompt),), PROMPT + i,
+                               dtype=torch.int32))
+            drops.append(int(sum(calls, torch.zeros((), dtype=torch.long))))
             want.append(lg.numpy())
-    return want
+    return want, drops

@@ -14,27 +14,44 @@ in a temp dir) and runs, each rank on its rows of every global batch:
   3. OLMoE-1B-7B at full width and depth on (cards, 1) (its replicated
      bf16 weights, bf16 gradients and f32 moments, ~82.8 GB, fit no
      80 GB card): finite losses, held == placed;
-  4. Mamba2-780M at full width on one card, on (cards, 1) and on
-     (cards / 2, 2), where a rank computes its H/2 SSM heads, in bf16
-     and in f32: losses within LOSS_RTOL of one card's in the same
-     dtype.  Every run with a one-card baseline also holds its first
-     gradient, gathered, against the baseline's leaf by leaf (normwise;
-     in f32 within GRAD_RTOL), which tells a sharding fault from
-     AdamW's amplification of rounding; the baseline prints, as a
-     control, its own gradient against the mean of its SPLIT_BLOCKS row
-     blocks' (a data split with no collective).  ``--cards 1`` runs the
-     one-card baselines alone;
+  4. Mamba2-780M at full width on one card in f64 (the yardstick), then
+     on one card, on (cards, 1) and on (cards / 2, 2), where a rank
+     computes its H/2 SSM heads, in bf16 and in f32: losses within
+     LOSS_RTOL of one card's in the same dtype.  Every run with a
+     one-card baseline also holds its first gradient, gathered, against
+     the baseline's leaf by leaf (normwise; in f32 within GRAD_RTOL),
+     which tells a sharding fault from AdamW's amplification of
+     rounding; the baseline prints, as a control, its own gradient
+     against the mean of its SPLIT_BLOCKS row blocks' (a data split with
+     no collective), and both against the f64 baseline's first gradient,
+     and its losses against the f64 ones.  Where the f64 yardstick ran,
+     an f32 mesh run's limits are drawn from it (:func:`f64_limits`).
+     ``--cards 1`` runs the one-card baselines alone, then the depth
+     sweep: the f64, f32 and f32 row-block-mean gradients of one batch
+     at each of SWEEP_DEPTHS;
   5. a sharded prefill and DECODE_STEPS decodes on (cards / 2, 2) under
      ``serving_rules`` of each of SERVE_RUNS at full width (DeepSeek-V3
      cut to 4 layers): each rank computes its H/2 q heads (Qwen3's and
      Zamba2's shared block's on the flash kernel K5, a launch an
      attention layer), its H/2 SSM heads (Zamba2) or MLA heads
      (DeepSeek-V3) and its vocab block of the logits, which, gathered,
-     must be one card's within ``SERVE_LOGIT_RTOL`` of the dtype.  An
-     arch served in bf16 and then in f32 prints one card's bf16 logits
-     against its f32 ones (the bf16 drift the sharded check sits in);
-     a MoE arch prints the share of its expert slots one card drops,
-     and is served again with a capacity factor at which none drop.
+     must be one card's within ``SERVE_LOGIT_RTOL`` of the dtype (or the
+     limit :func:`serve_limits` draws from one card's own runs in a
+     wider dtype).  Zamba2 runs on one card alone in f64 (plain
+     attention: K5 takes no f64), then in f32 and bf16 on both.  A MoE
+     run counts the expert slots each step drops (``moe.count_drops``:
+     on one card, and on the mesh summed over its ranks) and holds a
+     sharded step against one card's only where neither has dropped a
+     slot, nor the mesh routed a token to other experts, in it or before
+     it (the cache carries every earlier step: :func:`held_steps`);
+     DeepSeek-V3 runs again at PROMPT_CAPACITY_FACTOR for the prefill
+     and DECODE_CAPACITY_FACTOR for the decodes, where none drops.  A
+     MoE run's decodes also print, layer by layer, the attention's and
+     the MLP's or experts' output on the mesh against one card's, and
+     the tokens whose top-k experts differ (:func:`recorded_layers`);
+     its one-card run prints the same against its own decodes of the
+     batch in a (2, 2) mesh's data-rank blocks (a control with no
+     collective).  ``--cards 1`` serves each run on one card alone.
 
 Each run prints one JSON line from rank 0 (median step ms over the steps
 after the first, tokens/s, the peak allocated GiB of each rank, held and
@@ -55,13 +72,15 @@ rest) against the step's host-clock wall:
   python3 tools/fsdp_train.py --cards 4
   python3 tools/fsdp_train.py --cards 4 \
       --archs mamba2_780m,zamba2_2_7b,deepseek_v3_671b
-  python3 tools/fsdp_train.py --cards 1 --archs mamba2_780m
+  python3 tools/fsdp_train.py --cards 1 --archs mamba2_780m   # + depth sweep
+  python3 tools/fsdp_train.py --cards 1 --archs deepseek_v3_671b
   python3 tools/fsdp_train.py --device cpu --cards 4
   python3 tools/fsdp_train.py --trace --cards 4
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -72,6 +91,7 @@ import tempfile
 import time
 import traceback
 from pathlib import Path
+from typing import Tuple
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
@@ -80,6 +100,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # None is the config's
 RUNS = (("qwen3_0_6b", None, 5, None), ("qwen3_0_6b", "cards", 5, None),
         ("qwen3_0_6b", "half", 5, None), ("olmoe_1b_7b", "cards", 4, None),
+        ("mamba2_780m", None, 5, "float64"),
         ("mamba2_780m", None, 5, None), ("mamba2_780m", "cards", 5, None),
         ("mamba2_780m", "half", 5, None),
         ("mamba2_780m", None, 5, "float32"),
@@ -95,28 +116,57 @@ SMOKE_SEQ, SMOKE_BATCH = 32, 4
 # (tests/test_torch_fsdp.py)
 LOSS_RTOL = {"bfloat16": 1e-3, "float32": 1e-4}
 # the first gradient against one card's, normwise a leaf, in f32: the
-# gloo twins' limit (tests/test_torch_tensor_parallel_mixers.py)
+# gloo twins' limit (tests/test_torch_tensor_parallel_mixers.py); where
+# the arch's f64 baseline ran in the same call, an f32 mesh run is held
+# instead to twice one card's own f32 distance from f64, leaf by leaf,
+# and its losses to twice one card's f32 losses' distance from the f64
+# ones (f64_limits): a mesh whose f32 result is as close to the exact
+# one as one card's is within twice that of one card's
 GRAD_RTOL = 1e-4
 # the row blocks of the one-card baseline's data-split control
 SPLIT_BLOCKS = 4
+# --cards 1: the depths at which the depth sweep takes one batch's f64,
+# f32 and f32 row-block-mean gradients (Mamba2's published depth last)
+SWEEP_ARCH, SWEEP_DEPTHS, SMOKE_SWEEP_DEPTHS = ("mamba2_780m",
+                                                (6, 12, 24, 48), (1, 2))
 # the serving runs: a prompt of SERVE_PROMPT tokens for each of
 # SERVE_BATCH sequences, then DECODE_STEPS decodes of fixed tokens, for
-# each (arch, config fields cut on the cards).  DeepSeek-V3 runs again
-# at a capacity factor of 4 (each expert takes 4x its mean share of the
-# slots), and Zamba2 in f32 beside its bf16: the controls of the bf16
-# sharded checks, to tell dropped slots and bf16 drift from a fault
+# each (arch, config fields cut on the cards; "decode_capacity_factor"
+# sets the decodes' alone, "mesh": False serves on one card alone).
+# Zamba2 runs in f64 on one card (the yardstick of its f32 runs) and in
+# f32 beside its bf16 (the yardstick of its bf16 runs); DeepSeek-V3 runs
+# again where no slot drops: at PROMPT_CAPACITY_FACTOR for the prompt
+# (each expert takes 5x its mean share of the slots: at 4 a data rank of
+# (2, 2) still dropped 19 of its 32768, and at 8 one card's prefill
+# buffers overflow 80 GB, on an H100) and
+# DECODE_CAPACITY_FACTOR for the decodes (a decode of SERVE_BATCH tokens
+# has a capacity of 8 slots an expert on one card and 4 on a data rank
+# of (2, 2), so every expert takes every token)
 SERVE_BATCH, SERVE_PROMPT, DECODE_STEPS = 8, 1024, 16
-SERVE_RUNS = (("qwen3_0_6b", {}), ("zamba2_2_7b", {}),
+PROMPT_CAPACITY_FACTOR, DECODE_CAPACITY_FACTOR = 5.0, 32.0
+# a MoE run's one-card control decodes the batch in the row blocks of a
+# (2, 2) mesh's data ranks
+SERVE_DATA_BLOCKS = 2
+SERVE_RUNS = (("qwen3_0_6b", {}),
+              ("zamba2_2_7b", {"dtype": "float64", "mesh": False}),
+              ("zamba2_2_7b", {"dtype": "float32"}), ("zamba2_2_7b", {}),
               ("deepseek_v3_671b", {"n_layers": 4}),
-              ("deepseek_v3_671b", {"n_layers": 4, "capacity_factor": 4.0}),
-              ("zamba2_2_7b", {"dtype": "float32"}))
+              ("deepseek_v3_671b", {
+                  "n_layers": 4, "capacity_factor": PROMPT_CAPACITY_FACTOR,
+                  "decode_capacity_factor": DECODE_CAPACITY_FACTOR}))
 SMOKE_SERVE_PROMPT = 16
 # sharded logits against one card's, max abs difference over max abs
 # logit, by dtype: in bf16 the row-parallel sums round each rank's
 # partial to bf16 before the all-reduce, once a projection a layer
 # (chip_smoke.py's SERVE_LOGIT_TOL for bf16 logits); in f32 the twins'
-# 1e-4 (tests/test_torch_tensor_parallel.py)
+# 1e-4 (tests/test_torch_tensor_parallel.py).  Where one card served the
+# arch in a wider dtype in the same call, serve_limits draws the limit
+# from it instead
 SERVE_LOGIT_RTOL = {"bfloat16": 5e-2, "float32": 1e-4}
+# the bf16 limit drawn from one card's bf16-vs-f32 drift: twice it plus
+# this floor, as tests/test_torch_models.py's family logit twin draws
+# its bf16 limit from the reference's drift
+DRIFT_FLOOR = 1e-3
 
 
 def held_and_placed(cfg, rules, trees: dict, device="cuda") -> dict:
@@ -189,13 +239,37 @@ def profile_step(run) -> dict:
                             for e in top]}
 
 
+def rel_err(got, want) -> float:
+    """Normwise ``|got - want| / |want|``, in f64."""
+    got, want = got.double(), want.to(got.device).double()
+    return float((got - want).norm() / want.norm().clamp(min=1e-300))
+
+
+def split_mean(grad_step, params, batch, leaves):
+    """The mean of the gradients of ``batch``'s SPLIT_BLOCKS row blocks
+    (a (4, 1) rank's rows), on this card with no collective, summed in
+    the wider of f32 and the gradients' dtype."""
+    import torch
+    from repro_torch.tree import tree_flatten
+    out = [torch.zeros_like(g, dtype=torch.promote_types(torch.float32,
+                                                         g.dtype))
+           for g in leaves]
+    for blk in range(SPLIT_BLOCKS):
+        part = {k: v.chunk(SPLIT_BLOCKS)[blk] for k, v in batch.items()}
+        for s, g in zip(out, tree_flatten(grad_step(params, part)[0])[1]):
+            s.add_(g.to(s.dtype), alpha=1 / SPLIT_BLOCKS)
+    return out
+
+
 def one_run(arch, mesh_kind, steps, dtype, rank, world, device, smoke,
-            compare=False, base=None):
+            compare=False, base=None, yard=None):
     """This rank's part of one run: (the numbers rank 0 prints, the
     first gradient by leaf on the host where this is a baseline that
     ``compare`` says a later run compares with).  ``base``: rank 0's
     baseline gradients, against which a mesh run's first gradient,
-    gathered, is held leaf by leaf."""
+    gathered, is held leaf by leaf; ``yard``: the f64 baseline's first
+    gradient, against which a baseline's and its data-split control's
+    are held leaf by leaf."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -254,32 +328,29 @@ def one_run(arch, mesh_kind, steps, dtype, rank, world, device, smoke,
         paths, leaves = tree_flatten(grads)
         if mesh_kind is None:
             first = {keystr(p): g.cpu() for p, g in zip(paths, leaves)}
-            # the control: the mean of the gradients of the batch's
-            # SPLIT_BLOCKS row blocks (a (4, 1) rank's rows), on this card
-            # with no collective: how far a data split's reordering alone
-            # moves each leaf
-            whole, split = batch(0), [torch.zeros_like(g, dtype=torch.float32)
-                                      for g in leaves]
-            for blk in range(SPLIT_BLOCKS):
-                part = {k: v.chunk(SPLIT_BLOCKS)[blk]
-                        for k, v in whole.items()}
-                for s, g in zip(split, tree_flatten(
-                        grad_step(params, part)[0])[1]):
-                    s.add_(g.float(), alpha=1 / SPLIT_BLOCKS)
+            # the control: how far a data split's reordering alone moves
+            # each leaf
+            split = split_mean(grad_step, params, batch(0), leaves)
             row["first_grad_split_rel_err_by_leaf"] = {
-                keystr(p): float((s - g.float()).norm()
-                                 / g.float().norm().clamp(min=1e-30))
+                keystr(p): rel_err(s, g)
                 for p, s, g in zip(paths, split, leaves)}
+            if yard is not None:
+                # the baseline's gradient and the control's against the
+                # exact one (the f64 baseline's)
+                row["first_grad_f64_rel_err_by_leaf"] = {
+                    keystr(p): rel_err(g, yard[keystr(p)])
+                    for p, g in zip(paths, leaves)}
+                row["first_grad_split_f64_rel_err_by_leaf"] = {
+                    keystr(p): rel_err(s, yard[keystr(p)])
+                    for p, s in zip(paths, split)}
             del split
         else:
             errs = {}
             for p, g, pl in zip(paths, leaves,
                                 tree_flatten(model.placements())[1]):
-                g = gather(g, pl).float()
+                g = gather(g, pl)
                 if base is not None:
-                    want = base[keystr(p)].to(device).float()
-                    errs[keystr(p)] = float((g - want).norm()
-                                            / want.norm().clamp(min=1e-30))
+                    errs[keystr(p)] = rel_err(g, base[keystr(p)])
             row["first_grad_rel_err_by_leaf"] = errs
     del grads
     losses, times = [], []
@@ -325,6 +396,83 @@ def one_run(arch, mesh_kind, steps, dtype, rank, world, device, smoke,
     return row, first
 
 
+def rel_losses(row, want) -> list:
+    """Each step's loss against ``want``'s, relative."""
+    return [abs(a - b) / abs(b) for a, b in zip(row["losses"],
+                                                 want["losses"])]
+
+
+def f64_limits(dtype, base):
+    """(loss limit, {leaf: first-gradient limit}) of a mesh run in
+    ``dtype`` against one card's run ``base``: LOSS_RTOL and GRAD_RTOL,
+    but in f32 where ``base`` was held against the f64 baseline in the
+    same call: twice ``base``'s own distance from it (its largest loss
+    difference; its first gradient's, leaf by leaf)."""
+    exact = base.get("first_grad_f64_rel_err_by_leaf")
+    if dtype != "float32" or not exact:
+        return LOSS_RTOL[dtype], {}
+    return (2 * max(base["loss_rel_diff_vs_f64"]),
+            {k: 2 * v for k, v in exact.items()})
+
+
+def depth_sweep(arch, device, smoke) -> list:
+    """``--cards 1``: at each of SWEEP_DEPTHS (the arch's config at that
+    depth; SMOKE_SWEEP_DEPTHS of the reduced one on the CPU), one batch's
+    first gradient in f64, in f32, and in f32 as the mean of its
+    SPLIT_BLOCKS row blocks' (:func:`split_mean`), from one seed's
+    weights (the f32 model's are the f64 model's, rounded): a row a depth
+    with each f32 gradient's distance from the f64 one, leaf by leaf, and
+    the two f32 losses beside the f64 one.  A distance that grows with
+    depth alike for both f32 gradients is the model's f32 conditioning;
+    one that only the split shows is a mixing of rows."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_at_step
+    from repro_torch.launch import steps as S
+    from repro_torch.models.sharding import NO_MESH
+    from repro_torch.tree import keystr, tree_flatten
+
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if smoke else cfg
+    seq, gb = (SMOKE_SEQ, SMOKE_BATCH) if smoke else (SEQ, GLOBAL_BATCH)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                    global_batch=gb, seed=0)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in batch_at_step(dc, 0).items()
+             if k in ("tokens", "labels")}
+    rows = []
+    for depth in (SMOKE_SWEEP_DEPTHS if smoke else SWEEP_DEPTHS):
+        row = {"arch": cfg.name, "layers": depth, "seq_len": seq,
+               "global_batch": gb}
+        got = {}
+        for dtype in ("float64", "float32"):
+            c = dataclasses.replace(cfg, n_layers=depth, dtype=dtype)
+            grad_step, model = S.make_grad_step(c, NO_MESH)
+            params = model.init(0, device=device)
+            grads, loss, _ = grad_step(params, batch)
+            paths, leaves = tree_flatten(grads)
+            row[f"loss_{dtype}"] = float(loss)
+            if dtype == "float64":
+                exact = leaves
+            else:
+                split = split_mean(grad_step, params, batch, leaves)
+                got = {"f64_rel_err_by_leaf": leaves,
+                       "split_f64_rel_err_by_leaf": split}
+            del params, grads
+        for name, tree in got.items():
+            row[name] = {keystr(p): rel_err(g, e)
+                         for p, g, e in zip(paths, tree, exact)}
+        row["split_rel_err_by_leaf"] = {
+            keystr(p): rel_err(s, g) for p, s, g in
+            zip(paths, got["split_f64_rel_err_by_leaf"],
+                got["f64_rel_err_by_leaf"])}
+        del exact, got, leaves, split
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        rows.append(row)
+    return rows
+
+
 def attention_layers(cfg) -> int:
     """The layers of a prefill that launch K5: self-attention over the
     q heads (MLA and the SSM mixer take none)."""
@@ -336,13 +484,16 @@ def attention_layers(cfg) -> int:
 
 
 def serve_run(arch, cut, rank, world, device, smoke):
-    """Rank 0 alone, then (world / 2, 2): ``arch``'s prefill and
-    DECODE_STEPS decodes from the seed's weights under ``serving_rules``
-    (its config's fields ``cut``; on the CPU the reduced config's, its
-    depth kept); the logits of each step gathered over vocab and batch.
-    Returns (one card's row, one card's logits, the mesh's row, with its
-    logits' difference from one card's) on rank 0, (None, None, the
-    mesh's row) elsewhere."""
+    """Rank 0 alone, then (world / 2, 2) unless ``cut`` says ``"mesh":
+    False``: ``arch``'s prefill and DECODE_STEPS decodes from the seed's
+    weights under ``serving_rules`` (its config's fields ``cut``; on the
+    CPU the reduced config's, its depth kept; f64 on plain attention);
+    the logits of each step gathered over vocab and batch, and for a MoE
+    the slots each step dropped (on the mesh summed over its ranks), its
+    decodes' layers, and on one card its data-split control.
+    Returns (one card's row and logits, the mesh's row and logits) on
+    rank 0, (None, None, the mesh's row, None) elsewhere; the mesh's
+    are None where it does not run."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -352,27 +503,37 @@ def serve_run(arch, cut, rank, world, device, smoke):
     from repro_torch.launch import steps as S
     from repro_torch.launch.mesh import make_mesh_for_devices
     from repro_torch.launch.train import _batch_rows
+    from repro_torch.models import attention, moe
     from repro_torch.models.attention import head_split
-    from repro_torch.models.sharding import NO_MESH, rules_for_mesh
+    from repro_torch.models.sharding import (NO_MESH, placement_of,
+                                             rules_for_mesh)
+    from repro_torch.tree import tree_map
 
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cut = dict(cut)
+    on_mesh = cut.pop("mesh", True)
+    decode_factor = cut.pop("decode_capacity_factor", None)
     cfg = get_config(arch)
     if smoke:
         cut = {k: v for k, v in cut.items() if k != "n_layers"}
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, **cut)
+    decode_cfg = (cfg if decode_factor is None else
+                  dataclasses.replace(cfg, capacity_factor=decode_factor))
     prompt_len = SMOKE_SERVE_PROMPT if smoke else SERVE_PROMPT
     rng = np.random.default_rng(11)
     prompt = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, prompt_len))
     toks = rng.integers(0, cfg.vocab_size, (DECODE_STEPS, SERVE_BATCH))
-    mesh_rules = rules_for_mesh(make_mesh_for_devices(world, 2,
-                                                      device=device))
+    on_mesh = on_mesh and world > 1
+    mesh_rules = (rules_for_mesh(make_mesh_for_devices(world, 2,
+                                                       device=device))
+                  if on_mesh else None)
 
     def one(rules):
         srules = S.serving_rules(cfg, rules)
         prefill, model = S.make_prefill_step(cfg, srules)
-        decode, _ = S.make_decode_step(cfg, srules)
+        decode, _ = S.make_decode_step(decode_cfg, srules)
         rows = _batch_rows(srules, SERVE_BATCH)
         if on_card:
             torch.cuda.empty_cache()
@@ -386,6 +547,57 @@ def serve_run(arch, cut, rank, world, device, smoke):
             return D.all_gather(lg, srules.group("data"), dim=0
                                 ).float().cpu().numpy()
 
+        def copied(cache):
+            # a copy of a held cache, each leaf with its placement
+            def leaf(t):
+                c = t.clone()
+                c.placement = placement_of(t)
+                return c
+            return tree_map(leaf, cache)
+
+        def rows_whole(t):
+            # a tensor of this rank's batch rows, gathered over "data"
+            if srules.mesh is not None:
+                t = D.all_gather(t.contiguous(), srules.group("data"), dim=0)
+            return t.float().cpu().numpy() if t.is_floating_point() \
+                else t.cpu().numpy()
+
+        def split_decodes(start):
+            # the control of a MoE run on one card: the same decodes from
+            # the same cache, the batch taken in SERVE_DATA_BLOCKS blocks
+            # of rows (a (2, 2) mesh's data ranks, each with its own
+            # capacity), joined: (each step's logits, its layers)
+            blocks = []
+            width = SERVE_BATCH // SERVE_DATA_BLOCKS
+            for blk in range(SERVE_DATA_BLOCKS):
+                sl = slice(blk * width, (blk + 1) * width)
+                part = tree_map(lambda t: t[:, sl].clone(), start)
+                steps = []
+                for i in range(DECODE_STEPS):
+                    tok = torch.tensor(toks[i][sl], dtype=torch.int32,
+                                       device=device)
+                    pos = torch.full((width,), prompt_len + i,
+                                     dtype=torch.int32, device=device)
+                    with recorded_layers() as seen:
+                        lg, part = decode(params, part, tok, pos)
+                    steps.append((whole(lg), {k: [rows_whole(t) for t in v]
+                                              for k, v in seen.items()}))
+                blocks.append(steps)
+            logits = [np.concatenate([b[i][0] for b in blocks])
+                      for i in range(DECODE_STEPS)]
+            joined = [{k: [np.concatenate([b[i][1][k][j] for b in blocks])
+                           for j in range(len(v))]
+                       for k, v in blocks[0][i][1].items()}
+                      for i in range(DECODE_STEPS)]
+            return logits, joined
+
+        def dropped(calls):
+            # this step's dropped slots, summed over the mesh's ranks
+            n = sum(calls, torch.zeros((), dtype=torch.long, device=device))
+            if srules.mesh is not None:
+                dist.all_reduce(n)
+            return int(n)
+
         with torch.no_grad():
             tokens = torch.tensor(prompt[rows], dtype=torch.int32,
                                   device=device)
@@ -395,15 +607,21 @@ def serve_run(arch, cut, rank, world, device, smoke):
             D.reset_collectives()
             sync()
             t0 = time.perf_counter()
-            logits, cache = prefill(params, {"tokens": tokens})
+            with moe.count_drops() as calls:
+                logits, cache = prefill(params, {"tokens": tokens})
             sync()
             prefill_s = time.perf_counter() - t0
             launches = {p: dict(c) for p, c in kfa.LAUNCHES_BY_PATH.items()}
             coll = {a: dict(c) for a, c in
                     D.COLLECTIVE_BYTES_BY_AXIS.items()}
+            drops = [dropped(calls)]
             logits_shape = list(logits.shape)
             cache = model.pad_cache(cache, prompt_len + DECODE_STEPS)
+            before = copied(cache) if cfg.family == "moe" else None
+            start = (copied(cache) if cfg.family == "moe"
+                     and srules.mesh is None else None)
             got, times = [whole(logits[:, -1])], []
+            layers = []
             for i in range(DECODE_STEPS):
                 tok = torch.tensor(toks[i][rows], dtype=torch.int32,
                                    device=device)
@@ -411,16 +629,29 @@ def serve_run(arch, cut, rank, world, device, smoke):
                                  dtype=torch.int32, device=device)
                 sync()
                 t0 = time.perf_counter()
-                lg, cache = decode(params, cache, tok, pos)
+                with moe.count_drops() as calls:
+                    lg, cache = decode(params, cache, tok, pos)
                 sync()
                 times.append(time.perf_counter() - t0)
+                drops.append(dropped(calls))
                 got.append(whole(lg))
+                if cfg.family == "moe":
+                    # the same step again, its layers recorded, on a copy
+                    # of the cache it read (not timed)
+                    with recorded_layers() as seen:
+                        decode(params, before, tok, pos)
+                    layers.append({k: [rows_whole(t) for t in v]
+                                   for k, v in seen.items()})
+                before = copied(cache) if cfg.family == "moe" else None
+            if start is not None:
+                split = split_decodes(start)
         n = head_split(cfg, srules)[0] if cfg.n_heads else 1
         row = {"arch": cfg.name, "run": "serve",
                "mesh": [1, 1] if srules.mesh is None else [world // 2, 2],
                "dtype": cfg.dtype, "layers": cfg.n_layers,
                "batch": SERVE_BATCH,
                "prompt_len": prompt_len, "decode_steps": DECODE_STEPS,
+               "attention": attention.ATTENTION_BACKEND,
                "q_heads_per_rank": cfg.n_heads // n,
                "ssm_heads_per_rank": (
                    cfg.ssm_heads // srules.model_ways(cfg.ssm_heads)
@@ -433,19 +664,32 @@ def serve_run(arch, cut, rank, world, device, smoke):
                "logits_shape_per_rank": logits_shape,
                "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
                             if on_card else 0.0)}
-        if cfg.family == "moe" and srules.mesh is None:
-            # the prompt's expert slots dropped at capacity (exact on
-            # one card), summed over the MoE layers
-            with torch.no_grad():
-                _, aux = model.train_logits(params, tokens=tokens,
-                                            return_hidden=True)
-            row["capacity_factor"] = cfg.capacity_factor
-            row["moe_drop_frac_summed"] = float(aux["moe_drop_frac"])
-        del params, cache
-        return row, got
+        if cfg.family == "moe":
+            row.update(capacity_factor=cfg.capacity_factor,
+                       decode_capacity_factor=decode_cfg.capacity_factor,
+                       moe_layers=cfg.n_layers - cfg.n_dense_layers,
+                       dropped_slots=drops)
+        if start is not None:
+            row["split_decode_logits_rel_diff"] = rel_diffs(split[0],
+                                                            got[1:])
+            row["split_decode_layers"] = layer_diffs(split[1], layers)
+        del params, cache, before, start
+        return row, (got, layers)
 
-    base = one(NO_MESH) if rank == 0 else None
+    base = None
+    if rank == 0:
+        # K5 takes no f64: an f64 run's attention is the plain one
+        backend = attention.ATTENTION_BACKEND
+        if cfg.dtype == "float64":
+            attention.ATTENTION_BACKEND = "sdpa"
+        try:
+            base = one(NO_MESH)
+        finally:
+            attention.ATTENTION_BACKEND = backend
     dist.barrier()
+    if not on_mesh:
+        return (None, None, None, None) if base is None else (
+            base[0], base[1][0], None, None)
     row, got = one(mesh_rules)
     if on_card:
         layers = attention_layers(cfg)
@@ -455,9 +699,103 @@ def serve_run(arch, cut, rank, world, device, smoke):
             raise SystemExit(f"sharded prefill: K5 launches "
                              f"{row['k5_launches_per_rank']}, want {want}")
     if base is None:
-        return None, None, row
-    row["logits_rel_diff_vs_one_card"] = rel_diffs(got, base[1])
-    return base[0], base[1], row
+        return None, None, row, None
+    (got, layers), (want, one_layers) = got, base[1]
+    row["logits_rel_diff_vs_one_card"] = rel_diffs(got, want)
+    if layers:
+        row["decode_layers_vs_one_card"] = layer_diffs(layers, one_layers)
+    return base[0], want, row, got
+
+
+def held_steps(one, sharded) -> list:
+    """The steps (0: the prefill) whose sharded logits are held against
+    one card's: every step, but for a MoE those before which, and in
+    which, neither dropped an expert slot and no decode sent a token to
+    other experts than one card's (a step's cache holds every earlier
+    step's).  Either is another function of the batch: the
+    expert-parallel dispatch takes its capacity from a data rank's
+    tokens, as the reference's does, and bf16 sums in another order flip
+    near-tied top-k choices (one card's split control shows both).  The
+    others are held by the counts printed."""
+    steps = range(1 + sharded["decode_steps"])
+    if "dropped_slots" not in sharded:
+        return list(steps)
+    moved = [0] + sharded.get("decode_layers_vs_one_card", {}).get(
+        "tokens_rerouted", [0] * sharded["decode_steps"])
+    clean = [one["dropped_slots"][i] == 0 == sharded["dropped_slots"][i]
+             and moved[i] == 0 for i in steps]
+    return [i for i in steps if all(clean[:i + 1])]
+
+
+@contextlib.contextmanager
+def recorded_layers():
+    """Within it, the outputs of each layer's attention and of its MLP
+    or experts, and each MoE router's top-k experts, in call order:
+    {"attention": [...], "ffn": [...], "experts": [...]} (the tool's
+    wrappers of the model's own functions, put back on exit)."""
+    from repro_torch.models import moe, transformer
+    seen = {"attention": [], "ffn": [], "experts": []}
+    first = lambda out: out[0]
+    hooks = {(transformer, "mla_attention"): ("attention", first),
+             (transformer, "gqa_attention"): ("attention", first),
+             (transformer, "mlp"): ("ffn", lambda out: out),
+             (transformer, "moe_block"): ("ffn", first),
+             (moe, "_router"): ("experts", lambda out: out[2])}
+    saved = {key: getattr(*key) for key in hooks}
+
+    def wrap(key):
+        fn, (kind, pick) = saved[key], hooks[key]
+
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            seen[kind].append(pick(out))
+            return out
+        return run
+
+    for key in hooks:
+        setattr(*key, wrap(key))
+    try:
+        yield seen
+    finally:
+        for key, fn in saved.items():
+            setattr(*key, fn)
+
+
+def layer_diffs(mesh_steps, one_steps) -> dict:
+    """A MoE run's decodes, mesh against one card, from each side's
+    :func:`recorded_layers` of each step (whole batches): each layer's
+    attention and MLP/experts output, max abs difference over one card's
+    max abs, and the tokens whose top-k experts differ."""
+    import numpy as np
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+    out = {"attention": [], "ffn": [], "tokens_rerouted": []}
+    for got, want in zip(mesh_steps, one_steps):
+        for kind in ("attention", "ffn"):
+            out[kind].append([rel(a, b) for a, b in zip(got[kind],
+                                                        want[kind])])
+        out["tokens_rerouted"].append(sum(
+            int((np.sort(a, -1) != np.sort(b, -1)).any(-1).sum())
+            for a, b in zip(got["experts"], want["experts"])))
+    return out
+
+
+def serve_limits(dtype, logits, one_card_logits) -> Tuple[float, str]:
+    """(limit, its origin) of a sharded run in ``dtype`` against one card:
+    SERVE_LOGIT_RTOL, but where one card also served the arch in a wider
+    dtype in the same call (``one_card_logits``: {dtype: its logits}),
+    drawn from one card's own distance from that run (``logits``: one
+    card's in ``dtype``): in f32, twice its largest distance from f64; in
+    bf16, twice its largest drift from f32 plus DRIFT_FLOOR."""
+    wider = {"float32": "float64", "bfloat16": "float32"}.get(dtype)
+    if wider not in one_card_logits:
+        return SERVE_LOGIT_RTOL[dtype], "SERVE_LOGIT_RTOL"
+    far = max(rel_diffs(logits, one_card_logits[wider]))
+    if dtype == "float32":
+        return 2 * far, f"2 x one card's f32 vs f64 ({far:.3e})"
+    return (2 * far + DRIFT_FLOOR,
+            f"2 x one card's bf16 vs f32 ({far:.3e}) + {DRIFT_FLOOR}")
 
 
 def rel_diffs(got, want) -> list:
@@ -514,13 +852,17 @@ def rank_main(rank: int, world: int, store: str, device: str,
     import torch.distributed as dist
     from repro_torch.launch.mesh import init_process_group
 
+    # f32 matmuls and convolutions in f32, not TF32, as chip_smoke.py
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     init_process_group(device, init_method=store, rank=rank,
                        world_size=world)
     # one card runs the baselines alone
     runs = [r for r in RUNS if (archs is None or r[0] in archs)
             and (world > 1 or r[1] is None)]
-    serve_runs = [r for r in SERVE_RUNS if (archs is None or r[0] in archs)
-                  and world > 1]
+    # one card alone serves each run on it alone (a MoE's with its
+    # split control)
+    serve_runs = [r for r in SERVE_RUNS if archs is None or r[0] in archs]
     # rank 0's failed checks: every run still runs (the ranks' collectives
     # stay in step), and the tool exits non-zero after the last
     rows, one_card, first_grads, failed = [], {}, {}, []
@@ -529,9 +871,11 @@ def rank_main(rank: int, world: int, store: str, device: str,
             key = (arch, dtype)
             compare = any(r[0] == arch and r[1] is None and r[3] == dtype
                           for r in runs)
+            yard = (first_grads.get((arch, "float64"))
+                    if dtype != "float64" and mesh_kind is None else None)
             row, first = one_run(arch, mesh_kind, steps, dtype, rank, world,
                                  device, smoke, compare=compare,
-                                 base=first_grads.get(key))
+                                 base=first_grads.get(key), yard=yard)
             if first is not None:
                 first_grads[key] = first
             dist.barrier()
@@ -542,10 +886,12 @@ def rank_main(rank: int, world: int, store: str, device: str,
             base = one_card.get(key) if mesh_kind is not None else None
             if mesh_kind is None:
                 one_card[key] = row
+                exact = one_card.get((arch, "float64"))
+                if exact is not None and exact is not row:
+                    row["loss_rel_diff_vs_f64"] = rel_losses(row, exact)
             if base is not None:
-                rel = [abs(a - b) / abs(b)
-                       for a, b in zip(row["losses"], base["losses"])]
-                rtol = LOSS_RTOL[row["dtype"]]
+                rel = rel_losses(row, base)
+                rtol, grad_rtol = f64_limits(row["dtype"], base)
                 row["loss_rel_diff_vs_one_card"] = rel
                 row["loss_rtol"] = rtol
                 if max(rel) > rtol:
@@ -558,38 +904,54 @@ def rank_main(rank: int, world: int, store: str, device: str,
                     failed.append(f"{row['arch']} {row['mesh']}: peak "
                                   f"{row['peak_gib_by_rank']} GiB, one "
                                   f"card {base['peak_gib_by_rank']}")
+                row["first_grad_rtol_by_leaf"] = grad_rtol
                 off = {k: v for k, v in
                        row["first_grad_rel_err_by_leaf"].items()
-                       if v > GRAD_RTOL}
+                       if v > grad_rtol.get(k, GRAD_RTOL)}
                 if row["dtype"] == "float32" and off:
                     failed.append(f"{row['arch']} {row['mesh']} float32: "
                                   f"first gradient off one card's: {off}")
             rows.append(row)
             print(json.dumps({"fsdp_train": row}), flush=True)
+        if world == 1 and (archs is None or SWEEP_ARCH in archs):
+            for row in depth_sweep(SWEEP_ARCH, device, smoke):
+                rows.append(row)
+                print(json.dumps({"fsdp_depth": row}), flush=True)
+        # {arch: {dtype: one card's logits}}: the wider runs' logits that
+        # a narrower run's limit and distances are drawn from
         one_card_logits = {}
         for arch, cut in serve_runs:
-            base, logits, served = serve_run(arch, cut, rank, world, device,
-                                             smoke)
+            base, logits, served, got = serve_run(arch, cut, rank, world,
+                                                  device, smoke)
             dist.barrier()
             if device == "cuda":
                 torch.cuda.empty_cache()
             if rank != 0:
                 continue
-            # one card's logits against an earlier dtype's of the arch
-            for dtype, other in one_card_logits.get(arch, {}).items():
-                if dtype != base["dtype"]:
-                    base.setdefault("one_card_logits_rel_diff", {})[dtype] = \
-                        rel_diffs(other, logits)
-            one_card_logits.setdefault(arch, {})[base["dtype"]] = logits
-            rtol = SERVE_LOGIT_RTOL[served["dtype"]]
-            served["logits_rtol"] = rtol
+            wider = one_card_logits.setdefault(arch, {})
+            # one card's logits against each wider dtype's of the arch,
+            # and the mesh's against them
+            for row, mine in ((base, logits), (served, got)):
+                if row is not None:
+                    row["logits_rel_diff_vs_one_card_in"] = {
+                        dtype: rel_diffs(mine, other)
+                        for dtype, other in wider.items()
+                        if dtype != row["dtype"]}
             print(json.dumps({"fsdp_serve": base}), flush=True)
-            print(json.dumps({"fsdp_serve": served}), flush=True)
-            rows += [base, served]
-            if not max(served["logits_rel_diff_vs_one_card"]) <= rtol:
-                failed.append(f"sharded serving {served['arch']}: logits "
-                              f"{served['logits_rel_diff_vs_one_card']} off "
-                              f"one card's (limit {rtol})")
+            rows.append(base)
+            if served is not None:
+                rtol, origin = serve_limits(served["dtype"], logits, wider)
+                held = held_steps(base, served)
+                served.update(logits_rtol=rtol, logits_rtol_from=origin,
+                              logits_held_steps=held)
+                print(json.dumps({"fsdp_serve": served}), flush=True)
+                rows.append(served)
+                off = [served["logits_rel_diff_vs_one_card"][i] for i in held]
+                if off and not max(off) <= rtol:
+                    failed.append(f"sharded serving {served['arch']}: "
+                                  f"logits {off} off one card's at steps "
+                                  f"{held} (limit {rtol}: {origin})")
+            wider[base["dtype"]] = logits
         if rank == 0 and os.environ.get("FSDP_TRAIN_OUT"):
             with open(os.environ["FSDP_TRAIN_OUT"], "w") as f:
                 json.dump(rows, f, indent=1)
