@@ -138,9 +138,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    the live tree's, the first loss within 1e-6 of a run without the
    mesh, no hand kernel launched (neither has a backward); the bytes
    rank 0 holds for parameters, gradients and moments on the mesh must
-   equal the reference's placed bytes for the config's shapes.  Median
-   step ms, tokens/s, peak allocated GiB and the held and placed bytes
-   go on a ``{"train": ...}`` JSON line.
+   equal the reference's placed bytes for the config's shapes.  The
+   loop's step is donated: every step must return the parameters and
+   moments it was given, in their storage (``kept_storage``); one
+   donated and one undonated step from fresh weights are measured for
+   their peak, the donated one no higher.  Median step ms, tokens/s, the
+   run's peak allocated GiB beside the two steps', and the held and
+   placed bytes go on a ``{"train": ...}`` JSON line.
 
 12. dryrun — runs after phase 11: the dry-run slice.  (a) At world size
    1 (an NCCL group of one rank, the (1, 1) mesh), the dry-run's trace
@@ -172,6 +176,7 @@ JSON object describing each kernel and then
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -1819,9 +1824,12 @@ def phase_train(card: str, device: str = "cuda", smoke: bool = False):
     f64 oracle, and ``tp_matmul`` column then row at TP_MLP against the
     unsharded product; then ``launch.train.run`` at Qwen3-0.6B's full
     width (TRAIN: 6 steps, a checkpoint every 3), again to
-    TRAIN_RESUME_STEPS (resumes at 6, trains 3), and one step without
-    the mesh, whose loss must equal the first.  Returns the phase's
-    numbers and the kernels' launch counts of the two training runs.
+    TRAIN_RESUME_STEPS (resumes at 6, trains 3), every step keeping the
+    storage of its parameters and moments (the loop donates them), and
+    one step without the mesh, whose loss must equal the first; on the
+    card the peak of one donated and one undonated step.  Returns the
+    phase's numbers and the kernels' launch counts of the two training
+    runs.
     ``device="cpu", smoke=True`` rehearses it here: gloo, small GEMMs,
     the reduced config at 32 tokens."""
     import gc
@@ -1926,9 +1934,10 @@ def phase_train(card: str, device: str = "cuda", smoke: bool = False):
                 torch.cuda.reset_peak_memory_stats()
             ck = os.path.join(tmp, "ckpt")
             _reset_counts()
-            first = run(TrainConfig(ckpt_dir=ck, **train))
-            resumed = run(TrainConfig(ckpt_dir=ck, **dict(
-                train, steps=TRAIN_RESUME_STEPS)))
+            with kept_storage() as kept:
+                first = run(TrainConfig(ckpt_dir=ck, **train))
+                resumed = run(TrainConfig(ckpt_dir=ck, **dict(
+                    train, steps=TRAIN_RESUME_STEPS)))
             sync()
             counts = _read_counts()
             peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
@@ -1943,6 +1952,13 @@ def phase_train(card: str, device: str = "cuda", smoke: bool = False):
                   f"{len(resumed['losses'])} steps to {resumed['final_step']}")
             check(all(np.isfinite(v) for v in losses),
                   f"non-finite loss in {losses}")
+            check(kept["steps"] == TRAIN_RESUME_STEPS and not kept["moved"],
+                  f"the donated steps: {kept['steps']} steps, "
+                  f"{kept['moved']} parameters and moments returned in "
+                  f"other storage than they were given")
+            print(f"[train] the loop's {kept['steps']} donated steps kept "
+                  f"the storage of every parameter and moment | {card}",
+                  flush=True)
             check(not any(counts["gemm"].values())
                   and not counts["flash_path"],
                   f"training launched a hand kernel: {counts}")
@@ -1995,8 +2011,19 @@ def phase_train(card: str, device: str = "cuda", smoke: bool = False):
             check(rel <= TRAIN_LOSS_RTOL, f"first loss {first['losses'][0]}"
                   f" with the mesh, {plain['losses'][0]} without "
                   f"(rel {rel:.2e} > {TRAIN_LOSS_RTOL:.0e})")
+            step_peaks = None
             if on_card:
                 profile_training(card, cfg, train)
+                step_peaks = {("donated" if donate else "undonated"):
+                              one_step_peak(cfg, train, donate)
+                              for donate in (False, True)}
+                print(f"[train] peak allocated: the donated run "
+                      f"{peak:.3f} GiB; one step from fresh weights "
+                      f"(GiB, less the GiB held before it): "
+                      f"{step_peaks} | {card}", flush=True)
+                check(step_peaks["donated"][0]
+                      <= step_peaks["undonated"][0],
+                      f"a donated step's peak {step_peaks}")
             # the first step of each run builds cuBLAS's and autograd's
             # state: the median is over the others
             times = first["step_times"][1:] + resumed["step_times"][1:]
@@ -2012,7 +2039,8 @@ def phase_train(card: str, device: str = "cuda", smoke: bool = False):
                                                   first["step_times"]
                                                   + resumed["step_times"]],
                 median_step_ms=med * 1e3, tokens_per_s=tokens / med,
-                peak_gib=peak, launches=counts,
+                peak_gib=peak, step_peak_gib=step_peaks,
+                storage_kept_steps=kept["steps"], launches=counts,
                 checkpoint_keys=len(saved))
             print(f"[train] {cfg.name} {cfg.dtype} x{cfg.n_layers} layers "
                   f"({cfg.param_count() / 1e9:.2f} B params), batch "
@@ -2539,6 +2567,71 @@ def profile_training(card: str, cfg, train: dict):
     del params, state, batch
     gc.collect()
     torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def kept_storage():
+    """Within it, each train step that ``launch.train.run`` builds is
+    watched: yields {"steps": the calls, "moved": the parameters,
+    moments and step counts that a call returned in other tensors or
+    storage than it was given}."""
+    from repro_torch.launch import train as T
+    from repro_torch.tree import tree_flatten
+    make = T.make_train_step
+    seen = {"steps": 0, "moved": 0}
+
+    def leaves(params, state):
+        return tree_flatten({"params": params, "opt": state})[1]
+
+    def watched_make(*args, **kw):
+        step, model = make(*args, **kw)
+
+        def watched(params, state, *a, **k):
+            given = [(t, t.data_ptr()) for t in leaves(params, state)]
+            out = step(params, state, *a, **k)
+            seen["steps"] += 1
+            seen["moved"] += sum(t is not o or o.data_ptr() != ptr for
+                                 (t, ptr), o in zip(given,
+                                                    leaves(*out[:2])))
+            return out
+        return watched, model
+
+    T.make_train_step = watched_make
+    try:
+        yield seen
+    finally:
+        T.make_train_step = make
+
+
+def one_step_peak(cfg, train: dict, donate: bool):
+    """(peak allocated GiB, GiB held before) of one train step at phase
+    11's size from fresh weights with no mesh, its update donated or
+    not, the weights, moments and batch made after the peak's reset."""
+    import gc
+
+    import torch
+    from repro_torch.data import DataConfig, batch_at_step
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import NO_MESH
+    from repro_torch.optim import adamw
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step, model = make_train_step(cfg, NO_MESH, donate=donate)
+    params = model.init(train["seed"], device="cuda")
+    state = adamw.init_state(params)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_at_step(
+        DataConfig(cfg.vocab_size, train["seq_len"], train["global_batch"],
+                   seed=train["seed"]), 0).items()}
+    params, state, m = step(params, state, batch)
+    float(m["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    del params, state, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak / 2 ** 30, held / 2 ** 30
 
 
 def _reset_counts():

@@ -49,7 +49,10 @@ def _to_numpy(leaf) -> np.ndarray:
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.cpu().numpy()
+        # a copy, never a view of the leaf (a CPU tensor's ``.cpu()`` is
+        # itself): the train loop updates its tree in place while an
+        # async save may still be writing this step's values
+        return t.to("cpu", copy=True).numpy()
     return np.asarray(leaf)
 
 

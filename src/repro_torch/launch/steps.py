@@ -220,11 +220,18 @@ def make_grad_step(cfg: ModelConfig, rules: MeshRules):
 
 
 def make_train_step(cfg: ModelConfig, rules: MeshRules,
-                    opt_cfg: Optional[adamw.AdamWConfig] = None):
+                    opt_cfg: Optional[adamw.AdamWConfig] = None,
+                    donate: bool = False):
     """(train_step, model).  ``train_step(params, opt_state, batch,
     global_batch=None)`` takes this rank's batch and returns (params,
     opt_state, metrics): :func:`make_grad_step`'s gradients, then AdamW
-    on each rank's blocks, clipped by the global gradient's norm."""
+    on each rank's blocks, clipped by the global gradient's norm.  With
+    ``donate`` (the train loop's, as the reference's ``run`` jits the
+    step with ``donate_argnums=(0, 1)``) the update writes the new
+    parameters and moments into the tensors of ``params`` and
+    ``opt_state`` and returns them; the caller must not read the
+    pre-step values from them.  Otherwise it is functional, as the
+    reference's ``step_fn`` is."""
     grad_step, model = make_grad_step(cfg, rules)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
 
@@ -232,7 +239,7 @@ def make_train_step(cfg: ModelConfig, rules: MeshRules,
         grads, loss, aux = grad_step(params, batch, global_batch)
         params, opt_state, opt_metrics = adamw.apply_updates(
             opt_cfg, params, grads, opt_state,
-            placements=model.placements())
+            placements=model.placements(), donate=donate)
         metrics = {"loss": loss, **aux, **opt_metrics}
         return params, opt_state, metrics
 

@@ -16,7 +16,11 @@ Under the mesh every rank holds its blocks of the parameters, gradients
 and AdamW moments at the reference's placements (FSDP on "data",
 tensor-parallel on "model"); a checkpoint holds the whole arrays, so a
 run resumes on any mesh.  Parameters and state live on ``device``: the
-card unless the caller asks for the CPU.
+card unless the caller asks for the CPU.  As the reference's ``run``
+donates its tree to the jitted step, the loop's step updates the
+parameters and moments in the tensors that hold them
+(``make_train_step(..., donate=True)``): a step holds no second copy of
+them, and a checkpoint copies what it saves before the next step.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -97,7 +101,7 @@ def run(tc: TrainConfig) -> dict:
 
     opt_cfg = adamw.AdamWConfig(lr=tc.lr, total_steps=tc.steps,
                                 warmup_steps=max(1, tc.steps // 10))
-    step_fn, model = make_train_step(cfg, rules, opt_cfg)
+    step_fn, model = make_train_step(cfg, rules, opt_cfg, donate=True)
 
     params = model.init(tc.seed, device=tc.device)
     opt_state = adamw.init_state(params)
@@ -157,7 +161,9 @@ def run(tc: TrainConfig) -> dict:
                 if not np.isfinite(loss):
                     raise FloatingPointError(f"non-finite loss at {step}")
             except (FloatingPointError, RuntimeError) as e:
-                # crash retry: roll back to the last checkpoint
+                # crash retry: roll back to the last checkpoint (the
+                # donated tree may hold the failed step's update; the
+                # restore reads only its leaves' shapes, dtypes, devices)
                 if ckpt is None or ckpt.latest_step() is None:
                     raise
                 print(f"[train] step {step} failed ({e}); rolling back")

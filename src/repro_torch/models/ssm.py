@@ -255,6 +255,14 @@ def mamba_block(cfg, p: dict, x: torch.Tensor, rules: MeshRules, *,
                      if make_state else None)
 
     y = _gated_norm(y, z, p["norm"], cfg.norm_eps, rules, n, di)
+    return _out_proj(y, p["out_proj"], rules, n, di), new_state
+
+
+def _out_proj(y: torch.Tensor, w: torch.Tensor, rules: MeshRules, n: int,
+              features: int) -> torch.Tensor:
+    """The mixer's output projection ``y @ w``: one product where this
+    rank holds every head (n == 1), else its rows' partial, all-reduced
+    (``layers.row_parallel_matmul``)."""
     if n == 1:
-        return y @ p["out_proj"], new_state
-    return row_parallel_matmul(y, p["out_proj"], rules, di), new_state
+        return y @ w
+    return row_parallel_matmul(y, w, rules, features)

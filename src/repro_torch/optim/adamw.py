@@ -5,7 +5,9 @@ parallel all-reduce.
 The counterpart of the reference's ``optim/adamw.py``.  Trees are
 nested dicts of tensors (``repro_torch.tree``); an update builds new
 tensors under ``torch.no_grad()`` and returns new trees, as the
-reference's functional update does.  The scalar arithmetic (schedule,
+reference's functional update does, or, donated (the train loop's, as
+the reference's ``run`` jits its step with ``donate_argnums=(0, 1)``),
+writes each leaf's new values into the tensors that held the old ones.  The scalar arithmetic (schedule,
 bias corrections, clip scale) runs in float32 tensors on the step's
 device, as the reference's runs in float32 arrays.
 
@@ -107,12 +109,20 @@ def global_norm(tree: Any, placements: Any = None) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _clip_scale(max_norm: float, norm: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+
+
+def _clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (wide(g) * scale).to(g.dtype)
+
+
 @torch.no_grad()
 def clip_by_global_norm(grads: Any, max_norm: float, placements: Any = None
                         ) -> Tuple[Any, torch.Tensor]:
     norm = global_norm(grads, placements)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return tree_map(lambda g: (wide(g) * scale).to(g.dtype), grads), norm
+    scale = _clip_scale(max_norm, norm)
+    return tree_map(lambda g: _clipped(g, scale), grads), norm
 
 
 def _bias_corrections(cfg: AdamWConfig, step: torch.Tensor):
@@ -129,17 +139,25 @@ def _leaves_like(params: Any, *trees):
 
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
-                  placements: Any = None) -> Tuple[Any, dict, dict]:
+                  placements: Any = None, donate: bool = False
+                  ) -> Tuple[Any, dict, dict]:
     """One AdamW step (``placements``: the parameters', under a mesh).
-    Returns (new_params, new_state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, placements)
+    Returns (new_params, new_state, metrics).  Each leaf's gradient is
+    clipped by the global norm, then its new parameter and moments are
+    computed; with ``donate`` they are written into ``params``' and
+    ``state``'s tensors before the next leaf's (so one leaf's
+    temporaries are alive at a time, and no second tree), the step count
+    too, and ``params`` and ``state`` themselves are returned, bitwise
+    what the undonated step returns."""
+    gnorm = global_norm(grads, placements)
+    scale = _clip_scale(cfg.grad_clip, gnorm)
     step = state["step"] + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     bc1, bc2 = _bias_corrections(cfg, step)
 
     def upd(p, g, m, v):
-        gf = wide(g)
+        gf = wide(_clipped(g, scale))
         m2 = b1 * m + (1 - b1) * gf
         v2 = b2 * v + (1 - b2) * gf * gf
         mh = m2 / bc1
@@ -151,12 +169,18 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
 
     paths, flat_p, (flat_g, flat_m, flat_v) = _leaves_like(
         params, grads, state["m"], state["v"])
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    if donate:
+        for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+            for old, new in zip((p, m, v), upd(p, g, m, v)):
+                old.copy_(new)
+        state["step"].copy_(step)
+        return params, state, metrics
     out = [upd(p, g, m, v) for p, g, m, v
            in zip(flat_p, flat_g, flat_m, flat_v)]
     new_p = tree_unflatten(paths, [o[0] for o in out])
     new_m = tree_unflatten(paths, [o[1] for o in out])
     new_v = tree_unflatten(paths, [o[2] for o in out])
-    metrics = {"grad_norm": gnorm, "lr": lr}
     return new_p, {"m": new_m, "v": new_v, "step": step}, metrics
 
 

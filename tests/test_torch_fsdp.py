@@ -656,8 +656,10 @@ def test_four_card_tool_rehearses_in_gloo_ranks(tmp_path):
     """``tools/fsdp_train.py --device cpu`` (the four-card runs at the
     reduced configs, in four gloo ranks) exits 0 with one line a run:
     one rank, Qwen3 on (4, 1) and (2, 2), OLMoE on (4, 1), Mamba2 on
-    one rank in f64, then on one rank, (4, 1) and (2, 2) in its config's
-    dtype and in f32; on every mesh a rank holds the reference's placed
+    one rank in f64, then on one rank, its two one-rank controls (its
+    batch's four row blocks; out_proj as two rounded row-block partials),
+    (4, 1) and (2, 2) in its config's dtype, and one rank, (4, 1) and
+    (2, 2) in f32; on every mesh a rank holds the reference's placed
     bytes, less than one rank holds, and its collective bytes a step are
     printed by mesh axis, and its first gradient, gathered, is one
     rank's leaf by leaf, as is the mean of the gradients of one rank's
@@ -687,17 +689,27 @@ def test_four_card_tool_rehearses_in_gloo_ranks(tmp_path):
     assert [(r["arch"].split("-")[0], r["mesh"]) for r in rows] == [
         ("qwen3", [1, 1]), ("qwen3", [4, 1]), ("qwen3", [2, 2]),
         ("olmoe", [4, 1]), ("mamba2", [1, 1]), ("mamba2", [1, 1]),
+        ("mamba2", [1, 1]), ("mamba2", [1, 1]),
         ("mamba2", [4, 1]), ("mamba2", [2, 2]), ("mamba2", [1, 1]),
         ("mamba2", [4, 1]), ("mamba2", [2, 2])]
     assert [r["dtype"] for r in rows] == ["float32"] * 4 + ["float64"] + [
-        "float32"] * 6
+        "float32"] * 8
+    assert [r.get("control") for r in rows[5:8]] == [None, "split",
+                                                     "rounded"]
+    for r in rows[6:8]:
+        # a control is one rank's arithmetic in another order: held to
+        # no limit of its own, but within f32 rounding of one rank here
+        assert r["bytes"] == rows[5]["bytes"]
+        assert r["collective_bytes_per_step_by_axis"] == {}
+        assert "loss_rtol" not in r
+        assert max(r["loss_rel_diff_vs_one_card"]) <= 1e-4
     for r in rows:
         for held, placed in r["bytes"].values():
             assert held == placed, r
     for r in rows[1:3]:
         assert r["bytes"]["params"][0] < rows[0]["bytes"]["params"][0]
         assert max(r["loss_rel_diff_vs_one_card"]) <= r["loss_rtol"] == 1e-4
-    for base, meshes in ((rows[5], rows[6:8]), (rows[8], rows[9:])):
+    for base, meshes in ((rows[5], rows[8:10]), (rows[10], rows[11:])):
         assert max(base["first_grad_f64_rel_err_by_leaf"].values()) <= 1e-4
         assert max(base["first_grad_split_f64_rel_err_by_leaf"].values()
                    ) <= 1e-4
@@ -708,15 +720,15 @@ def test_four_card_tool_rehearses_in_gloo_ranks(tmp_path):
             assert r["first_grad_rtol_by_leaf"] == {
                 k: 2 * v for k, v in
                 base["first_grad_f64_rel_err_by_leaf"].items()}
-    for r in rows[1:3] + rows[6:8] + rows[9:]:
+    for r in rows[1:3] + rows[6:10] + rows[11:]:
         errs = r["first_grad_rel_err_by_leaf"]
         assert errs and max(errs.values()) <= 1e-4, errs
-    for r in (rows[0], rows[4], rows[5], rows[8]):
+    for r in (rows[0], rows[4], rows[5], rows[10]):
         errs = r["first_grad_split_rel_err_by_leaf"]
         assert errs and max(errs.values()) <= 1e-4, errs
-    for r in (rows[1], rows[6], rows[9]):
+    for r in (rows[1], rows[8], rows[11]):
         assert set(r["collective_bytes_per_step_by_axis"]) == {"data"}
-    for r in (rows[2], rows[7], rows[10]):
+    for r in (rows[2], rows[9], rows[12]):
         assert set(r["collective_bytes_per_step_by_axis"]) == {"data",
                                                                "model"}
     served = [json.loads(line)["fsdp_serve"]
@@ -774,7 +786,7 @@ def test_one_card_tool_runs_the_depth_sweep_and_the_moe_split_control(
         tmp_path):
     """``tools/fsdp_train.py --device cpu --cards 1 --archs
     mamba2_780m,deepseek_v3_671b`` runs Mamba2's one-rank baselines (f64
-    first) and then the depth sweep: at each depth one batch's f32
+    first) and its two one-rank controls, and then the depth sweep: at each depth one batch's f32
     gradient and the mean of its four row blocks' f32 gradients, each
     against the f64 gradient leaf by leaf, and the two f32 gradients
     against each other; at the reduced config all within f32 rounding,
@@ -794,8 +806,10 @@ def test_one_card_tool_runs_the_depth_sweep_and_the_moe_split_control(
     rows = [json.loads(line)["fsdp_train"]
             for line in proc.stdout.splitlines()
             if line.startswith('{"fsdp_train"')]
-    assert [(r["mesh"], r["dtype"]) for r in rows] == [
-        ([1, 1], "float64"), ([1, 1], "float32"), ([1, 1], "float32")]
+    assert [(r["mesh"], r["dtype"], r.get("control")) for r in rows] == [
+        ([1, 1], "float64", None), ([1, 1], "float32", None),
+        ([1, 1], "float32", "split"), ([1, 1], "float32", "rounded"),
+        ([1, 1], "float32", None)]
     depth = [json.loads(line)["fsdp_depth"]
              for line in proc.stdout.splitlines()
              if line.startswith('{"fsdp_depth"')]

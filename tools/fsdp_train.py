@@ -25,8 +25,16 @@ in a temp dir) and runs, each rank on its rows of every global batch:
      against the mean of its SPLIT_BLOCKS row blocks' (a data split with
      no collective), and both against the f64 baseline's first gradient,
      and its losses against the f64 ones.  Where the f64 yardstick ran,
-     an f32 mesh run's limits are drawn from it (:func:`f64_limits`).
-     ``--cards 1`` runs the one-card baselines alone, then the depth
+     an f32 mesh run's limits are drawn from it.  Two bf16 controls run
+     on one card before the meshes, each the mesh's own arithmetic with
+     no collective: "split" trains on the mean of its batch's
+     SPLIT_BLOCKS row blocks' gradients, summed in bf16 as the (cards,
+     1) mesh's reduce-scatter sums them; "rounded" computes each mixer's
+     ``out_proj`` as the ROW_PARTS row-block partials of a 2-way model
+     axis, each rounded to bf16 before their sum, as the (cards / 2, 2)
+     mesh's row-parallel all-reduce does; a bf16 mesh run's loss limit
+     is drawn from its control (:func:`limits`).
+     ``--cards 1`` runs the one-card baselines and controls, then the depth
      sweep: the f64, f32 and f32 row-block-mean gradients of one batch
      at each of SWEEP_DEPTHS;
   5. a sharded prefill and DECODE_STEPS decodes on (cards / 2, 2) under
@@ -101,8 +109,9 @@ sys.path.insert(0, str(ROOT / "src"))
 RUNS = (("qwen3_0_6b", None, 5, None), ("qwen3_0_6b", "cards", 5, None),
         ("qwen3_0_6b", "half", 5, None), ("olmoe_1b_7b", "cards", 4, None),
         ("mamba2_780m", None, 5, "float64"),
-        ("mamba2_780m", None, 5, None), ("mamba2_780m", "cards", 5, None),
-        ("mamba2_780m", "half", 5, None),
+        ("mamba2_780m", None, 5, None), ("mamba2_780m", "split", 5, None),
+        ("mamba2_780m", "rounded", 5, None),
+        ("mamba2_780m", "cards", 5, None), ("mamba2_780m", "half", 5, None),
         ("mamba2_780m", None, 5, "float32"),
         ("mamba2_780m", "cards", 5, "float32"),
         ("mamba2_780m", "half", 5, "float32"))
@@ -113,18 +122,28 @@ SMOKE_SEQ, SMOKE_BATCH = 32, 4
 # another order (the batch split over ranks, the gradients'
 # reduce-scatter), far below a bf16 spacing of 2**-8 relative; in f32
 # (the CPU rehearsal's configs too) the twins' 1e-4
-# (tests/test_torch_fsdp.py)
+# (tests/test_torch_fsdp.py).  Where the mesh's one-card control ran in
+# the same call (CONTROL_OF), a bf16 run is held instead to twice the
+# control's own largest loss distance from one card's: 48 bf16 layers
+# of Mamba2 carry a rounding that the mesh's sums in another order move
+# by more than 1e-3 (its (4, 1) and (2, 2) runs read 1.59e-3 and
+# 2.00e-3 on H100s), and the control shows how far that arithmetic
+# alone moves them
 LOSS_RTOL = {"bfloat16": 1e-3, "float32": 1e-4}
 # the first gradient against one card's, normwise a leaf, in f32: the
 # gloo twins' limit (tests/test_torch_tensor_parallel_mixers.py); where
 # the arch's f64 baseline ran in the same call, an f32 mesh run is held
 # instead to twice one card's own f32 distance from f64, leaf by leaf,
 # and its losses to twice one card's f32 losses' distance from the f64
-# ones (f64_limits): a mesh whose f32 result is as close to the exact
+# ones (limits): a mesh whose f32 result is as close to the exact
 # one as one card's is within twice that of one card's
 GRAD_RTOL = 1e-4
-# the row blocks of the one-card baseline's data-split control
-SPLIT_BLOCKS = 4
+# the row blocks of the one-card baseline's data-split control (a (4, 1)
+# mesh's data ranks), and the row-block partials of the "rounded"
+# control's out_proj (a 2-way model axis's)
+SPLIT_BLOCKS, ROW_PARTS = 4, 2
+# the one-card control of each mesh kind, in bf16
+CONTROL_OF = {"cards": "split", "half": "rounded"}
 # --cards 1: the depths at which the depth sweep takes one batch's f64,
 # f32 and f32 row-block-mean gradients (Mamba2's published depth last)
 SWEEP_ARCH, SWEEP_DEPTHS, SMOKE_SWEEP_DEPTHS = ("mamba2_780m",
@@ -261,15 +280,64 @@ def split_mean(grad_step, params, batch, leaves):
     return out
 
 
+def split_grad_step(grad_step):
+    """``grad_step`` over the SPLIT_BLOCKS row blocks of the batch, on
+    this card with no collective: the mean of their gradients, summed
+    in the gradients' dtype (bf16 in a bf16 model, as a (SPLIT_BLOCKS,
+    1) mesh's reduce-scatter sums them), and of their losses."""
+    import torch
+    from repro_torch.tree import tree_map
+
+    def step(params, batch, global_batch=None):
+        total = losses = None
+        for blk in range(SPLIT_BLOCKS):
+            part = {k: v.chunk(SPLIT_BLOCKS)[blk] for k, v in batch.items()}
+            grads, loss, _ = grad_step(params, part)
+            total = grads if total is None else tree_map(torch.add, total,
+                                                         grads)
+            losses = loss if losses is None else losses + loss
+        return (tree_map(lambda g: g / SPLIT_BLOCKS, total),
+                losses / SPLIT_BLOCKS, {})
+    return step
+
+
+@contextlib.contextmanager
+def rounded_partials(rounded: bool = True):
+    """Within it, a Mamba2 mixer whose heads are all on this rank
+    computes ``out_proj`` as the ROW_PARTS row-block partials of a
+    model axis of ROW_PARTS ranks: each the product of its rows with an
+    f32 accumulator, rounded to the activations' dtype, then summed in
+    it, as ``layers.row_parallel_matmul`` and the all-reduce after it
+    do (``rounded=False``: the plain product)."""
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import wide
+    plain = ssm._out_proj
+
+    def partials(y, w, rules, n, features):
+        if n > 1 or not rounded:
+            return plain(y, w, rules, n, features)
+        parts = [(wide(yb) @ wide(wb)).to(y.dtype) for yb, wb in
+                 zip(y.chunk(ROW_PARTS, -1), w.chunk(ROW_PARTS, 0))]
+        return sum(parts[1:], parts[0])
+
+    ssm._out_proj = partials
+    try:
+        yield
+    finally:
+        ssm._out_proj = plain
+
+
 def one_run(arch, mesh_kind, steps, dtype, rank, world, device, smoke,
             compare=False, base=None, yard=None):
     """This rank's part of one run: (the numbers rank 0 prints, the
     first gradient by leaf on the host where this is a baseline that
-    ``compare`` says a later run compares with).  ``base``: rank 0's
-    baseline gradients, against which a mesh run's first gradient,
-    gathered, is held leaf by leaf; ``yard``: the f64 baseline's first
-    gradient, against which a baseline's and its data-split control's
-    are held leaf by leaf."""
+    ``compare`` says a later run compares with).  ``mesh_kind``: None
+    (one card), "cards", "half" (the meshes) or a one-card control
+    ("split", "rounded": CONTROL_OF).  ``base``: rank 0's baseline
+    gradients, against which a mesh run's or a control's first
+    gradient, gathered, is held leaf by leaf; ``yard``: the f64
+    baseline's first gradient, against which a baseline's and its
+    data-split mean's are held leaf by leaf."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -289,7 +357,8 @@ def one_run(arch, mesh_kind, steps, dtype, rank, world, device, smoke,
     cfg = cfg.reduced() if smoke else cfg
     cfg = dataclasses.replace(cfg, dtype=dtype or cfg.dtype)
     seq, gb = (SMOKE_SEQ, SMOKE_BATCH) if smoke else (SEQ, GLOBAL_BATCH)
-    if mesh_kind is None:
+    alone = mesh_kind is None or mesh_kind in CONTROL_OF.values()
+    if alone:
         rules, shape = NO_MESH, (1, 1)
     else:
         mp = 1 if mesh_kind == "cards" else 2
@@ -300,14 +369,27 @@ def one_run(arch, mesh_kind, steps, dtype, rank, world, device, smoke,
            "layers": cfg.n_layers, "d_model": cfg.d_model,
            "params": cfg.param_count(), "seq_len": seq,
            "global_batch": gb}
-    if mesh_kind is None and rank != 0:
+    if mesh_kind in CONTROL_OF.values():
+        row["control"] = mesh_kind
+    if alone and rank != 0:
         return None, None
     if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     grad_step, model = S.make_grad_step(cfg, rules)
-    step, _ = S.make_train_step(cfg, rules, adamw.AdamWConfig(
-        total_steps=steps, warmup_steps=1))
+    opt_cfg = adamw.AdamWConfig(total_steps=steps, warmup_steps=1)
+    step, _ = S.make_train_step(cfg, rules, opt_cfg)
+    if mesh_kind == "split":
+        grad_step = split_grad_step(grad_step)
+
+        def step(params, state, batch, global_batch=None):
+            grads, loss, _ = grad_step(params, batch)
+            params, state, m = adamw.apply_updates(opt_cfg, params, grads,
+                                                   state)
+            return params, state, {"loss": loss, **m}
+    elif mesh_kind == "rounded":
+        grad_step, step = (_under(rounded_partials, f)
+                           for f in (grad_step, step))
     params = model.init(0, device=device)
     state = adamw.init_state(params)
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
@@ -377,7 +459,7 @@ def one_run(arch, mesh_kind, steps, dtype, rank, world, device, smoke,
         row["profile"] = profile_step(run)
         params, state = out["step"][0], out["step"][1]
     peaks = [peak]
-    if mesh_kind is not None:
+    if not alone:
         every = torch.zeros(world, dtype=torch.float64, device=device)
         every[rank] = peak
         dist.all_reduce(every)
@@ -396,23 +478,39 @@ def one_run(arch, mesh_kind, steps, dtype, rank, world, device, smoke,
     return row, first
 
 
+def _under(context, fn):
+    """``fn``, each call made within ``context()``."""
+    def run(*args, **kw):
+        with context():
+            return fn(*args, **kw)
+    return run
+
+
 def rel_losses(row, want) -> list:
     """Each step's loss against ``want``'s, relative."""
     return [abs(a - b) / abs(b) for a, b in zip(row["losses"],
                                                  want["losses"])]
 
 
-def f64_limits(dtype, base):
-    """(loss limit, {leaf: first-gradient limit}) of a mesh run in
-    ``dtype`` against one card's run ``base``: LOSS_RTOL and GRAD_RTOL,
-    but in f32 where ``base`` was held against the f64 baseline in the
-    same call: twice ``base``'s own distance from it (its largest loss
-    difference; its first gradient's, leaf by leaf)."""
+def limits(dtype, base, control=None):
+    """(loss limit, {leaf: first-gradient limit}, the limit's origin) of
+    a mesh run in ``dtype`` against one card's run ``base``: LOSS_RTOL
+    and GRAD_RTOL, but drawn from a run of the same call where there is
+    one: in f32 where ``base`` was held against the f64 baseline, twice
+    ``base``'s own distance from it (its largest loss difference; its
+    first gradient's, leaf by leaf); in bf16 where the mesh's one-card
+    ``control`` ran, twice the control's largest loss distance from
+    ``base`` (its first gradient's distance is printed, not held: in 48
+    bf16 layers one card's lies ~1 from f64 a stacked leaf)."""
     exact = base.get("first_grad_f64_rel_err_by_leaf")
-    if dtype != "float32" or not exact:
-        return LOSS_RTOL[dtype], {}
-    return (2 * max(base["loss_rel_diff_vs_f64"]),
-            {k: 2 * v for k, v in exact.items()})
+    if dtype == "float32" and exact:
+        return (2 * max(base["loss_rel_diff_vs_f64"]),
+                {k: 2 * v for k, v in exact.items()},
+                "2 x one card's f32 vs f64")
+    if dtype == "bfloat16" and control is not None:
+        return (2 * max(control["loss_rel_diff_vs_one_card"]), {},
+                f"2 x the {control['control']} control's")
+    return LOSS_RTOL[dtype], {}, "LOSS_RTOL"
 
 
 def depth_sweep(arch, device, smoke) -> list:
@@ -821,6 +919,8 @@ def trace(cards: int) -> None:
     shape = ShapeConfig("fsdp_train", SEQ, GLOBAL_BATCH, "train")
     with dryrun.fake_group(cards):
         for arch, mesh_kind, _, dtype in RUNS:
+            if mesh_kind in CONTROL_OF.values():
+                continue        # one card's step and memory
             cfg = get_config(arch)
             cfg = dataclasses.replace(cfg, dtype=dtype or cfg.dtype)
             mp = 1 if mesh_kind in (None, "cards") else 2
@@ -857,15 +957,17 @@ def rank_main(rank: int, world: int, store: str, device: str,
     torch.backends.cudnn.allow_tf32 = False
     init_process_group(device, init_method=store, rank=rank,
                        world_size=world)
-    # one card runs the baselines alone
+    # one card runs the baselines and controls alone
     runs = [r for r in RUNS if (archs is None or r[0] in archs)
-            and (world > 1 or r[1] is None)]
+            and (world > 1 or r[1] is None
+                 or r[1] in CONTROL_OF.values())]
     # one card alone serves each run on it alone (a MoE's with its
     # split control)
     serve_runs = [r for r in SERVE_RUNS if archs is None or r[0] in archs]
     # rank 0's failed checks: every run still runs (the ranks' collectives
     # stay in step), and the tool exits non-zero after the last
     rows, one_card, first_grads, failed = [], {}, {}, []
+    controls = {}       # {(arch, dtype, control): its row}
     try:
         for arch, mesh_kind, steps, dtype in runs:
             key = (arch, dtype)
@@ -884,6 +986,11 @@ def rank_main(rank: int, world: int, store: str, device: str,
             if rank != 0:
                 continue
             base = one_card.get(key) if mesh_kind is not None else None
+            if mesh_kind in CONTROL_OF.values():
+                controls[key + (mesh_kind,)] = row
+                if base is not None:
+                    row["loss_rel_diff_vs_one_card"] = rel_losses(row, base)
+                base = None     # a measurement, held to no limit
             if mesh_kind is None:
                 one_card[key] = row
                 exact = one_card.get((arch, "float64"))
@@ -891,14 +998,19 @@ def rank_main(rank: int, world: int, store: str, device: str,
                     row["loss_rel_diff_vs_f64"] = rel_losses(row, exact)
             if base is not None:
                 rel = rel_losses(row, base)
-                rtol, grad_rtol = f64_limits(row["dtype"], base)
+                control = controls.get(key + (CONTROL_OF[mesh_kind],))
+                rtol, grad_rtol, origin = limits(row["dtype"], base, control)
                 row["loss_rel_diff_vs_one_card"] = rel
-                row["loss_rtol"] = rtol
+                row.update(loss_rtol=rtol, loss_rtol_from=origin)
+                if control is not None:
+                    row["control_first_grad_rel_err_by_leaf"] = control[
+                        "first_grad_rel_err_by_leaf"]
                 if max(rel) > rtol:
                     failed.append(f"{row['arch']} {row['mesh']} "
                                   f"{row['dtype']}: losses {row['losses']} "
                                   f"vs one card {base['losses']} (rel "
-                                  f"{max(rel):.2e}, limit {rtol})")
+                                  f"{max(rel):.2e}, limit {rtol}: "
+                                  f"{origin})")
                 if device == "cuda" and not max(
                         row["peak_gib_by_rank"]) < base["peak_gib_by_rank"][0]:
                     failed.append(f"{row['arch']} {row['mesh']}: peak "
