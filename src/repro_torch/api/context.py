@@ -53,6 +53,7 @@ from ..core import task as taskmod
 from ..core.dtypes import (canonical_dtype, is_integer, promote_dtypes,
                            validate_backend_dtype)
 from ..core.runtime import BlasxRuntime, RuntimeConfig
+from ..core.spans import span
 from ..core.tiling import TiledMatrix, host_tensor
 from .futures import BlasFuture, SerialExecutor
 
@@ -529,12 +530,13 @@ class BlasxContext:
     def _fresh_out(self, rows: int, cols: int, tile: int, dtype,
                    seed: Optional[torch.Tensor] = None) -> MatrixHandle:
         """New output matrix under a fresh id (seeded from C or zeros)."""
-        if seed is not None:
-            data = seed.to(dtype=dtype, copy=True)
-        else:
-            data = torch.zeros((rows, cols), dtype=dtype)
-        mid = f"M{next(_MATRIX_IDS)}"
-        return MatrixHandle(self, TiledMatrix(mid, data, tile))
+        with span("blasx.gemm.out"):
+            if seed is not None:
+                data = seed.to(dtype=dtype, copy=True)
+            else:
+                data = torch.zeros((rows, cols), dtype=dtype)
+            mid = f"M{next(_MATRIX_IDS)}"
+            return MatrixHandle(self, TiledMatrix(mid, data, tile))
 
     def _invalidate_matrix(self, matrix_id: str) -> int:
         with self._lock:
@@ -819,9 +821,10 @@ class BlasxContext:
                                                               Bh.dtype)
             out = self._prep_c(C, (m, n), Ah.tile, out_dt, beta,
                                force=dt is not None)
-            tasks = taskmod.taskize_gemm(Ah.tiled.grid, Bh.tiled.grid,
-                                         out.tiled.grid, transa, transb,
-                                         alpha, beta)
+            with span("blasx.rt.plan"):
+                tasks = taskmod.taskize_gemm(Ah.tiled.grid, Bh.tiled.grid,
+                                             out.tiled.grid, transa, transb,
+                                             alpha, beta)
             mats = {h.matrix_id: h.tiled for h in (Ah, Bh, out)}
             self._run("gemm", tasks, mats, out.matrix_id, eph)
             return out
@@ -845,8 +848,9 @@ class BlasxContext:
             out_dt = dt if dt is not None else Ah.dtype
             out = self._prep_c(C, (n, n), Ah.tile, out_dt, beta,
                                force=dt is not None)
-            tasks = taskmod.taskize_syrk(Ah.tiled.grid, out.tiled.grid,
-                                         uplo, trans, alpha, beta)
+            with span("blasx.rt.plan"):
+                tasks = taskmod.taskize_syrk(Ah.tiled.grid, out.tiled.grid,
+                                             uplo, trans, alpha, beta)
             mats = {h.matrix_id: h.tiled for h in (Ah, out)}
             self._run("syrk", tasks, mats, out.matrix_id, eph)
             return out
@@ -873,9 +877,10 @@ class BlasxContext:
                                                               Bh.dtype)
             out = self._prep_c(C, (n, n), Ah.tile, out_dt, beta,
                                force=dt is not None)
-            tasks = taskmod.taskize_syr2k(Ah.tiled.grid, Bh.tiled.grid,
-                                          out.tiled.grid, uplo, trans,
-                                          alpha, beta)
+            with span("blasx.rt.plan"):
+                tasks = taskmod.taskize_syr2k(Ah.tiled.grid, Bh.tiled.grid,
+                                              out.tiled.grid, uplo, trans,
+                                              alpha, beta)
             mats = {h.matrix_id: h.tiled for h in (Ah, Bh, out)}
             self._run("syr2k", tasks, mats, out.matrix_id, eph)
             return out
@@ -917,8 +922,9 @@ class BlasxContext:
                                                               Bh.dtype)
             out = self._prep_c(C, (m, n), Ah.tile, out_dt, beta,
                                force=dt is not None)
-            tasks = taskmod.taskize_symm(Ah.tiled.grid, Bh.tiled.grid,
-                                         out.tiled.grid, uplo, alpha, beta)
+            with span("blasx.rt.plan"):
+                tasks = taskmod.taskize_symm(Ah.tiled.grid, Bh.tiled.grid,
+                                             out.tiled.grid, uplo, alpha, beta)
             mats = {h.matrix_id: h.tiled for h in (Ah, Bh, out)}
             self._run("symm", tasks, mats, out.matrix_id, eph)
             return out
@@ -958,9 +964,10 @@ class BlasxContext:
             out = self._fresh_out(m, n, Ah.tile, out_dt)
             # B's tiles are the taskization's Cin inputs: a reused handle
             # serves them straight from the warm cache.
-            tasks = taskmod.taskize_trmm(Ah.tiled.grid, Bh.tiled.grid,
-                                         out.tiled.grid, uplo, transa,
-                                         diag, alpha)
+            with span("blasx.rt.plan"):
+                tasks = taskmod.taskize_trmm(Ah.tiled.grid, Bh.tiled.grid,
+                                             out.tiled.grid, uplo, transa,
+                                             diag, alpha)
             mats = {h.matrix_id: h.tiled for h in (Ah, Bh, out)}
             self._run("trmm", tasks, mats, out.matrix_id, eph)
             return out
@@ -996,9 +1003,10 @@ class BlasxContext:
             out_dt = dt if dt is not None else promote_dtypes(Ah.dtype,
                                                               Bh.dtype)
             out = self._fresh_out(m, n, Ah.tile, out_dt)
-            tasks = taskmod.taskize_trsm(Ah.tiled.grid, Bh.tiled.grid,
-                                         out.tiled.grid, uplo, transa,
-                                         diag, alpha)
+            with span("blasx.rt.plan"):
+                tasks = taskmod.taskize_trsm(Ah.tiled.grid, Bh.tiled.grid,
+                                             out.tiled.grid, uplo, transa,
+                                             diag, alpha)
             mats = {h.matrix_id: h.tiled for h in (Ah, Bh, out)}
             self._run("trsm", tasks, mats, out.matrix_id, eph)
             return out

@@ -34,7 +34,10 @@ what a schedule lowers to, and its operand bytes are added to
 :data:`COLLECTIVE_BYTES` under the reference's HLO kind names (the
 dry-run's collective term, ``launch/roofline.py``); both are also kept
 by mesh axis (:data:`COLLECTIVES_BY_AXIS`, :data:`COLLECTIVE_BYTES_BY_AXIS`)
-for the groups taken through :func:`axis_group`.
+for the groups taken through :func:`axis_group`.  Beside them,
+:data:`PREP_BYTES` counts the bytes of the new tensors the GEMM's
+operand prep makes (padding, widening).  The ring GEMM's phases are
+named spans under a torch profiler (``core/spans.py``).
 
 The model stack's tensor-parallel pieces are here too: the Megatron
 pair :func:`replicated` / :func:`psum`, and the vocab-parallel
@@ -49,6 +52,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from .spans import span
+
 # collectives issued since the last reset, by kind; "p2p" counts ring
 # hops (one send and one receive a rank)
 COLLECTIVES = {"p2p": 0, "all_gather": 0, "reduce_scatter": 0,
@@ -59,6 +64,12 @@ COLLECTIVES = {"p2p": 0, "all_gather": 0, "reduce_scatter": 0,
 # reference's convention for its collective term
 COLLECTIVE_BYTES = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0,
                     "all-to-all": 0, "collective-permute": 0}
+
+
+# bytes of the new tensors operand prep made since the last reset (a
+# pad or a widening; an operand prep hands on as it is counts nothing);
+# read it as ``distributed.PREP_BYTES``
+PREP_BYTES = 0
 
 
 # the same by mesh axis ({axis: {kind: n}}, {axis: {hlo kind: bytes}}):
@@ -72,6 +83,8 @@ _AXIS_OF: dict = {}
 
 
 def reset_collectives() -> None:
+    global PREP_BYTES
+    PREP_BYTES = 0
     for kind in COLLECTIVES:
         COLLECTIVES[kind] = 0
     for kind in COLLECTIVE_BYTES:
@@ -127,6 +140,15 @@ def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[0]))
 
 
+def _prepped(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """``new``, which operand prep made from ``old``: its bytes are
+    added to :data:`PREP_BYTES` unless it is ``old`` itself."""
+    global PREP_BYTES
+    if new is not old:
+        PREP_BYTES += new.numel() * new.element_size()
+    return new
+
+
 # ------------------------------------------------------------ collectives
 def _hop(send: torch.Tensor, group) -> tuple:
     """Post one ring hop: ``send`` to the next rank of ``group``, a
@@ -135,10 +157,11 @@ def _hop(send: torch.Tensor, group) -> tuple:
     d, idx = dist.get_world_size(group), dist.get_rank(group)
     nxt = dist.get_global_rank(group, (idx + 1) % d)
     prv = dist.get_global_rank(group, (idx - 1) % d)
-    recv = torch.empty_like(send)
-    reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send.contiguous(), nxt, group),
-        dist.P2POp(dist.irecv, recv, prv, group)])
+    with span("blasx.ring.hop"):
+        recv = torch.empty_like(send)
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send.contiguous(), nxt, group),
+            dist.P2POp(dist.irecv, recv, prv, group)])
     _count("p2p", "collective-permute", send, group)
     return recv, reqs
 
@@ -346,10 +369,12 @@ def ring_allgather_matmul(x_local: torch.Tensor, w_local: torch.Tensor,
             nxt, reqs = _hop(chunk, group)
         # the panel in hand originated at rank (idx - s) mod d
         slot = (idx - s) % d
-        y[slot * m_local:(slot + 1) * m_local] = _dot(chunk, w_acc)
+        with span("blasx.ring.block"):
+            y[slot * m_local:(slot + 1) * m_local] = _dot(chunk, w_acc)
         if reqs is not None:
-            for r in reqs:
-                r.wait()
+            with span("blasx.ring.wait"):
+                for r in reqs:
+                    r.wait()
             chunk = nxt
     return y
 
@@ -372,11 +397,14 @@ def ring_reduce_scatter_matmul(x_local: torch.Tensor, w_local: torch.Tensor,
     out_dtype = torch.promote_types(x_local.dtype, w_local.dtype)
     # both operands are widened once, not once a block
     acc_dtype = _acc_type(x_local.dtype, w_local.dtype)
-    x_acc = _pad_rows(x_local, mb * d).to(acc_dtype)
-    w_acc = w_local.to(acc_dtype)
+    with span("blasx.gemm.prep"):
+        x_pad = _prepped(_pad_rows(x_local, mb * d), x_local)
+        x_acc = _prepped(x_pad.to(acc_dtype), x_pad)
+        w_acc = _prepped(w_local.to(acc_dtype), w_local)
 
     def block(b):
-        return torch.matmul(x_acc[b * mb:(b + 1) * mb], w_acc)
+        with span("blasx.ring.block"):
+            return torch.matmul(x_acc[b * mb:(b + 1) * mb], w_acc)
 
     # start with the block that travels the whole ring (locality-first:
     # it is computed from the panel already on this rank)
@@ -384,10 +412,13 @@ def ring_reduce_scatter_matmul(x_local: torch.Tensor, w_local: torch.Tensor,
     for s in range(1, d):
         moved, reqs = _hop(acc, group)
         part = block((idx - 1 - s) % d)   # overlap: matmul vs hop
-        for r in reqs:
-            r.wait()
-        acc = moved + part
-    return acc.to(out_dtype)
+        with span("blasx.ring.wait"):
+            for r in reqs:
+                r.wait()
+        with span("blasx.ring.accumulate"):
+            acc = moved + part
+    with span("blasx.ring.accumulate"):
+        return acc.to(out_dtype)
 
 
 # ------------------------------------------------------- gspmd baselines
@@ -440,18 +471,22 @@ def distributed_gemm(A: torch.Tensor, B: torch.Tensor, mesh, *,
     rows, cols = axis_group(mesh, row_axis), axis_group(mesh, col_axis)
     m, k = A.shape
     mr, kc = -(-m // dr), -(-k // dc)
-    A = torch.nn.functional.pad(A, (0, kc * dc - k, 0, mr * dr - m))
-    B = _pad_rows(B, kc * dc)
-    a_blk = A[r * mr:(r + 1) * mr, c * kc:(c + 1) * kc]
-    b_blk = B[c * kc:(c + 1) * kc]
+    with span("blasx.gemm.prep"):
+        A = _prepped(torch.nn.functional.pad(
+            A, (0, kc * dc - k, 0, mr * dr - m)), A)
+        B = _prepped(_pad_rows(B, kc * dc), B)
+        a_blk = A[r * mr:(r + 1) * mr, c * kc:(c + 1) * kc]
+        b_blk = B[c * kc:(c + 1) * kc]
     if mode == "ring":
         y = ring_reduce_scatter_matmul(a_blk, b_blk, cols)
-        # the ring pads ragged row shards up to the next ring multiple
-        y = all_gather(y, cols)[:mr]
     else:
         y = all_reduce(_dot(a_blk, b_blk), cols).to(
             torch.promote_types(a_blk.dtype, b_blk.dtype))
-    return all_gather(y, rows)[:m]
+    with span("blasx.gemm.gather"):
+        if mode == "ring":
+            # the ring pads ragged row shards up to the next ring multiple
+            y = all_gather(y, cols)[:mr]
+        return all_gather(y, rows)[:m]
 
 
 def tp_matmul(x: torch.Tensor, w: torch.Tensor, mesh, *, axis: str = "model",

@@ -56,6 +56,7 @@ from .coherence import MesixDirectory
 from .dtypes import dtype_name, promote_dtypes
 from .events import EventEngine, TimedTask, TimedXfer
 from .heap import BlasxHeap
+from .spans import span
 from . import task as taskmod
 from .task import KIND_FIXUP, KIND_PARTIAL, Ledger, Task, TileRef
 from .taskqueue import ReadyQueue, ReservationStation
@@ -457,26 +458,28 @@ class BlasxRuntime:
         self.runs += 1
         if not tasks:
             return
-        if self.cfg.work_centric:
-            tasks = taskmod.plan_work_centric(
-                tasks, {mid: m.grid for mid, m in matrices.items()},
-                self.cfg.n_devices * self.cfg.effective_streams)
-        if self.cfg.stage_panels_on:
-            # pod tier: beyond-HBM tasks become panel-sized partials +
-            # fix-up so host panels stream through the cache hierarchy
-            # (runs after the work-centric planner; both skip non-owner
-            # tasks, so the two compose without double-splitting)
-            tasks = taskmod.plan_panel_staged(tasks, matrices,
-                                              self.cfg.cache_bytes)
-        self._matrices = matrices
-        self._out_id = out_id
-        if self.cfg.static_assignment:
-            queues = self._static_split(tasks)
-            self._queue = None
-            self._static_queues = queues
-        else:
-            self._queue = ReadyQueue(tasks)
-            self._static_queues = None
+        with span("blasx.rt.plan"):
+            if self.cfg.work_centric:
+                tasks = taskmod.plan_work_centric(
+                    tasks, {mid: m.grid for mid, m in matrices.items()},
+                    self.cfg.n_devices * self.cfg.effective_streams)
+            if self.cfg.stage_panels_on:
+                # pod tier: beyond-HBM tasks become panel-sized partials
+                # + fix-up so host panels stream through the cache
+                # hierarchy (runs after the work-centric planner; both
+                # skip non-owner tasks, so the two compose without
+                # double-splitting)
+                tasks = taskmod.plan_panel_staged(tasks, matrices,
+                                                  self.cfg.cache_bytes)
+            self._matrices = matrices
+            self._out_id = out_id
+            if self.cfg.static_assignment:
+                queues = self._static_split(tasks)
+                self._queue = None
+                self._static_queues = queues
+            else:
+                self._queue = ReadyQueue(tasks)
+                self._static_queues = None
         self._completed: Dict[int, float] = {}
         try:
             if self.cfg.mode == "threads":
@@ -742,24 +745,27 @@ class BlasxRuntime:
         compute_each: List[float] = []
         recs: List[_TaskExec] = []
         try:
-            for t in batch:
-                rec, secs = self._gather_task(d, t, acquired)
-                recs.append(rec)
-                comm_s += secs
-            if self.cfg.execute:
-                self._dispatch_steps(d, recs)
-            for rec in recs:
-                comm_s += self._finalize_task(d, rec)
-                compute_each.append(
-                    rec.task.flops / (d.speed * self.cfg.device_peak_flops))
-                d.ledger.tasks += 1
-                d.ledger.flops += rec.task.flops
-                if rec.task.kind == KIND_PARTIAL:
-                    d.ledger.partial_tasks += 1
-                    d.ledger.partial_flops += rec.task.flops
-                elif rec.task.kind == KIND_FIXUP:
-                    d.ledger.fixup_tasks += 1
-                    d.ledger.fixup_flops += rec.task.flops
+            with span("blasx.rt.gather"):
+                for t in batch:
+                    rec, secs = self._gather_task(d, t, acquired)
+                    recs.append(rec)
+                    comm_s += secs
+            with span("blasx.rt.dispatch"):
+                if self.cfg.execute:
+                    self._dispatch_steps(d, recs)
+            with span("blasx.rt.finalize"):
+                for rec in recs:
+                    comm_s += self._finalize_task(d, rec)
+                    compute_each.append(rec.task.flops / (
+                        d.speed * self.cfg.device_peak_flops))
+                    d.ledger.tasks += 1
+                    d.ledger.flops += rec.task.flops
+                    if rec.task.kind == KIND_PARTIAL:
+                        d.ledger.partial_tasks += 1
+                        d.ledger.partial_flops += rec.task.flops
+                    elif rec.task.kind == KIND_FIXUP:
+                        d.ledger.fixup_tasks += 1
+                        d.ledger.fixup_flops += rec.task.flops
         except BaseException:
             # a failing batch must not leave its acquired tiles pinned:
             # the readers would never hit the release below, permanently
