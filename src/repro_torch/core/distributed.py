@@ -18,6 +18,12 @@ rank is one eager process, and a mesh axis is a ``ProcessGroup``
 * **Locality-first scheduling (Eq. 3)**: every rank starts with the
   panel it already holds before touching remote panels.
 
+* **Slab pipeline**: ``distributed_gemm``'s ring splits a large row
+  group into slabs, each reduce-scattered by the ring in turn and then
+  all-gathered straight into its rows of the output while the next
+  slab's products run; only the last slab's last hop and gather are
+  left uncovered (:func:`_slabs` picks the count from the shape).
+
 The shard-level functions take this rank's local shards and a group:
 
   ``ring_allgather_matmul``      Y[m, n/d] = allgather_m(X[m/d, k]) @ W[k, n/d]
@@ -36,7 +42,8 @@ dry-run's collective term, ``launch/roofline.py``); both are also kept
 by mesh axis (:data:`COLLECTIVES_BY_AXIS`, :data:`COLLECTIVE_BYTES_BY_AXIS`)
 for the groups taken through :func:`axis_group`.  Beside them,
 :data:`PREP_BYTES` counts the bytes of the new tensors the GEMM's
-operand prep makes (padding, widening).  The ring GEMM's phases are
+operand prep makes (padding, widening), and :data:`RING_SLABS` the
+slabs ``distributed_gemm``'s ring ran.  The ring GEMM's phases are
 named spans under a torch profiler (``core/spans.py``).
 
 The model stack's tensor-parallel pieces are here too: the Megatron
@@ -71,6 +78,17 @@ COLLECTIVE_BYTES = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0,
 # read it as ``distributed.PREP_BYTES``
 PREP_BYTES = 0
 
+# row slabs distributed_gemm's ring ran since the last reset (one a call
+# where the shape gives no more); read it as ``distributed.RING_SLABS``
+RING_SLABS = 0
+
+# distributed_gemm's ring splits a row group into the most of _SLABS
+# slabs that keeps every product at least _SLAB_ROWS rows: on four
+# H100s at N 16384, 2 slabs of 2048-row products ran fastest, ahead of
+# 4 (1024 rows), 8 (512) and 1
+_SLABS = (4, 2, 1)
+_SLAB_ROWS = 2048
+
 
 # the same by mesh axis ({axis: {kind: n}}, {axis: {hlo kind: bytes}}):
 # a group taken through axis_group counts under its axis' name, any
@@ -83,8 +101,8 @@ _AXIS_OF: dict = {}
 
 
 def reset_collectives() -> None:
-    global PREP_BYTES
-    PREP_BYTES = 0
+    global PREP_BYTES, RING_SLABS
+    PREP_BYTES = RING_SLABS = 0
     for kind in COLLECTIVES:
         COLLECTIVES[kind] = 0
     for kind in COLLECTIVE_BYTES:
@@ -176,6 +194,15 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     if dim == 0:
         return out
     return torch.cat(out.chunk(d, dim=0), dim=dim)
+
+
+def _gather_into(out: torch.Tensor, x: torch.Tensor, group):
+    """Post the all-gather of the ranks' contiguous ``x`` into ``out``,
+    contiguous and ``d`` times ``x``'s rows, in rank order.  Returns
+    its request; ``out`` is valid after its ``wait``."""
+    work = dist.all_gather_into_tensor(out, x, group=group, async_op=True)
+    _count("all_gather", "all-gather", x, group)
+    return work
 
 
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
@@ -392,33 +419,78 @@ def ring_reduce_scatter_matmul(x_local: torch.Tensor, w_local: torch.Tensor,
     and the gathered output has ``d*ceil(m/d)`` rows whose tail is
     zeros; callers slice (``tp_matmul`` / ``distributed_gemm`` do).
     """
-    d, idx = dist.get_world_size(group), dist.get_rank(group)
+    x_acc, w_acc = _ring_operands(x_local, w_local, group)
+    (_, y), = _ring_pieces(x_acc, w_acc, group, 1,
+                           torch.promote_types(x_local.dtype, w_local.dtype))
+    return y
+
+
+def _ring_operands(x_local: torch.Tensor, w_local: torch.Tensor,
+                   group) -> tuple:
+    """The ring's operands: X's rows padded with zeros up to a multiple
+    of the ring, and both widened to the accumulation dtype, once, not
+    once a block."""
+    d = dist.get_world_size(group)
     mb = -(-x_local.shape[0] // d)
-    out_dtype = torch.promote_types(x_local.dtype, w_local.dtype)
-    # both operands are widened once, not once a block
     acc_dtype = _acc_type(x_local.dtype, w_local.dtype)
     with span("blasx.gemm.prep"):
         x_pad = _prepped(_pad_rows(x_local, mb * d), x_local)
         x_acc = _prepped(x_pad.to(acc_dtype), x_pad)
         w_acc = _prepped(w_local.to(acc_dtype), w_local)
+    return x_acc, w_acc
 
-    def block(b):
+
+def _ring_pieces(x_acc: torch.Tensor, w_acc: torch.Tensor, group,
+                 slabs: int, out_dtype: torch.dtype):
+    """The ring reduce-scatter of ``x_acc @ w_acc`` over ``group``, its
+    rows split into ``slabs`` contiguous slabs of S rows run as one
+    pipeline.  Yields ``(j, piece)`` for each slab j in turn: this
+    rank's rows ``j*S + idx*S/d`` .. of the sum, in ``out_dtype``,
+    launched but not finished.
+
+    Within a slab the accumulator's hop runs under the next block's
+    product; a slab's last hop is waited on only after the next slab's
+    first product has been launched, so no stream waits on a hop while
+    a product that could hide it is still to be launched.
+    """
+    d, idx = dist.get_world_size(group), dist.get_rank(group)
+    rows = x_acc.shape[0] // slabs
+    mb = rows // d
+
+    def block(j, b):
         with span("blasx.ring.block"):
-            return torch.matmul(x_acc[b * mb:(b + 1) * mb], w_acc)
+            lo = j * rows + b * mb
+            return torch.matmul(x_acc[lo:lo + mb], w_acc)
 
-    # start with the block that travels the whole ring (locality-first:
-    # it is computed from the panel already on this rank)
-    acc = block((idx - 1) % d)
-    for s in range(1, d):
-        moved, reqs = _hop(acc, group)
-        part = block((idx - 1 - s) % d)   # overlap: matmul vs hop
+    def arrived(moved, reqs, part):
         with span("blasx.ring.wait"):
             for r in reqs:
                 r.wait()
         with span("blasx.ring.accumulate"):
-            acc = moved + part
-    with span("blasx.ring.accumulate"):
-        return acc.to(out_dtype)
+            return moved + part
+
+    def finished(j, moved, reqs, part):
+        acc = part if moved is None else arrived(moved, reqs, part)
+        with span("blasx.ring.accumulate"):
+            return j, acc.to(out_dtype)
+
+    last = None     # the slab whose last hop is in flight
+    for j in range(slabs):
+        # start with the block that travels the whole ring (locality-
+        # first: it is computed from the panel already on this rank)
+        acc = block(j, (idx - 1) % d)
+        if last is not None:
+            yield finished(*last)
+            last = None     # its buffers go before this slab's next
+        moved = reqs = None
+        part = acc
+        for s in range(1, d):
+            if moved is not None:
+                acc = arrived(moved, reqs, part)
+            moved, reqs = _hop(acc, group)
+            part = block(j, (idx - 1 - s) % d)   # overlap: matmul vs hop
+        last = (j, moved, reqs, part)
+    yield finished(*last)
 
 
 # ------------------------------------------------------- gspmd baselines
@@ -458,11 +530,18 @@ def distributed_gemm(A: torch.Tensor, B: torch.Tensor, mesh, *,
 
     Every row group runs an independent K-reduction over ``col_axis``;
     with ``mode='ring'`` that reduction is the ring reduce-scatter GEMM
-    above, re-gathered over ``col_axis``.  Ragged shapes (M not
-    divisible by the row axis, K not by the column axis, or a row shard
-    not by the ring) are padded with zeros and the result sliced back to
-    ``(M, N)``.
+    above, re-gathered over ``col_axis``.  Where the row group's m_r
+    rows split into P > 1 slabs (:func:`_slabs`: P of 4, 2 whose
+    products keep at least 2048 rows), the ring runs them as one
+    pipeline, and each slab's piece is all-gathered over ``col_axis``
+    straight into its rows of one output while the next slab's products
+    run; the gathers are waited on at the end.  On a one-rank row axis
+    that output is C, so nothing is copied after the ring.  Ragged
+    shapes (M not divisible by the row axis, K not by the column axis,
+    or a row shard not by the ring) are padded with zeros and the
+    result sliced back to ``(M, N)``.
     """
+    global RING_SLABS
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}")
     shape = mesh_shape(mesh)
@@ -478,6 +557,14 @@ def distributed_gemm(A: torch.Tensor, B: torch.Tensor, mesh, *,
         a_blk = A[r * mr:(r + 1) * mr, c * kc:(c + 1) * kc]
         b_blk = B[c * kc:(c + 1) * kc]
     if mode == "ring":
+        slabs = _slabs(mr, dc)
+        RING_SLABS += slabs
+        if slabs > 1:
+            y = _slab_ring(a_blk, b_blk, cols, slabs)
+            if dr == 1:
+                return y
+            with span("blasx.gemm.gather"):
+                return all_gather(y, rows)[:m]
         y = ring_reduce_scatter_matmul(a_blk, b_blk, cols)
     else:
         y = all_reduce(_dot(a_blk, b_blk), cols).to(
@@ -487,6 +574,38 @@ def distributed_gemm(A: torch.Tensor, B: torch.Tensor, mesh, *,
             # the ring pads ragged row shards up to the next ring multiple
             y = all_gather(y, cols)[:mr]
         return all_gather(y, rows)[:m]
+
+
+def _slabs(rows: int, d: int) -> int:
+    """Slabs for the ring of a row group of ``rows`` rows over ``d``
+    ranks: the most of :data:`_SLABS` that divide it evenly into
+    ``slabs * d`` products of at least :data:`_SLAB_ROWS` rows each."""
+    return next(p for p in _SLABS
+                if p == 1 or (rows % (p * d) == 0
+                              and rows // (p * d) >= _SLAB_ROWS))
+
+
+def _slab_ring(x_local: torch.Tensor, w_local: torch.Tensor, group,
+               slabs: int) -> torch.Tensor:
+    """The sum over ``group`` of ``x_local @ w_local``, whole on every
+    rank: the ring's pieces of each of ``slabs`` row slabs all-gathered
+    over ``group`` into one output as they come, and waited on after the
+    last."""
+    x_acc, w_acc = _ring_operands(x_local, w_local, group)
+    out = x_acc.new_empty((x_acc.shape[0], w_acc.shape[1]),
+                          dtype=torch.promote_types(x_local.dtype,
+                                                    w_local.dtype))
+    rows = out.shape[0] // slabs
+    posted = []
+    for j, piece in _ring_pieces(x_acc, w_acc, group, slabs, out.dtype):
+        with span("blasx.gemm.gather"):
+            # the piece is held until its gather has been waited on
+            posted.append((piece, _gather_into(
+                out[j * rows:(j + 1) * rows], piece, group)))
+    with span("blasx.gemm.gather_wait"):
+        for _, work in posted:
+            work.wait()
+    return out
 
 
 def tp_matmul(x: torch.Tensor, w: torch.Tensor, mesh, *, axis: str = "model",

@@ -4,7 +4,9 @@ The counterpart of the reference's ``launch/mesh.py``.  The port runs
 one eager process a rank: :func:`init_process_group` joins this process
 to its group (NCCL on the card, gloo on the CPU), and the mesh builders
 return a ``torch.distributed.device_mesh.DeviceMesh`` with named dims
-over the group's ranks.  Functions, not module-level constants:
+over the group's ranks (on the card, each dim's NCCL group runs on a
+high-priority stream, so communication overlapped with compute is not
+held back behind it).  Functions, not module-level constants:
 importing this module touches no device and no process group.
 """
 from __future__ import annotations
@@ -59,7 +61,16 @@ def _mesh(device: str, shape: Tuple[int, ...], axes: Tuple[str, ...]):
     if n != dist.get_world_size():
         raise ValueError(f"a {shape} mesh needs {n} ranks, the process "
                          f"group has {dist.get_world_size()}")
-    return init_device_mesh(device, shape, mesh_dim_names=axes)
+    override = None
+    if device == "cuda":
+        # every axis' NCCL kernels on a high-priority stream: a hop or a
+        # gather posted under a product gets SMs before the product's
+        # waiting blocks, instead of waiting for them to drain
+        opts = dist.ProcessGroupNCCL.Options()
+        opts.is_high_priority_stream = True
+        override = {axis: ("nccl", opts) for axis in axes}
+    return init_device_mesh(device, shape, mesh_dim_names=axes,
+                            backend_override=override)
 
 
 def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):

@@ -4,8 +4,9 @@
 Starts one process a card (NCCL; the rendezvous is a ``file://`` store
 in a temp dir), builds a (1, n) (data, model) mesh, and on the model
 axis times ``distributed_gemm`` in ring and gspmd modes beside the two
-parts of the ring alone: its n row-block products with no hop, and its
-n - 1 hops of an accumulator block with no product.  Each result is
+parts of the ring alone: its row-block products with no hop, and its
+hops of an accumulator block with no product, n - 1 a row slab (the
+ring's ``ring_slabs``, from the shape).  Each result is
 checked against an f64 oracle on the card (the reference's 1e-3 limit
 at its K = 128, scaled by sqrt(K / 128)); a result past its limit
 exits non-zero.  Prints one JSON line per dtype from rank 0.  Needs
@@ -85,6 +86,7 @@ def rank_main(rank: int, world: int, store: str, n: int,
                 c = D.distributed_gemm(a, b, mesh, mode=mode)
                 sync()
                 row[f"{mode}_collectives"] = dict(D.COLLECTIVES)
+                row[f"{mode}_slabs"] = D.RING_SLABS
                 if rank == 0:
                     # the oracle in f64, one row block at a time
                     err = max(float((c[i:i + mb].double() - a[i:i + mb]
@@ -99,21 +101,26 @@ def rank_main(rank: int, world: int, store: str, n: int,
                 row[f"{mode}_ms"] = _events_ms(
                     lambda: D.distributed_gemm(a, b, mesh, mode=mode))
             row["tol"] = tol
-            # the ring's products alone (its operands widened once, its n
-            # row blocks, no hop) and its hops alone (n - 1 accumulator
-            # blocks, no product)
+            # the ring's products alone (its operands widened once, its
+            # row blocks of every slab, no hop) and its hops alone (n - 1
+            # accumulator blocks a slab, no product)
+            slabs = D._slabs(n, world)
+            pb = n // (slabs * world)
+
             def products():
                 x, w = a_blk.float(), b_blk.float()
-                return [x[i * mb:(i + 1) * mb] @ w for i in range(world)]
+                return [x[i * pb:(i + 1) * pb] @ w
+                        for i in range(slabs * world)]
             row["ring_products_ms"] = _events_ms(products)
-            acc = D._dot(a_blk[:mb], b_blk)
+            acc = D._dot(a_blk[:pb], b_blk)
 
             def hops():
-                x = acc
-                for _ in range(world - 1):
-                    x, reqs = D._hop(x, group)
-                    for r in reqs:
-                        r.wait()
+                for _ in range(slabs):
+                    x = acc
+                    for _ in range(world - 1):
+                        x, reqs = D._hop(x, group)
+                        for r in reqs:
+                            r.wait()
             dist.barrier()
             row["ring_hops_ms"] = _events_ms(hops)
             row["hop_bytes"] = acc.numel() * acc.element_size()
