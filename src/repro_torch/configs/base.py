@@ -12,6 +12,7 @@ beside it are copies too, so both registries hold the same configs.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 
@@ -91,6 +92,24 @@ class ModelConfig:
         """Can this arch serve 500k-token contexts?  (SSM state is O(1);
         hybrids pay only for the sparse shared-attention blocks.)"""
         return self.family in ("ssm", "hybrid")
+
+    # -------------------------------------- settings a subclass overrides
+    # (methods, not fields: the registry's configs hold the reference's
+    # fields alone)
+    def mla_softmax_scale(self) -> float:
+        """MLA's softmax scale, prefill and absorbed decode alike."""
+        return 1.0 / math.sqrt(self.qk_nope_head_dim + self.qk_rope_head_dim)
+
+    def rope_inv_freq(self, dim: int, dtype=None, device=None):
+        """The frequencies of ``dim`` rotated dims, (dim//2,); None: the
+        plain ``rope_theta**(-2i/dim)`` that ``rope_angles`` computes."""
+        return None
+
+    def held_experts(self) -> Optional[range]:
+        """The experts a MoE layer holds and computes of the ``n_experts``
+        it routes over, dropping nothing; None: every expert, under the
+        reference's softmax top-k router and capacity."""
+        return None
 
     def param_count(self) -> int:
         """Approximate parameter count (embeddings included once)."""

@@ -1,4 +1,5 @@
-"""Named spans at the layer boundaries of the port's GEMM paths.
+"""Named spans at the layer boundaries of the port's GEMM paths and of
+DeepSeek-V3's MLA and MoE layers.
 
 ``span(name)`` records ``name`` while a torch profiler runs and is one
 shared ``contextlib.nullcontext()`` otherwise, so a call made with no
@@ -29,6 +30,14 @@ The module reads no clock, keeps nothing and writes nothing; any
   ``blasx.rt.gather``        a batch's tile acquisition and copies in
   ``blasx.rt.dispatch``      a batch's backend group calls
   ``blasx.rt.finalize``      a batch's epilogues and write-back
+  ``blasx.mla.prefill``      MLA's prefill attention: K and V expanded
+                             from the latent, causal attention
+  ``blasx.mla.decode``       MLA's absorbed decode attention: the cache
+                             write and the attention over the latent
+  ``blasx.moe.route``        DeepSeek-V3's router (``held_moe_block``)
+  ``blasx.moe.experts``      the held experts on their routed tokens,
+                             their slot counts read to the host
+  ``blasx.moe.shared``       the shared expert
 """
 from __future__ import annotations
 

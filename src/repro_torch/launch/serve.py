@@ -72,6 +72,9 @@ class Server:
         self.device = params["embed"].device
         self.cache = None        # batched cache, built from first prefill
         self.nonfinite_logits = 0  # prefills and steps with a NaN/inf logit
+        # the float32 logits of the last prefill (its last position, (V,))
+        # or decode step ((slots, V)), for a caller to compare
+        self.last_logits: Optional[torch.Tensor] = None
         # each decode step's dropped expert slots (a MoE model's; the
         # free slots' tokens are routed too)
         self.decode_drops: List[int] = []
@@ -89,6 +92,7 @@ class Server:
         cache = self.model.pad_cache(cache, self.max_len)
         # greedy: torch.argmax takes the first index on ties, as
         # jnp.argmax does
+        self.last_logits = logits[0, -1]
         tok = int(torch.argmax(logits[0, -1]))
         self.nonfinite_logits += int(not torch.isfinite(logits).all())
         req.out.append(tok)
@@ -113,6 +117,7 @@ class Server:
         with count_drops() as drops:
             logits, self.cache = self.model.decode(self.params, self.cache,
                                                    tok, pos)
+        self.last_logits = logits
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         self.nonfinite_logits += int(not torch.isfinite(logits).all())
         if drops:

@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.spans import span
 # imported with the model, not at the first prefill: importing it
 # registers K5's operator and its FLOP formula, which a FlopCounterMode
 # copies when it is made (the dry-run makes one before its first layer)
@@ -122,17 +123,23 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _sdpa_chunked(q, k, v, qpos, kpos, *, causal, scale, kv_valid=None,
                   chunk=DEFAULT_Q_CHUNK):
     """Query-chunked SDPA: O(chunk * Skv) live scores instead of
-    O(Sq * Skv) — the long-prefill memory saver."""
-    B, Sq = q.shape[0], q.shape[1]
-    if Sq <= chunk or Sq % chunk != 0:
+    O(Sq * Skv) — the long-prefill memory saver; the last chunk takes
+    the rows left over.  A causal call with as many keys as queries
+    attends one sequence to itself (queries and keys at 0..S-1), so a
+    chunk reads the keys up to its last row alone."""
+    Sq = q.shape[1]
+    if Sq <= chunk:
         return _sdpa(q, k, v, qpos=qpos, kpos=kpos, causal=causal,
                      scale=scale, kv_valid=kv_valid)
+    self_causal = causal and k.shape[1] == Sq
     outs = []
-    for i in range(Sq // chunk):
-        sl = slice(i * chunk, (i + 1) * chunk)
-        pi = qpos[sl] if qpos.ndim == 1 else qpos[:, sl]
-        outs.append(_sdpa(q[:, sl], k, v, qpos=pi, kpos=kpos, causal=causal,
-                          scale=scale, kv_valid=kv_valid))
+    for lo in range(0, Sq, chunk):
+        hi = min(lo + chunk, Sq)
+        pi = qpos[lo:hi] if qpos.ndim == 1 else qpos[:, lo:hi]
+        kh = hi if self_causal else k.shape[1]
+        outs.append(_sdpa(q[:, lo:hi], k[:, :kh], v[:, :kh], qpos=pi,
+                          kpos=kpos[:kh], causal=causal, scale=scale,
+                          kv_valid=kv_valid))
     return torch.cat(outs, dim=1)
 
 
@@ -315,39 +322,58 @@ def mla_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     runs against the compressed cache with W_uk absorbed into q and W_uv
     applied after, in f32.  Where the model axis splits the heads n
     ways, a rank runs both on its H/n heads (``wkv_b``'s column block
-    gives its W_uk/W_uv) against the whole c_kv and RoPE key."""
+    gives its W_uk/W_uv) against the whole c_kv and RoPE key.  The
+    config gives the RoPE frequencies (``cfg.rope_inv_freq``) and the
+    softmax scale (``cfg.mla_softmax_scale()``): DeepSeek-V3's YaRN
+    under ``DeepSeekV3Config``."""
     B, S, d = x.shape
     n = rules.model_ways(cfg.n_heads)
     H = cfg.n_heads // n
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     vd = cfg.v_head_dim
-    scale = 1.0 / math.sqrt(nope + rope_d)
+    scale = cfg.mla_softmax_scale()
 
     q, ckv, k_rope = _mla_qkv(cfg, p, x, rules, n)
-    cos, sin = rope_angles(positions, rope_d, cfg.rope_theta,
-                           wide(q).dtype)
+    dt = wide(q).dtype
+    cos, sin = rope_angles(positions, rope_d, cfg.rope_theta, dt,
+                           cfg.rope_inv_freq(rope_d, dt, x.device))
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
 
     if cache is None:
         # train / prefill: expand K,V (no cache pressure), full attention
-        kv = (ckv @ p["wkv_b"]).reshape(B, S, H, nope + vd)
-        k_nope, v = kv[..., :nope], kv[..., nope:]
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope_d)],
-                      dim=-1)
-        qfull = torch.cat([q_nope, q_rope], dim=-1)
-        out = _sdpa_chunked(qfull, k, v, qpos=positions,
-                            kpos=torch.arange(S, dtype=torch.int32,
-                                              device=x.device),
-                            causal=True, scale=scale, chunk=q_chunk)
+        with span("blasx.mla.prefill"):
+            kv = (ckv @ p["wkv_b"]).reshape(B, S, H, nope + vd)
+            k_nope, v = kv[..., :nope], kv[..., nope:]
+            k = torch.cat([k_nope,
+                           k_rope[:, :, None, :].expand(B, S, H, rope_d)],
+                          dim=-1)
+            qfull = torch.cat([q_nope, q_rope], dim=-1)
+            out = _sdpa_chunked(qfull, k, v, qpos=positions,
+                                kpos=torch.arange(S, dtype=torch.int32,
+                                                  device=x.device),
+                                causal=True, scale=scale, chunk=q_chunk)
         new_cache = {"ckv": ckv, "k_rope": k_rope} if make_cache else None
         return _mla_out(cfg, p, out.reshape(B, S, H * vd), rules, n), \
             new_cache
 
     # ---------------- absorbed decode: cache is compressed (c_kv, k_rope)
-    idx = cache_index  # (B,)
-    rows = torch.arange(B, device=x.device)
+    with span("blasx.mla.decode"):
+        out = _absorbed_decode(cfg, p, cache, cache_index, q_nope, q_rope,
+                               ckv, k_rope, H, scale)
+    out = out.to(x.dtype).reshape(B, S, H * vd)
+    return _mla_out(cfg, p, out, rules, n), cache
+
+
+def _absorbed_decode(cfg, p, cache, idx, q_nope, q_rope, ckv, k_rope, H,
+                     scale):
+    """One decode step's attention against the compressed cache, this
+    step's c_kv and RoPE key written into it first: W_uk absorbed into
+    q, W_uv applied after, in f32; (B, 1, H, v_head_dim)."""
+    B = q_nope.shape[0]
+    nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
+    rows = torch.arange(B, device=q_nope.device)
     ckv_c, krope_c = cache["ckv"], cache["k_rope"]
     ckv_c[rows, idx] = ckv[:, 0]
     krope_c[rows, idx] = k_rope[:, 0]
@@ -358,7 +384,7 @@ def mla_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     # absorb W_uk into q: q_c (B, S=1, H, r)
     q_c = torch.einsum("bshn,rhn->bshr", wide(q_nope), w_uk)
     Skv = ckv_c.shape[1]
-    kpos = torch.arange(Skv, dtype=torch.int32, device=x.device)
+    kpos = torch.arange(Skv, dtype=torch.int32, device=q_nope.device)
     valid = (idx + 1)[:, None, None, None]
     scores = (torch.einsum("bshr,bkr->bhsk", q_c, wide(ckv_c))
               + torch.einsum("bshr,bkr->bhsk", wide(q_rope),
@@ -368,9 +394,7 @@ def mla_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                                       device=scores.device))
     w = torch.softmax(scores, dim=-1)
     o_c = torch.einsum("bhsk,bkr->bshr", w, wide(ckv_c))
-    out = torch.einsum("bshr,rhv->bshv", o_c, w_uv)
-    out = out.to(x.dtype).reshape(B, S, H * vd)
-    return _mla_out(cfg, p, out, rules, n), cache
+    return torch.einsum("bshr,rhv->bshv", o_c, w_uv)
 
 
 def _mla_out(cfg, p, out: torch.Tensor, rules: MeshRules, n: int

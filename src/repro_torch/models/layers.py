@@ -166,13 +166,20 @@ def apply_norm(cfg, x: torch.Tensor, p: Optional[torch.Tensor]
 
 # ------------------------------------------------------------------- RoPE
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
-                dtype: torch.dtype = torch.float32
+                dtype: torch.dtype = torch.float32,
+                inv_freq: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions: (...,) int -> cos/sin of shape (..., head_dim//2), in
-    ``dtype`` (float32; float64 in a float64 model)."""
-    half = head_dim // 2
-    exps = torch.arange(half, dtype=dtype, device=positions.device) / half
-    freqs = 1.0 / (theta ** exps)
+    ``dtype`` (float32; float64 in a float64 model).  ``inv_freq``
+    (head_dim//2,) replaces the plain ``theta**(-2i/head_dim)`` (a
+    config's ``rope_inv_freq``: YaRN's under DeepSeek-V3)."""
+    if inv_freq is None:
+        half = head_dim // 2
+        exps = torch.arange(half, dtype=dtype,
+                            device=positions.device) / half
+        freqs = 1.0 / (theta ** exps)
+    else:
+        freqs = inv_freq.to(dtype=dtype, device=positions.device)
     ang = positions.to(dtype)[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 

@@ -18,6 +18,14 @@ partial outputs.  A shared expert is a tensor-parallel MLP
 Within :func:`count_drops` each layer call also counts the slots it
 dropped, exactly (the aux's ``moe_drop_frac`` is the reference's
 capacity estimate under expert-parallel dispatch).
+
+Where the config names the experts held here (``cfg.held_experts()``:
+a ``DeepSeekV3Config``'s) the layer is :func:`held_moe_block` instead:
+DeepSeek-V3's published router over all the experts, and the part of
+the output that the experts held here give, with no capacity and no
+drop, plus the shared expert.  Within :func:`count_held_slots`
+each such layer call counts the slots routed to each held expert, and
+within :func:`record_routes` it keeps its choice of experts.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ..core.spans import span
 from .layers import ACT, Maker, mlp, wide
 from .sharding import MeshRules
 
@@ -52,6 +61,37 @@ def count_drops():
         _DROPS = outer
 
 
+# the open :func:`count_held_slots` list, else None
+MOE_HELD_SLOTS: Optional[List[List[int]]] = None
+# the open :func:`record_routes` list, else None
+_ROUTES: Optional[List[torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def count_held_slots():
+    """Yields a list to which each :func:`held_moe_block` call in the
+    block appends the (token, slot)s routed to each of its held experts,
+    a list of ints (which the layer reads to the host anyway)."""
+    global MOE_HELD_SLOTS
+    outer, MOE_HELD_SLOTS = MOE_HELD_SLOTS, []
+    try:
+        yield MOE_HELD_SLOTS
+    finally:
+        MOE_HELD_SLOTS = outer
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Yields a list to which each :func:`held_moe_block` call in the
+    block appends its (tokens, top_k) experts chosen (no sync)."""
+    global _ROUTES
+    outer, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = outer
+
+
 def _count(dropped: torch.Tensor, rules: Optional[MeshRules] = None
            ) -> None:
     """Append ``dropped``'s count while :func:`count_drops` is open;
@@ -64,13 +104,21 @@ def _count(dropped: torch.Tensor, rules: Optional[MeshRules] = None
 
 
 def make_moe_params(mk: Maker, cfg) -> dict:
+    """The router over all ``n_experts``, the experts' weights and the
+    shared experts'; where the config names the experts held here, the
+    router's selection bias too, and the held experts' weights alone."""
     d, E, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
-    p = {
-        "router": mk.param((d, E), ("embed", None), dtype=torch.float32),
+    p = {"router": mk.param((d, E), ("embed", None), dtype=torch.float32)}
+    held = cfg.held_experts()
+    if held is not None:
+        p["bias"] = mk.param((E,), (None,), scale=cfg.selection_bias_std,
+                             dtype=torch.float32)
+        E = len(held)
+    p.update({
         "w_gate": mk.param((E, d, ff), ("expert", "embed", None)),
         "w_up": mk.param((E, d, ff), ("expert", "embed", None)),
         "w_down": mk.param((E, ff, d), ("expert", None, "embed")),
-    }
+    })
     if cfg.n_shared_experts:
         sff = cfg.moe_d_ff * cfg.n_shared_experts
         p["shared"] = {
@@ -104,6 +152,8 @@ def moe_block(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
     a model axis wider than 1 that divides E, expert-local dispatch:
     tokens stay where they are and one activation-sized all-reduce a
     layer combines the experts' outputs."""
+    if cfg.held_experts() is not None:
+        return held_moe_block(cfg, p, x, rules)
     model_n = rules.axis_size(rules.model_axis)
     if rules.mesh is not None and model_n > 1 and \
             cfg.n_experts % model_n == 0:
@@ -270,3 +320,74 @@ def _moe_block_dense(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
         y = y + _shared_expert(cfg, p, x, rules)
     return (y.reshape(B, S, d).to(x.dtype),
             _aux(cfg, probs, gate_idx, keep, rules))
+
+
+def published_router(cfg, p, xt: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V3's router (noaux_tc) over all ``cfg.n_experts``:
+    sigmoid scores; the selection bias added for choosing only; a
+    group's score the sum of its two best biased scores; the best
+    ``topk_group`` groups; the best ``top_k`` experts within them.
+    Returns the weights, the unbiased scores of the chosen experts
+    normalised over them (``norm_topk_prob``) times
+    ``routed_scaling_factor``, and the experts, each (N, top_k)."""
+    N, E, G = xt.shape[0], cfg.n_experts, cfg.n_group
+    scores = torch.sigmoid(wide(xt) @ wide(p["router"]))
+    biased = (scores + wide(p["bias"])).view(N, G, E // G)
+    best = biased.topk(2, dim=-1).values.sum(-1)
+    kept = best.topk(cfg.topk_group, dim=-1).indices
+    shut = torch.ones((N, G), dtype=torch.bool, device=xt.device
+                      ).scatter_(1, kept, False)
+    biased = biased.masked_fill(shut[..., None], float("-inf"))
+    experts = biased.view(N, E).topk(cfg.top_k, dim=-1).indices
+    weights = scores.gather(1, experts)
+    if cfg.norm_topk_prob:
+        weights = weights / weights.sum(-1, keepdim=True)
+    return weights * cfg.routed_scaling_factor, experts
+
+
+def held_moe_block(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
+                   ) -> Tuple[torch.Tensor, dict]:
+    """x: (B, S, d) -> (y, {}): one card's part of DeepSeek-V3's MoE
+    under expert parallelism.  Routes every token over all the experts
+    (:func:`published_router`), takes the (token, slot)s routed to the
+    experts held here (``cfg.held_experts()``), sorted by expert, and
+    computes each held expert's SwiGLU on exactly its tokens (one matmul
+    a weight: no capacity, no drop); sums them with their weights and the
+    shared expert's output in f32.  The experts held elsewhere add
+    nothing here: on one card there is no exchange.  Reads the held
+    experts' slot counts to the host (one sync a call)."""
+    if rules.mesh is not None:
+        raise ValueError("the held-expert layer runs on one card (no mesh)")
+    B, S, d = x.shape
+    N, K = B * S, cfg.top_k
+    here = cfg.held_experts()
+    lo, held = here.start, len(here)
+    xt = x.reshape(N, d)
+    with span("blasx.moe.route"):
+        weights, experts = published_router(cfg, p, xt)
+    if _ROUTES is not None:
+        _ROUTES.append(experts)
+    with span("blasx.moe.experts"):
+        flat = experts.reshape(-1) - lo
+        local = torch.where((flat >= 0) & (flat < held), flat, held)
+        order = torch.argsort(local, stable=True)
+        counts = torch.bincount(local, minlength=held + 1)[:held].tolist()
+        act = ACT[cfg.act]
+        y = torch.zeros((N, d), dtype=wide(x).dtype, device=x.device)
+        start = 0
+        for e, c in enumerate(counts):
+            if c:
+                slots = order[start:start + c]
+                tokens = slots // K
+                xe = xt[tokens]
+                h = act(xe @ p["w_gate"][e]) * (xe @ p["w_up"][e])
+                y.index_add_(0, tokens, wide(h @ p["w_down"][e])
+                             * weights.reshape(-1)[slots, None])
+            start += c
+    if MOE_HELD_SLOTS is not None:
+        MOE_HELD_SLOTS.append(counts)
+    if cfg.n_shared_experts:
+        with span("blasx.moe.shared"):
+            y = y + _shared_expert(cfg, p, x, rules)
+    return y.reshape(B, S, d).to(x.dtype), {}

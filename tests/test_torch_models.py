@@ -566,3 +566,20 @@ def test_mla_attention_modes_match_the_reference(family_pairs):
     _close(y, ry)
     for key in ("ckv", "k_rope"):
         _close(c[key], rc[key])
+
+
+@pytest.mark.parametrize("S,causal", [(10, True), (12, True), (11, False)])
+def test_chunked_attention_takes_a_ragged_last_chunk(S, causal):
+    """Query chunks of 4 over a length 4 does or does not divide equal
+    one unchunked call: a ragged last chunk, and causal chunks that read
+    the keys up to their last row alone, change no row."""
+    g = torch.Generator().manual_seed(S)
+    B, H, Hkv, D = 2, 4, 2, 8
+    q, k, v = (torch.randn((B, S, h, D), generator=g)
+               for h in (H, Hkv, Hkv))
+    pos = torch.arange(S, dtype=torch.int32)
+    whole = attn._sdpa(q, k, v, qpos=pos, kpos=pos, causal=causal,
+                       scale=0.3)
+    chunked = attn._sdpa_chunked(q, k, v, qpos=pos, kpos=pos,
+                                 causal=causal, scale=0.3, chunk=4)
+    torch.testing.assert_close(chunked, whole, rtol=1e-6, atol=1e-6)
