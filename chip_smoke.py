@@ -7,8 +7,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device — the card's name and power limit (nvidia-smi) and
    ``torch.cuda.get_device_name``; exits 1 without CUDA.
-2. build  — compiles ``src/repro_torch/kernels/csrc/blasx_gemm.cu`` and
-   ``flash_attention.cu`` with nvcc, one process each, both at once, and
+2. build  — compiles ``src/repro_torch/kernels/csrc/blasx_gemm.cu``,
+   ``flash_attention.cu`` and ``mla_decode.cu`` with nvcc, one process
+   each, all at once, and
    prints the build seconds and ptxas's register report.
 3. kernel — the hand-written batched long-K GEMM against its plain
    PyTorch version on the card, in f64/f32/bf16/f16, at the runtime's
@@ -119,7 +120,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    every logit finite, K5's launches exactly self-attention layers x
    prefills on the mma path in bf16, by shape (``LAUNCHES_BY_SHAPE``),
    and, where it reaches K5, one prompt's last logits against the plain
-   "sdpa" backend.  Its numbers go on a ``{"families": ...}`` JSON line.
+   "sdpa" backend; DeepSeek-V3's MLA decode kernel launched once a layer
+   and decode step, each launch's output held against the plain version
+   on that call's own operands (the layer's cache views, ``idx``, q_c,
+   q_rope: B 2, Skv 1056, several splits of the positions merged).  Its
+   numbers go on a ``{"families": ...}`` JSON line.
 
 11. train — runs after phase 10: the multi-device slice and the
    training path at world size 1.  An NCCL process group of one rank
@@ -166,6 +171,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``argument_size_placed_in_bytes``).  Its numbers go on a
    ``{"dryrun": ...}`` JSON line.
 
+13. mla_decode — runs after phase 12: MLA's absorbed-decode kernel
+   (``src/repro_torch/kernels/csrc/mla_decode.cu``) at the benchmark
+   cell's shape, one layer (256 slots, 128 heads, a bf16 latent cache of
+   8192 positions, live lengths the cell's stratified prompts plus 400
+   steps), against its plain version (the f32 decode over the padded
+   cache it replaced) normwise by slot; timed by CUDA events and
+   profiler device time beside the cell's ``Counts`` bound and the
+   kernel's own, the plain version and one batched bf16 decode padded
+   to the longest live length (``library_ms``, a yardstick only); and
+   one ``Server.step`` of a small bf16 MLA model (H 4, one split) must
+   launch the kernel once a layer on wgmma, each launch held against the
+   plain version on its own operands.  Its numbers go on a
+   ``{"mla_decode": ...}`` JSON line.  Phases 1, 2 and 13 alone:
+   ``python3 -c 'import chip_smoke as s; c = s.phase_device();
+   s.warm_profiler(); s.phase_build(); s.phase_mla_decode(c)'``.
+
 Phases 4, 8, 7, 9, each model of 10, 11 and 12's prefill are the main
 paths, in that order: each kernel's launch count is set to 0 just before each and read
 just after it (in phase 9 before the owner-mode comparison runs, in
@@ -200,7 +221,11 @@ FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 # flash_attention_bhsd, which reaches pl.pallas_call (body _flash_kernel
 # at :29, layout wrapper flash_attention at :132)
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:78"
-SOURCES = ("blasx_gemm", "flash_attention")
+MLA_SOURCE = "src/repro_torch/kernels/csrc/mla_decode.cu"
+# replaces no TPU kernel: the reference's absorbed decode is plain jnp
+MLA_REPLACES = ("none: the reference's absorbed decode is plain jnp "
+                "(src/repro/models/attention.py)")
+SOURCES = ("blasx_gemm", "flash_attention", "mla_decode")
 
 # least-time model: the H100 SXM data sheet's peaks, from the port's
 # roofline module (FP64 on the tensor cores, FP32 outside them, bf16/
@@ -442,7 +467,8 @@ def _timed_build(name):
 
 def _kernel_label(mangled: str) -> str:
     """``wgmma_gemm bf16 128`` from a mangled template kernel's name."""
-    t = re.search(r"(sgemm|wgmma_gemm|dmma_gemm|flash_simt|flash_mma)"
+    t = re.search(r"(sgemm|wgmma_gemm|dmma_gemm|flash_simt|flash_mma|"
+                  r"mla_wgmma|mla_simt|mla_combine)"
                   r"_kernelI"
                   r"((?:\d+\w+?|[df])?)((?:Li\d+E)+)", mangled)
     if not t:
@@ -477,7 +503,7 @@ def phase_build():
             if "spill" in line and not re.search(r"\b0 bytes spill stores", line):
                 print(f"[build] ptxas spill "
                       f"{_kernel_label(fn) if fn else ''}: {line.strip()}")
-    print(f"[build] both sources in {secs:.1f} s", flush=True)
+    print(f"[build] all sources in {secs:.1f} s", flush=True)
     return secs
 
 
@@ -1726,22 +1752,29 @@ def phase_families(card: str, device: str = "cuda", smoke: bool = False):
             params = model.init(seed, device=device)
         rng = np.random.default_rng(seed)
         _reset_counts()
-        if route == "serve":
-            sc = ServeConfig(arch=arch, **serve_kw)
-            out = run(sc)
-            prefills, want_req, want_new = sc.requests, sc.requests, \
-                sc.max_new
-            prompt = dict(tokens=torch.from_numpy(np.random.default_rng(
-                seed).integers(0, cfg.vocab_size, (1, sc.prompt_len))
-            ).to(device))
-        elif route == "model":
-            out, prompt = _drive_model(cfg, model, params, rng, model_sizes)
-            prefills, want_req, want_new = 1, 1, model_sizes["steps"] + 1
-        else:
-            out, prompt = _drive_server(cfg, model, params, rng,
-                                        server_sizes)
-            prefills = want_req = server_sizes["requests"]
-            want_new = server_sizes["max_new"]
+        # MLA's decodes, each held against its plain version on its own
+        # operands
+        mla_errors = []
+        with (mla_checked(mla_errors) if cfg.use_mla
+              else contextlib.nullcontext()):
+            if route == "serve":
+                sc = ServeConfig(arch=arch, **serve_kw)
+                out = run(sc)
+                prefills, want_req, want_new = sc.requests, sc.requests, \
+                    sc.max_new
+                prompt = dict(tokens=torch.from_numpy(
+                    np.random.default_rng(seed).integers(
+                        0, cfg.vocab_size, (1, sc.prompt_len))).to(device))
+            elif route == "model":
+                out, prompt = _drive_model(cfg, model, params, rng,
+                                           model_sizes)
+                prefills, want_req, want_new = 1, 1, \
+                    model_sizes["steps"] + 1
+            else:
+                out, prompt = _drive_server(cfg, model, params, rng,
+                                            server_sizes)
+                prefills = want_req = server_sizes["requests"]
+                want_new = server_sizes["max_new"]
         if on_card:
             torch.cuda.synchronize()
         run_counts = _read_counts()
@@ -1792,6 +1825,24 @@ def phase_families(card: str, device: str = "cuda", smoke: bool = False):
               f"want {total} bf16 on mma")
         check(not any(run_counts["gemm"].values()),
               f"{arch}: the model ran the BLAS GEMM {run_counts['gemm']}")
+        # MLA's decode: one kernel launch a layer and decode step, bf16
+        # on wgmma
+        want_mla = ({"wgmma": {"bfloat16": cfg.n_layers * out["steps"]}}
+                    if cfg.use_mla else {})
+        check(not on_card or run_counts["mla_path"] == want_mla,
+              f"{arch}: MLA decode launches by path "
+              f"{run_counts['mla_path']}, want {want_mla}")
+        mla_worst = max(mla_errors, default=None)
+        if cfg.use_mla:
+            print(f"[families] {cfg.name} MLA decode, kernel vs plain on "
+                  f"each call's operands: {len(mla_errors)} calls, "
+                  f"normwise worst slot {mla_worst:.3e} (limit {MLA_TOL}) "
+                  f"| {card}", flush=True)
+            check(len(mla_errors) == cfg.n_layers * out["steps"]
+                  and mla_worst <= MLA_TOL,
+                  f"{arch}: MLA decode against its plain version: "
+                  f"{len(mla_errors)} calls, normwise worst {mla_worst} "
+                  f"(limit {MLA_TOL})")
         err = None
         if total:
             err = _family_logits(card, cfg, route, model, params, prompt,
@@ -1803,6 +1854,7 @@ def phase_families(card: str, device: str = "cuda", smoke: bool = False):
             prefill_s=out["prefill_s"], decode_s=out["decode_s"],
             tok_per_s=out["tok_per_s"], peak_gib=peak,
             launches=run_counts["flash_shape"], flash_vs_sdpa=err,
+            mla_vs_plain=mla_worst,
             decode_drops=out.get("decode_drops"), card=card)
         counts[arch] = run_counts
         del model, params, out, prompt
@@ -2061,6 +2113,25 @@ def phase_train(card: str, device: str = "cuda", smoke: bool = False):
     print(f"[train] phase {numbers['phase_s']:.1f} s | {card}", flush=True)
     print(json.dumps({"train": numbers}), flush=True)
     return numbers, counts
+
+
+# phase 13: MLA's absorbed decode at the benchmark cell's shape
+# (chipbench's dsv3-ep32-decode8k, one layer): 256 slots, 128 heads,
+# latent 512 + RoPE key 64 in bf16, 8192 positions a slot; each slot's
+# live length its prompt (log-uniform over [1024, 4096], stratified as
+# the cell draws them) plus MLA_DECODED decode steps
+MLA_CELL = dict(slots=256, heads=128, max_len=8192, prompt_min=1024,
+                prompt_max=4096, decoded=400, seed=13)
+MLA_SCALE = 192 ** -0.5
+# kernel vs plain version, normwise, the worst slot: q_c and P enter the
+# products as two 16-bit terms each (~2^-17 relative), exp2 is the 2^-22
+# approximation, the f32 sums run in another order (tests/
+# test_torch_mla_decode.py WGMMA_TOL, whose note says what it fails)
+MLA_TOL = 1e-4
+# one Server.step of a small MLA model in bf16 at the kernel's widths
+# (the reduced DeepSeek-V3 with its latent and RoPE key at 512 and 64):
+# MLA_SMALL slots, prompts of 40 tokens
+MLA_SMALL = dict(slots=2, prompt_len=40, max_len=96)
 
 
 # phase 12: the dry-run's prediction against one real step at world
@@ -2466,6 +2537,202 @@ def phase_dryrun(card: str, device: str = "cuda", smoke: bool = False):
     return numbers, counts
 
 
+def mla_cell_lengths(c=MLA_CELL):
+    """Each slot's live length at the cell: a prompt drawn as the cell
+    draws a batch of them (chipbench ``dsv3_serve._requests``: one length
+    from each of ``slots`` equal strata of the log scale) plus
+    ``decoded`` steps."""
+    import math
+
+    import numpy as np
+    rng = np.random.default_rng(c["seed"])
+    k, lo, hi = c["slots"], c["prompt_min"], c["prompt_max"]
+    u = (rng.permutation(k) + rng.uniform(size=k)) / k
+    lens = np.minimum(np.exp(math.log(lo) + u * math.log((hi + 1) / lo))
+                      .astype(np.int64), hi)
+    return np.minimum(lens + c["decoded"], c["max_len"])
+
+
+def mla_counts_bound(live, heads: int) -> tuple:
+    """One layer's least time of the whole absorbed decode as the cell's
+    ``Counts`` gives it (W_uk into q, the scores over latent and RoPE
+    key, the latent sum, W_uv; the live cache, W_uk and W_uv, q and the
+    output in bf16), and the kernel's own (its products at the live
+    lengths; the live cache read once, q in and o out in f32)."""
+    r, rope, nope, vd = 512, 64, 128, 128
+    b, n = len(live), int(live.sum())
+    flops = 2 * heads * (nope * r * b + n * (2 * r + rope) + r * vd * b)
+    nbytes = 2 * (n * (r + rope) + r * heads * (nope + vd)
+                  + b * heads * (nope + rope) + b * heads * vd)
+    kflops = 2 * heads * n * (2 * r + rope)
+    kbytes = 2 * n * (r + rope) + 4 * b * heads * (2 * r + rope)
+    return (least_time(flops, nbytes, "bfloat16"),
+            least_time(kflops, kbytes, "bfloat16"))
+
+
+def mla_normwise(got, want):
+    """Each slot's normwise error ||got - want||_F / ||want||_F, in f64
+    (the bare norm of the difference where ``want`` is 0)."""
+    import torch
+    num = torch.linalg.norm((got - want).double().flatten(1), dim=1)
+    den = torch.linalg.norm(want.double().flatten(1), dim=1)
+    return torch.where(den > 0, num / den.clamp_min(1e-300), num)
+
+
+@contextlib.contextmanager
+def mla_checked(errors: list):
+    """Hold every MLA decode a model launches inside against its plain
+    version.  The kernel runs on the operands as the layer passes them
+    (its cache views, idx, q_c, q_rope); device copies of them are kept
+    beside its output, so the run gains no host sync, and on leaving the
+    plain version computes each call's output from the copies: each
+    call's worst-slot normwise error is appended to ``errors``."""
+    from repro_torch.kernels import mla_decode as kmla
+    from repro_torch.kernels.ref import mla_decode_ref
+    launch, kept = kmla.mla_decode, []
+
+    def checked(q_c, q_rope, ckv, k_rope, idx, scale):
+        o = launch(q_c, q_rope, ckv, k_rope, idx, scale)
+        kept.append((o, q_c.clone(), q_rope.clone(), ckv.clone(),
+                     k_rope.clone(), idx.clone(), scale))
+        return o
+    kmla.mla_decode = checked
+    try:
+        yield
+    finally:
+        kmla.mla_decode = launch
+    for o, *ops in kept:
+        errors.append(float(mla_normwise(o, mla_decode_ref(*ops)).max()))
+
+
+def _mla_small_server_step(card: str) -> tuple:
+    """One Server.step of a small bf16 MLA model at the kernel's widths:
+    each of its layers' decodes is one kernel launch on wgmma, held
+    against the plain version on its own operands (:func:`mla_checked`).
+    Returns the launches by path and the worst slot's normwise error."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mla_decode as kmla
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("deepseek_v3_671b").reduced(),
+                              kv_lora_rank=kmla.R,
+                              qk_rope_head_dim=kmla.ROPE, dtype="bfloat16")
+    model = Model(cfg)
+    params = model.init(0, device="cuda")
+    rng = np.random.default_rng(0)
+    server = Server(cfg, model, params, MLA_SMALL["slots"],
+                    MLA_SMALL["max_len"])
+    for s in range(MLA_SMALL["slots"]):
+        server.admit(Request(s, rng.integers(
+            0, cfg.vocab_size, (MLA_SMALL["prompt_len"] + s,)).astype(
+                np.int32), 4), s)
+    _reset_counts()
+    errors = []
+    with mla_checked(errors):
+        server.step()
+    torch.cuda.synchronize()
+    counts = _read_counts()["mla_path"]
+    want = {"wgmma": {"bfloat16": cfg.n_layers}}
+    worst = max(errors)
+    print(f"[mla] Server.step of {cfg.name} x{cfg.n_layers} layers, "
+          f"{cfg.n_heads} heads, bf16: MLA decode launches {counts}; "
+          f"kernel vs plain normwise worst slot {worst:.3e} (limit "
+          f"{MLA_TOL}) | {card}", flush=True)
+    check(counts == want, f"MLA decode launches on one Server.step "
+          f"{counts}, want {want}")
+    check(len(errors) == cfg.n_layers and worst <= MLA_TOL,
+          f"MLA decode on one Server.step: normwise {errors} (limit "
+          f"{MLA_TOL})")
+    check(server.nonfinite_logits == 0, "non-finite logits")
+    return counts, worst
+
+
+def phase_mla_decode(card: str):
+    """Phase 13: MLA's absorbed decode at the cell's shape, one layer.
+    The kernel against its plain version (the f32 decode over the padded
+    cache it replaced) on the card, normwise by slot; then timed, by
+    CUDA events and by the device time ``torch.profiler`` records,
+    beside the cell's ``Counts`` bound and the kernel's own, the plain
+    version and, as ``library_ms``, the same decode as one batched
+    PyTorch bf16 decode padded to the longest live length (a yardstick
+    the port never calls); one Server.step of a small MLA model counted
+    and checked.  Returns the phase's numbers."""
+    import torch
+    from repro_torch.kernels import mla_decode as kmla
+    from repro_torch.kernels.ref import mla_decode_ref
+    c = MLA_CELL
+    t_phase = time.perf_counter()
+    b, h, skv = c["slots"], c["heads"], c["max_len"]
+    live = mla_cell_lengths()
+    gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+    bf16 = torch.bfloat16
+    q_c = torch.randn((b, h, kmla.R), generator=gen, device="cuda")
+    q_rope = torch.randn((b, h, kmla.ROPE), generator=gen, device="cuda")
+    ckv = torch.randn((b, skv, kmla.R), generator=gen, device="cuda").to(bf16)
+    kr = torch.randn((b, skv, kmla.ROPE), generator=gen,
+                     device="cuda").to(bf16)
+    idx = torch.from_numpy(live - 1).to("cuda")
+    ops = (q_c, q_rope, ckv, kr, idx, MLA_SCALE)
+
+    _reset_counts()
+    got = kmla.mla_decode(*ops)
+    torch.cuda.synchronize()
+    check(_read_counts()["mla_path"] == {"wgmma": {"bfloat16": 1}},
+          "the cell's decode did not take the wgmma path")
+    want = mla_decode_ref(*ops)
+    err = mla_normwise(got, want)
+    worst = float(err.max())
+    max_abs = float((got - want).abs().max())
+    print(f"[mla] kernel vs plain at B {b}, H {h}, Skv {skv}, live "
+          f"{int(live.min())}-{int(live.max())} (mean {live.mean():.0f}): "
+          f"normwise worst slot {worst:.3e}, median "
+          f"{float(err.median()):.3e} (limit {MLA_TOL}) | {card}",
+          flush=True)
+    check(worst <= MLA_TOL, f"MLA decode normwise {worst:.3e} > {MLA_TOL}")
+    del got, want
+
+    (bound_ms, bound_by), (kbound_ms, kbound_by) = mla_counts_bound(live, h)
+    kernel = lambda: kmla.mla_decode(*ops)  # noqa: E731
+    ms, dev = time_ms(kernel, 20), device_ms(kernel, 10)
+    plain = lambda: mla_decode_ref(*ops)  # noqa: E731
+    plain_ms, plain_dev = time_ms(plain, 3), device_ms(plain, 2)
+    # the yardstick: one batched bf16 decode padded to the longest live
+    # length, the positions past each slot's masked
+    qcb, qrb = q_c.to(bf16), q_rope.to(bf16)
+    n = int(live.max())
+    ck, krn = ckv[:, :n], kr[:, :n]
+    dead = (torch.arange(n, device="cuda")[None] > idx[:, None])[:, None]
+
+    def library():
+        s_ = (torch.bmm(qcb, ck.transpose(1, 2))
+              + torch.bmm(qrb, krn.transpose(1, 2))) * MLA_SCALE
+        w = torch.softmax(s_.float().masked_fill_(dead, -torch.inf), dim=-1)
+        return torch.bmm(w.to(bf16), ck)
+    lib_ms, lib_dev = time_ms(library, 5), device_ms(library, 3)
+    print(f"[mla] kernel {ms:.4f} ms (device {dev}), plain {plain_ms:.3f} "
+          f"ms (device {plain_dev}), library batched bf16 {lib_ms:.3f} ms "
+          f"(device {lib_dev}); bound: the cell's Counts {bound_ms:.4f} ms "
+          f"({bound_by}), the kernel's own {kbound_ms:.4f} ms "
+          f"({kbound_by}) | {card}", flush=True)
+    small, small_worst = _mla_small_server_step(card)
+    numbers = dict(
+        shape=dict(c, live_mean=float(live.mean()), live_sum=int(live.sum())),
+        normwise_worst=worst, ms=ms, device_ms=dev, plain_ms=plain_ms,
+        plain_device_ms=plain_dev, library_ms=lib_ms,
+        library_device_ms=lib_dev, bound_ms=bound_ms, bound_by=bound_by,
+        kernel_bound_ms=kbound_ms, kernel_bound_by=kbound_by,
+        small_server_step=small, small_normwise_worst=small_worst,
+        max_abs_err=max_abs,
+        phase_s=time.perf_counter() - t_phase)
+    print(f"[mla] phase {numbers['phase_s']:.1f} s | {card}", flush=True)
+    print(json.dumps({"mla_decode": numbers}), flush=True)
+    return numbers
+
+
 def _device_us(event) -> float:
     return float(getattr(event, "self_device_time_total",
                          getattr(event, "self_cuda_time_total", 0.0)))
@@ -2637,6 +2904,7 @@ def one_step_peak(cfg, train: dict, donate: bool):
 def _reset_counts():
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import mla_decode as kmla
     kmm.LAUNCHES = 0
     kmm.LAUNCHES_BY_DTYPE.clear()
     kmm.LAUNCHES_BY_PATH.clear()
@@ -2648,11 +2916,13 @@ def _reset_counts():
     kfa.LAUNCHES_BY_PATH.clear()
     kfa.LAUNCHES_BY_SHAPE.clear()
     kfa.LAUNCHES_STAGED.clear()
+    kmla.LAUNCHES_BY_PATH.clear()
 
 
 def _read_counts():
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import mla_decode as kmla
     return {"gemm": dict(kmm.LAUNCHES_BY_DTYPE),
             "gemm_path": {p: dict(d) for p, d in kmm.LAUNCHES_BY_PATH.items()},
             "staged": dict(kmm.LAUNCHES_STAGED),
@@ -2661,7 +2931,9 @@ def _read_counts():
             "flash_path": {p: dict(d)
                            for p, d in kfa.LAUNCHES_BY_PATH.items()},
             "flash_shape": dict(kfa.LAUNCHES_BY_SHAPE),
-            "flash_staged": dict(kfa.LAUNCHES_STAGED)}
+            "flash_staged": dict(kfa.LAUNCHES_STAGED),
+            "mla_path": {p: dict(d)
+                         for p, d in kmla.LAUNCHES_BY_PATH.items()}}
 
 
 def _check_simt_is_f32(where: str, counts) -> None:
@@ -2742,7 +3014,7 @@ def main() -> int:
               f"launches took the {MAIN_PATH[name]} path")
     # main paths 5-9, the other families, one model each (counted from 0
     # inside)
-    _, families = phase_families(card)
+    family_numbers, families = phase_families(card)
     for arch, run in families.items():
         _check_simt_is_f32(f"{arch} path", run)
     # main path 10, training (counted from 0 inside; it reaches no hand
@@ -2753,6 +3025,7 @@ def main() -> int:
     # inside); its training step reaches no hand kernel
     _, dry = phase_dryrun(card)
     _check_simt_is_f32("dry-run prefill", dry)
+    mla = phase_mla_decode(card)
     main_runs = (blas, api, serve, analysis, *families.values(), train, dry)
     # every main-path flash launch is bf16 (phases 7 and 10 check it),
     # so the by-shape counts are bf16's
@@ -2840,6 +3113,18 @@ def main() -> int:
                   n if name == "bfloat16" else 0, r)
         e.update(shape=key, case=r["case"])
         kernels.append(e)
+    # MLA's decode kernel: its main-path launches (the families' MLA
+    # model's decode steps) and the worst slot's normwise error against
+    # the plain version of every check (the cell's shape, the families'
+    # MLA decodes, the small Server.step)
+    e = entry("mla_decode<bfloat16,wgmma>", "wgmma", MLA_SOURCE,
+              MLA_REPLACES, sum(run["mla_path"].get("wgmma", {}).get(
+                  "bfloat16", 0) for run in main_runs), mla)
+    e["normwise_worst"] = max(
+        [mla["normwise_worst"], mla["small_normwise_worst"]]
+        + [r["mla_vs_plain"] for r in family_numbers.values()
+           if r["mla_vs_plain"] is not None])
+    kernels.append(e)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

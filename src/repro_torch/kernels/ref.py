@@ -80,3 +80,28 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
     return o.reshape(b, sq, h, d).to(q.dtype)
+
+
+def mla_decode_ref(q_c: torch.Tensor, q_rope: torch.Tensor,
+                   ckv: torch.Tensor, k_rope: torch.Tensor,
+                   idx: torch.Tensor, scale: float) -> torch.Tensor:
+    """Plain version of the MLA absorbed-decode kernel, as the reference
+    computes it with jnp.  q_c (B, H, R) with W_uk absorbed; q_rope
+    (B, H, Dr); the cache's ckv (B, Skv, R) and k_rope (B, Skv, Dr); idx
+    (B,) each slot's last live position.  The cache is widened to q_c's
+    type (f32; f64 in an f64 model), every position's score computed and
+    those past ``idx`` masked to -1e30 before the softmax; returns o_c
+    (B, H, R) in that type."""
+    def wide(x):
+        return x.to(torch.promote_types(torch.float32, x.dtype))
+    q = q_c[:, None]
+    kpos = torch.arange(ckv.shape[1], dtype=torch.int32, device=q.device)
+    valid = (idx + 1)[:, None, None, None]
+    scores = (torch.einsum("bshr,bkr->bhsk", q, wide(ckv))
+              + torch.einsum("bshr,bkr->bhsk", wide(q_rope[:, None]),
+                             wide(k_rope))) * scale
+    scores = torch.where(kpos[None, None, None, :] < valid, scores,
+                         torch.tensor(-1e30, dtype=scores.dtype,
+                                      device=scores.device))
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhsk,bkr->bshr", w, wide(ckv))[:, 0]

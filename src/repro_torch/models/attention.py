@@ -32,10 +32,12 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.spans import span
-# imported with the model, not at the first prefill: importing it
-# registers K5's operator and its FLOP formula, which a FlopCounterMode
-# copies when it is made (the dry-run makes one before its first layer)
+# imported with the model, not at the first prefill: importing them
+# registers K5's and the MLA decode's operators and their FLOP formulas,
+# which a FlopCounterMode copies when it is made (the dry-run makes one
+# before its first layer)
 from ..kernels import flash_attention as _kfa
+from ..kernels import mla_decode as _kmla
 from .layers import (Maker, apply_rope, model_replicated, rms_norm,
                      rope_angles, row_parallel_matmul, wide)
 from .sharding import MeshRules
@@ -51,8 +53,9 @@ DEFAULT_Q_CHUNK = 1024
 #             kernel's plain version runs.  The kernel is forward-only, as
 #             the reference's is, so inputs that require grad (training)
 #             take the "sdpa" path whatever this says.
-# Decode and cross-attention always take the "sdpa" path: in the
-# reference they are einsums, not a Pallas kernel.
+# GQA decode and cross-attention always take the "sdpa" path: in the
+# reference they are einsums, not a Pallas kernel.  MLA's absorbed decode
+# goes through ``kernels.mla_decode`` whatever this says.
 ATTENTION_BACKEND = "flash"
 
 
@@ -370,7 +373,10 @@ def _absorbed_decode(cfg, p, cache, idx, q_nope, q_rope, ckv, k_rope, H,
                      scale):
     """One decode step's attention against the compressed cache, this
     step's c_kv and RoPE key written into it first: W_uk absorbed into
-    q, W_uv applied after, in f32; (B, 1, H, v_head_dim)."""
+    q and W_uv applied after, in f32; the scores, softmax and latent sum
+    between them by ``kernels.mla_decode`` (the hand-written kernel over
+    each slot's live positions on the card, its plain version on the
+    CPU); (B, 1, H, v_head_dim)."""
     B = q_nope.shape[0]
     nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
     rows = torch.arange(B, device=q_nope.device)
@@ -383,17 +389,8 @@ def _absorbed_decode(cfg, p, cache, idx, q_nope, q_rope, ckv, k_rope, H,
     w_uv = wide(wkv_b[..., nope:])   # (r, H, vd)
     # absorb W_uk into q: q_c (B, S=1, H, r)
     q_c = torch.einsum("bshn,rhn->bshr", wide(q_nope), w_uk)
-    Skv = ckv_c.shape[1]
-    kpos = torch.arange(Skv, dtype=torch.int32, device=q_nope.device)
-    valid = (idx + 1)[:, None, None, None]
-    scores = (torch.einsum("bshr,bkr->bhsk", q_c, wide(ckv_c))
-              + torch.einsum("bshr,bkr->bhsk", wide(q_rope),
-                             wide(krope_c))) * scale
-    scores = torch.where(kpos[None, None, None, :] < valid, scores,
-                         torch.tensor(-1e30, dtype=scores.dtype,
-                                      device=scores.device))
-    w = torch.softmax(scores, dim=-1)
-    o_c = torch.einsum("bhsk,bkr->bshr", w, wide(ckv_c))
+    o_c = _kmla.mla_decode(q_c[:, 0], q_rope[:, 0], ckv_c, krope_c, idx,
+                           scale)[:, None]
     return torch.einsum("bshr,rhv->bshv", o_c, w_uv)
 
 
