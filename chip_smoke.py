@@ -21,15 +21,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    16-bit shapes TMA cannot read in place, which are staged into a
    zero-padded copy first.  f32 is also held on every compiled simt
    block in both copy variants (16-byte; 4-byte at K % 4, N % 4 and an
-   A base 4 bytes off 16), each launch's variant read from the wrapper's
-   count (``LAUNCHES_SIMT_COPY``).  At the runtime's shape it times the
-   kernel on each compiled block of its path, the plain version and
-   ``torch.matmul`` on the folded shape (a yardstick only), beside the
-   least time the card could take (``bound_ms``); at an unaligned shape
-   of the same size (K = 1020) it times the staged 16-bit route (the
-   staging copy and the kernel apart) and f32's 4-byte variant on every
-   block (A one element past an aligned base), beside the 16-byte
-   variant at the same shape from an aligned A.
+   A base 4 bytes off 16), each launch's variant read from its tag in
+   the launch ledger (``"16-byte"``, ``"4-byte"``).  At the runtime's
+   shape it times the kernel on each compiled block of its path, the
+   plain version and ``torch.matmul`` on the folded shape (a yardstick
+   only), beside the least time the card could take (``bound_ms``); at
+   an unaligned shape of the same size (K = 1020) it times the staged
+   16-bit route (the staging copy and the kernel apart) and f32's 4-byte
+   variant on every block (A one element past an aligned base), beside
+   the 16-byte variant at the same shape from an aligned A.
 4. main path — ``BlasxContext(backend="cuda", device="cuda")`` runs the
    paper's Fig. 7/10 regime (N=16384, tile 1024, 2 simulated devices)
    for DGEMM, SGEMM and a bf16 GEMM, an f16 GEMM at N=8192, SYRK/SYMM/
@@ -37,7 +37,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    N=4096, each checked against an f64 oracle on the card, with the
    kernel's launch counter held against the ledger; every bf16/f16
    launch must take the wgmma path and every f64 launch the dmma path
-   (``LAUNCHES_BY_PATH``).  No phase may launch a 16-bit GEMM on simt.
+   (the launch ledger, ``build.launches``).  No phase may launch a
+   16-bit GEMM on simt.
 5. epilogue — the same GEMM kernel with a bias row and each activation
    (the reference's fused epilogue) against its plain version in f32,
    bf16 and f16, at the MLP's shape (M,K,N) = (1024,1024,3072) (the
@@ -53,9 +54,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    Sk = 65, non-causal Sq != Sk, a bhsd view), in f32 (max abs) and
    bf16/f16 (max abs and normwise), on the path ``flash_path`` names
    (mma for 16-bit, simt for f32), each launch checked in
-   ``LAUNCHES_BY_PATH``; then each dtype with a seq stride off the
+   the launch ledger; then each dtype with a seq stride off the
    16-byte copies (one element of padding a row), staged into contiguous
-   copies (``LAUNCHES_STAGED``).  Timed at the prefill shape on each
+   copies (the ``"staged"`` tag).  Timed at the prefill shape on each
    (path, dtype), and staged (the staging copies and the kernel apart),
    beside its bound and ``scaled_dot_product_attention`` (a yardstick
    only: the port never calls it), by CUDA events and by the device time
@@ -118,7 +119,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    and the MTP block, through ``Server.admit`` / ``step`` (2 requests of
    1024 tokens, 16 new tokens).  Each checks every request and token,
    every logit finite, K5's launches exactly self-attention layers x
-   prefills on the mma path in bf16, by shape (``LAUNCHES_BY_SHAPE``),
+   prefills on the mma path in bf16, by shape tag (``"d80,causal"``),
    and, where it reaches K5, one prompt's last logits against the plain
    "sdpa" backend; DeepSeek-V3's MLA decode kernel launched once a layer
    and decode step, each launch's output held against the plain version
@@ -231,6 +232,8 @@ SOURCES = ("blasx_gemm", "flash_attention", "mla_decode")
 # roofline module (FP64 on the tensor cores, FP32 outside them, bf16/
 # fp16 on the tensor cores; HBM3 at 3.35 TB/s)
 from repro_torch.launch.roofline import PEAK_NAME, least_time  # noqa: E402
+# the hand kernels' launch ledger (``build.launches``, ``build.snapshot``)
+from repro_torch.kernels import build  # noqa: E402
 
 # kernel vs plain version, normwise relative error: f64 and f32 are
 # FMA sums in another order (f32 never takes TF32); bf16/f16 round the
@@ -459,7 +462,6 @@ def phase_device():
 
 
 def _timed_build(name):
-    from repro_torch.kernels import build
     t0 = time.perf_counter()
     path = build.build(name)
     return path, time.perf_counter() - t0
@@ -574,10 +576,11 @@ def phase_kernel(card: str):
     def copies_of(fn):
         """Run ``fn`` (one simt launch); the copy variants whose count
         it raised."""
-        before = dict(kmm.LAUNCHES_SIMT_COPY)
+        before = {v: build.launches("gemm", tag=v)
+                  for v in kmm.SIMT_COPIES.values()}
         out = fn()
-        return out, sorted(v for v, n in kmm.LAUNCHES_SIMT_COPY.items()
-                           if n > before.get(v, 0))
+        return out, sorted(v for v, n in before.items()
+                           if build.launches("gemm", tag=v) > n)
 
     def held(name, shape, a, b, label=""):
         got, copies = copies_of(lambda: batched_contract(a, b))
@@ -696,7 +699,6 @@ def phase_main_path(card: str, n_gemm: int):
     from repro_torch.api import BlasxContext
     from repro_torch.core import blas3
     from repro_torch.core.runtime import RuntimeConfig
-    from repro_torch.kernels import matmul as kmm
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     launches_by_ledger = {}
@@ -719,7 +721,7 @@ def phase_main_path(card: str, n_gemm: int):
         a_dev, b_dev = _rand(gen, n, n, dtype), _rand(gen, n, n, dtype)
         a_host, b_host = a_dev.cpu(), b_dev.cpu()
         ctx = ctx_for(mode)
-        before = kmm.LAUNCHES
+        before = build.launches("gemm")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = ctx.gemm(a_host, b_host)
@@ -732,8 +734,9 @@ def phase_main_path(card: str, n_gemm: int):
                     ctx)
         check(set(ls["engine_flops"]) == {"cuda"},
               f"{label}: engines {ls['engine_flops']} (want only cuda)")
-        check(kmm.LAUNCHES - before == ls["kernel_launches"],
-              f"{label}: kernel counted {kmm.LAUNCHES - before} launches, "
+        counted = build.launches("gemm") - before
+        check(counted == ls["kernel_launches"],
+              f"{label}: kernel counted {counted} launches, "
               f"ledger {ls['kernel_launches']}")
         launches_by_ledger[label] = ls["kernel_launches"]
         ctx.close()
@@ -798,7 +801,6 @@ def phase_api(card: str, device: str = "cuda", sizes=None):
     from repro_torch.api import BlasxContext
     from repro_torch.core import blas3
     from repro_torch.core.runtime import RuntimeConfig
-    from repro_torch.kernels import matmul as kmm
     from repro_torch.serve import BATCH, INTERACTIVE, BlasxServer
 
     t_phase = time.perf_counter()
@@ -1035,7 +1037,7 @@ def phase_api(card: str, device: str = "cuda", sizes=None):
             "flood": on_dev(f_a) @ on_dev(f_b),
             "f64": on_dev(d_a) @ on_dev(d_b)}
     tol = {"app": 1e-5, "flood": 2e-2, "f64": 1e-12}
-    before = {p: dict(d) for p, d in kmm.LAUNCHES_BY_PATH.items()}
+    before = _read_counts()["gemm_path"]
     reqs = sz["requests"]
     with BlasxServer(cfg(sz["serve_cache"]), pool_size=2, tile=tile,
                      quotas={"flood": sz["quota"]}) as srv:
@@ -1062,7 +1064,7 @@ def phase_api(card: str, device: str = "cuda", sizes=None):
     delta = {p: {dt: k - before.get(p, {}).get(dt, 0)
                  for dt, k in d.items()
                  if k - before.get(p, {}).get(dt, 0)}
-             for p, d in kmm.LAUNCHES_BY_PATH.items()}
+             for p, d in _read_counts()["gemm_path"].items()}
     delta = {p: d for p, d in delta.items() if d}
     server = {"n": n, "wall_s": wall, "launches": delta,
               "affinity": st["affinity"], "tenants": {}}
@@ -1348,16 +1350,18 @@ def phase_attention(card: str):
         """Run ``fn()``, check its launch landed on ``path``, staged or
         not as ``staged`` says, and its error; returns (max abs,
         normwise)."""
-        before = kfa.LAUNCHES_BY_PATH.get(path, {}).get(name, 0)
-        staged_before = kfa.LAUNCHES_STAGED.get(name, 0)
+        before = build.launches("flash", path=path, dtype=name)
+        staged_before = build.launches("flash", dtype=name, tag="staged")
         got = fn()
         torch.cuda.synchronize()
-        after = kfa.LAUNCHES_BY_PATH.get(path, {}).get(name, 0)
-        check(after == before + 1, f"flash {name} {label}: launch not on "
-              f"the {path} path ({kfa.LAUNCHES_BY_PATH})")
-        check(kfa.LAUNCHES_STAGED.get(name, 0) == staged_before
-              + int(staged), f"flash {name} {label}: staged "
-              f"{kfa.LAUNCHES_STAGED}, want {'one' if staged else 'none'}")
+        counts = _read_counts()
+        check(build.launches("flash", path=path, dtype=name) == before + 1,
+              f"flash {name} {label}: launch not on the {path} path "
+              f"({counts['flash_path']})")
+        check(build.launches("flash", dtype=name, tag="staged")
+              == staged_before + int(staged), f"flash {name} {label}: "
+              f"staged {counts['flash_staged']}, want "
+              f"{'one' if staged else 'none'}")
         max_abs = float((got.float() - want.float()).abs().max())
         check(max_abs <= FLASH_TOL[name], f"flash {name} {path} {label}: "
               f"max abs {max_abs:.3e} > {FLASH_TOL[name]:.0e}")
@@ -1504,7 +1508,7 @@ def phase_serve(card: str):
     cfg = get_config(SERVE["arch"])
     check(attn.ATTENTION_BACKEND == "flash", "the default backend is flash")
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
+    build.reset()
     out = run(ServeConfig(**SERVE))
     torch.cuda.synchronize()
     launches = _read_counts()
@@ -1751,7 +1755,7 @@ def phase_families(card: str, device: str = "cuda", smoke: bool = False):
             model = Model(cfg)
             params = model.init(seed, device=device)
         rng = np.random.default_rng(seed)
-        _reset_counts()
+        build.reset()
         # MLA's decodes, each held against its plain version on its own
         # operands
         mla_errors = []
@@ -1985,7 +1989,7 @@ def phase_train(card: str, device: str = "cuda", smoke: bool = False):
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
             ck = os.path.join(tmp, "ckpt")
-            _reset_counts()
+            build.reset()
             with kept_storage() as kept:
                 first = run(TrainConfig(ckpt_dir=ck, **train))
                 resumed = run(TrainConfig(ckpt_dir=ck, **dict(
@@ -2448,7 +2452,7 @@ def phase_dryrun(card: str, device: str = "cuda", smoke: bool = False):
                                       generator=gen, device=device,
                                       dtype=torch.int32)
                      for k in ("tokens", "labels")}
-            _reset_counts()
+            build.reset()
             (params, state, metrics), flops, peak, other, _ = measure(
                 lambda: step(params, state, batch), (params, state, batch))
             check(not any(_read_counts()["gemm"].values())
@@ -2489,7 +2493,7 @@ def phase_dryrun(card: str, device: str = "cuda", smoke: bool = False):
             tokens = torch.randint(0, cfg.vocab_size, (pb, ps),
                                    generator=gen, device=device,
                                    dtype=torch.int32)
-            _reset_counts()
+            build.reset()
             (logits, cache), flops, peak, other, secs = measure(
                 lambda: prefill(params, {"tokens": tokens}),
                 (params, tokens))
@@ -2630,7 +2634,7 @@ def _mla_small_server_step(card: str) -> tuple:
         server.admit(Request(s, rng.integers(
             0, cfg.vocab_size, (MLA_SMALL["prompt_len"] + s,)).astype(
                 np.int32), 4), s)
-    _reset_counts()
+    build.reset()
     errors = []
     with mla_checked(errors):
         server.step()
@@ -2678,7 +2682,7 @@ def phase_mla_decode(card: str):
     idx = torch.from_numpy(live - 1).to("cuda")
     ops = (q_c, q_rope, ckv, kr, idx, MLA_SCALE)
 
-    _reset_counts()
+    build.reset()
     got = kmla.mla_decode(*ops)
     torch.cuda.synchronize()
     check(_read_counts()["mla_path"] == {"wgmma": {"bfloat16": 1}},
@@ -2901,39 +2905,35 @@ def one_step_peak(cfg, train: dict, donate: bool):
     return peak / 2 ** 30, held / 2 ** 30
 
 
-def _reset_counts():
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import matmul as kmm
-    from repro_torch.kernels import mla_decode as kmla
-    kmm.LAUNCHES = 0
-    kmm.LAUNCHES_BY_DTYPE.clear()
-    kmm.LAUNCHES_BY_PATH.clear()
-    kmm.LAUNCHES_EPILOGUE = 0
-    kmm.LAUNCHES_STAGED.clear()
-    kmm.LAUNCHES_SIMT_COPY.clear()
-    kfa.LAUNCHES = 0
-    kfa.LAUNCHES_BY_DTYPE.clear()
-    kfa.LAUNCHES_BY_PATH.clear()
-    kfa.LAUNCHES_BY_SHAPE.clear()
-    kfa.LAUNCHES_STAGED.clear()
-    kmla.LAUNCHES_BY_PATH.clear()
-
-
 def _read_counts():
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import matmul as kmm
-    from repro_torch.kernels import mla_decode as kmla
-    return {"gemm": dict(kmm.LAUNCHES_BY_DTYPE),
-            "gemm_path": {p: dict(d) for p, d in kmm.LAUNCHES_BY_PATH.items()},
-            "staged": dict(kmm.LAUNCHES_STAGED),
-            "simt_copy": dict(kmm.LAUNCHES_SIMT_COPY),
-            "epilogue": kmm.LAUNCHES_EPILOGUE,
-            "flash_path": {p: dict(d)
-                           for p, d in kfa.LAUNCHES_BY_PATH.items()},
-            "flash_shape": dict(kfa.LAUNCHES_BY_SHAPE),
-            "flash_staged": dict(kfa.LAUNCHES_STAGED),
-            "mla_path": {p: dict(d)
-                         for p, d in kmla.LAUNCHES_BY_PATH.items()}}
+    """One snapshot of the launch ledger as the JSON lines report it:
+    each kernel's launches by path and dtype, the GEMM's by dtype, staged
+    by dtype, by simt copy and with an epilogue, and flash's by shape and
+    staged by dtype."""
+    counts = {"gemm": {}, "gemm_path": {}, "staged": {}, "simt_copy": {},
+              "epilogue": 0, "flash_path": {}, "flash_shape": {},
+              "flash_staged": {}, "mla_path": {}}
+
+    def bump(table, key, n):
+        table[key] = table.get(key, 0) + n
+
+    for k, n in build.snapshot().items():
+        kind = {"gemm": "gemm", "flash": "flash", "mla_decode": "mla"}[
+            k.kernel]
+        bump(counts[f"{kind}_path"].setdefault(k.path, {}), k.dtype, n)
+        if kind == "gemm":
+            bump(counts["gemm"], k.dtype, n)
+        for tag in k.tags:
+            if tag == "staged":
+                bump(counts["staged" if kind == "gemm" else "flash_staged"],
+                     k.dtype, n)
+            elif tag == "epilogue":
+                counts["epilogue"] += n
+            elif kind == "flash":
+                bump(counts["flash_shape"], tag, n)
+            else:
+                bump(counts["simt_copy"], tag, n)
+    return counts
 
 
 def _check_simt_is_f32(where: str, counts) -> None:
@@ -2963,7 +2963,7 @@ def main() -> int:
     _check_simt_is_f32("phases 3, 5, 6", _read_counts())
     # main path 1, the BLAS library: the counts start at 0; the
     # comparison phases' launches do not count
-    _reset_counts()
+    build.reset()
     phase_main_path(card, 16384)
     blas = _read_counts()
     print(f"[main] GEMM launches by path: {blas['gemm_path']}, staged "
@@ -2978,7 +2978,7 @@ def main() -> int:
               f"launches took the {MAIN_PATH[name]} path")
     # main path 2, the library's other front doors: CBLAS, async
     # futures, batched GEMM, the autotuner and the multi-tenant server
-    _reset_counts()
+    build.reset()
     _, server_launches = phase_api(card)
     api = _read_counts()
     print(f"[api] GEMM launches by path: {api['gemm_path']}, staged "
@@ -3001,7 +3001,7 @@ def main() -> int:
     _, serve = phase_serve(card)
     _check_simt_is_f32("serving path", serve)
     # main path 4, the analysis phase's work-centric GEMMs
-    _reset_counts()
+    build.reset()
     _, analysis = phase_analysis(card)
     print(f"[analysis] GEMM launches by path: {analysis['gemm_path']}, "
           f"staged {analysis['staged']} | {card}", flush=True)

@@ -1,4 +1,4 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build, bind, launch and count the hand-written CUDA kernels.
 
 The sources under ``csrc/`` are compiled at first use with ``nvcc`` into
 a shared library with a plain C interface, which is loaded with
@@ -11,19 +11,29 @@ runtime: ``cuTensorMapEncodeTiled`` (TMA descriptors), which lives in
 libcuda, is looked up at run time through ``cudaGetDriverEntryPoint``,
 so there is no ``-lcuda`` flag.
 
+Every wrapper launches through :func:`launch`, which calls a bound entry
+point (:func:`bind`) on the current stream, raises on a nonzero return
+code and records the launch in one ledger (``LAUNCHES``), read with
+:func:`snapshot` and :func:`launches` and cleared with :func:`reset`.
+
 Nothing here runs at import time: the tests import every module on
 hosts with no ``nvcc`` and no card.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from ..core.dtypes import dtype_name
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -34,6 +44,30 @@ NVCC_FLAGS: List[str] = [
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+# the ``dtype`` argument of every entry point under csrc/
+_DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.float16: 2,
+                torch.bfloat16: 3}
+
+
+class Launch(NamedTuple):
+    """A key of the launch ledger: the kernel (``"gemm"``, ``"flash"``,
+    ``"mla_decode"``), its path, the name of its dtype and its tags
+    (``"epilogue"``, ``"staged"``, a simt copy variant such as
+    ``"16-byte"``, a flash shape key such as ``"d80,causal"``)."""
+
+    kernel: str
+    path: str
+    dtype: str
+    tags: Tuple[str, ...] = ()
+
+
+# launches of the hand kernels in this process, by (kernel, path, torch
+# dtype, tags); plain-version calls never count.  Bumped from every
+# thread that launches (one worker per pooled context in a BlasxServer),
+# so each bump is one locked update
+LAUNCHES: Dict[tuple, int] = {}
+_count_lock = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -85,3 +119,57 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
         return lib
+
+
+def bind(library: str, symbol: str, argtypes: Sequence) -> Callable:
+    """The entry point ``symbol`` of the library built from
+    ``csrc/<library>.cu``, taking ``argtypes`` and returning an int
+    (0, or the code of what it refused)."""
+    fn = getattr(load(library), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch(entry: Callable, device: torch.device, *args,
+           key: Tuple[str, str, torch.dtype, Tuple[str, ...]],
+           details: Callable[[], str]) -> None:
+    """``entry(*args, stream)`` on ``device``'s current stream.  A
+    nonzero return raises ``RuntimeError`` naming the entry and
+    ``details()``; a launch that returned 0 adds one to ``key``,
+    (kernel, path, dtype, tags), in the ledger."""
+    with torch.cuda.device(device):
+        rc = entry(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry.__name__} launch failed: error {rc} "
+                           f"({details()})")
+    with _count_lock:
+        LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
+
+
+def reset() -> None:
+    """Clear the ledger, every kernel at once."""
+    with _count_lock:
+        LAUNCHES.clear()
+
+
+def snapshot() -> Dict[Launch, int]:
+    """A copy of the ledger, keyed by :class:`Launch`."""
+    with _count_lock:
+        counts = list(LAUNCHES.items())
+    return {Launch(kernel, path, dtype_name(dtype), tags): n
+            for (kernel, path, dtype, tags), n in counts}
+
+
+def launches(kernel: str, path: Optional[str] = None,
+             dtype: Optional[str] = None, tag: Optional[str] = None) -> int:
+    """The launches of ``kernel`` on ``path``, in the dtype named
+    ``dtype`` and carrying ``tag``, each where given."""
+    return sum(n for k, n in snapshot().items() if k.kernel == kernel
+               and path in (None, k.path) and dtype in (None, k.dtype)
+               and (tag is None or tag in k.tags))

@@ -48,7 +48,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -71,44 +70,15 @@ SMEM_BUDGET = 232448  # bytes of shared memory one block may use (227 KB)
 # simt blocks an SM holds at every compiled head dim (108 KB each at
 # D = 128 of the SM's 228 KB; test_compiled_blocks_fit_shared_memory)
 SIMT_BLOCKS_PER_SM = 2
-
-_DTYPE_CODES = {torch.float32: 1, torch.float16: 2, torch.bfloat16: 3}
-
-# launches of the kernel in this process, in all, by dtype, by path and
-# dtype ({"mma": {"bfloat16": n}, ...}), by head dim and mask
-# ({"d80,causal": n, "d64,full": n}: shape_key), and those that read or
-# wrote a staged operand, by dtype; plain-version calls never count
-LAUNCHES = 0
-LAUNCHES_BY_DTYPE: Dict[str, int] = {}
-LAUNCHES_BY_PATH: Dict[str, Dict[str, int]] = {}
-LAUNCHES_BY_SHAPE: Dict[str, int] = {}
-LAUNCHES_STAGED: Dict[str, int] = {}
-# bumped from every thread that launches, so each bump is one locked
-# update
-_count_lock = threading.Lock()
+# the dtypes the library compiles (f64 has no path)
+DTYPES: Tuple[torch.dtype, ...] = (torch.float32, torch.float16,
+                                   torch.bfloat16)
 
 
 def shape_key(d: int, causal: bool) -> str:
-    """``LAUNCHES_BY_SHAPE``'s key of a call at head dim ``d``:
-    ``"d80,causal"`` or ``"d64,full"``."""
+    """The ledger's tag of a call at head dim ``d``: ``"d80,causal"`` or
+    ``"d64,full"``."""
     return f"d{d},{'causal' if causal else 'full'}"
-
-
-def count_launch(path: str, dtype: torch.dtype, staged: bool = False,
-                 shape: Optional[str] = None) -> None:
-    """Add one launch of ``path`` in ``dtype`` (of ``shape``, a
-    :func:`shape_key`, where given) to every count."""
-    global LAUNCHES
-    name = dtype_name(dtype)
-    with _count_lock:
-        LAUNCHES += 1
-        LAUNCHES_BY_DTYPE[name] = LAUNCHES_BY_DTYPE.get(name, 0) + 1
-        if staged:
-            LAUNCHES_STAGED[name] = LAUNCHES_STAGED.get(name, 0) + 1
-        by_path = LAUNCHES_BY_PATH.setdefault(path, {})
-        by_path[name] = by_path.get(name, 0) + 1
-        if shape is not None:
-            LAUNCHES_BY_SHAPE[shape] = LAUNCHES_BY_SHAPE.get(shape, 0) + 1
 
 
 def smem_bytes(path: str, d: int) -> int:
@@ -187,9 +157,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              f"{x.dtype}")
         if x.shape[-1] > 1 and x.stride(-1) != 1:
             raise ValueError(f"{name}'s last axis must be contiguous")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in DTYPES:
         raise ValueError(f"unsupported dtype {q.dtype}; the kernel takes "
-                         f"{sorted(dtype_name(t) for t in _DTYPE_CODES)}")
+                         f"{sorted(dtype_name(t) for t in DTYPES)}")
     b, _, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
@@ -209,20 +179,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def _entry():
-    fn = build.load("flash_attention").flash_attention_fwd
     # path, dtype, d, bq, bk, q, k, v, o, ws, counts, B, H, Hkv, Sq, Sk,
     # scale, causal, 12 strides (q, k, v, o: batch, seq, head), stream
-    fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]
-                   + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return build.bind("flash_attention", "flash_attention_fwd",
+                      [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
+                      + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]
+                      + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -252,24 +215,23 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if on_card:
         torch.ops.repro_torch.flash_attention_fwd(q, k, v, o, causal, scale)
     else:
-        _with_staging(q, k, v, o, lambda qs, ks, vs, os_: os_.copy_(
+        _with_staging(q, k, v, o, lambda qs, ks, vs, os_, _: os_.copy_(
             flash_attention_ref(qs, ks, vs, causal=causal, scale=scale)))
     return o
 
 
-def _with_staging(q, k, v, o, run) -> bool:
-    """``run(q, k, v, o)`` on operands the kernel can read in place: a
-    :func:`stage` copy of each one it cannot, a staged output copied
-    back into ``o``.  Returns whether any operand was staged."""
+def _with_staging(q, k, v, o, run) -> None:
+    """``run(q, k, v, o, staged)`` on operands the kernel can read in
+    place: a :func:`stage` copy of each one it cannot, a staged output
+    copied back into ``o``; ``staged`` says whether any was staged."""
     staging = operand_staging(q, k, v, o)
     qs, ks, vs = (stage(x) if s else x
                   for x, s in zip((q, k, v), staging))
     os_ = torch.empty_like(o, memory_format=torch.contiguous_format) \
         if staging[3] else o
-    run(qs, ks, vs, os_)
+    run(qs, ks, vs, os_, any(staging))
     if staging[3]:
         o.copy_(os_)
-    return any(staging)
 
 
 @torch.library.custom_op("repro_torch::flash_attention_fwd",
@@ -281,10 +243,8 @@ def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     so a trace on fake tensors (the dry-run) passes through it without
     launching or counting (its fake below), and ``FlopCounterMode``
     counts it by the formula below."""
-    staged = _with_staging(q, k, v, o, lambda qs, ks, vs, os_: _launch(
-        qs, ks, vs, os_, causal, scale))
-    count_launch(flash_path(q.dtype), q.dtype, staged,
-                 shape_key(q.shape[3], causal))
+    _with_staging(q, k, v, o, lambda qs, ks, vs, os_, staged: _launch(
+        qs, ks, vs, os_, causal, scale, staged))
 
 
 @_flash_attention_fwd.register_fake
@@ -304,34 +264,34 @@ def _flash_flops(q_shape, k_shape, v_shape, o_shape, *args,
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            o: torch.Tensor, causal: bool, scale: float) -> None:
-    """The kernel's launch on CUDA operands it can read in place; a
-    :func:`simt_split` call gets its partials' workspace and zeroed
-    finish counts."""
+            o: torch.Tensor, causal: bool, scale: float,
+            staged: bool) -> None:
+    """The kernel's launch on CUDA operands it can read in place, counted
+    in the ledger with its :func:`shape_key` and, where any operand was
+    staged, ``"staged"``; a :func:`simt_split` call gets its partials'
+    workspace and zeroed finish counts."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     path = flash_path(q.dtype)
     ws = counts = None
     if path == "simt" and simt_split(b, h, sq, causal,
-                                     _sm_count(q.device.index)):
+                                     build._sm_count(q.device.index)):
         bq = BLOCKS["simt"][0]
         tiles = b * h * -(-sq // bq)
         ws = torch.empty(2 * tiles * bq * (d + 2), device=q.device)
         counts = torch.zeros(tiles, device=q.device, dtype=torch.int32)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _entry()(PATH_CODES[path], _DTYPE_CODES[q.dtype], d,
-                      *BLOCKS[path], q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), o.data_ptr(),
-                      None if ws is None else ws.data_ptr(),
-                      None if counts is None else counts.data_ptr(),
-                      b, h, hkv, sq, sk, scale,
-                      int(causal), *_strides(q), *_strides(k), *_strides(v),
-                      *_strides(o), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: error {rc} "
-                           f"(path={path} B={b} Sq={sq} Sk={sk} H={h} "
-                           f"Hkv={hkv} D={d} dtype={q.dtype})")
+    shape = shape_key(d, causal)
+    build.launch(
+        _entry(), q.device, PATH_CODES[path], build._DTYPE_CODES[q.dtype], d,
+        *BLOCKS[path], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if counts is None else counts.data_ptr(), b, h, hkv, sq, sk,
+        scale, int(causal), *_strides(q), *_strides(k), *_strides(v),
+        *_strides(o),
+        key=("flash", path, q.dtype, ("staged", shape) if staged
+             else (shape,)),
+        details=lambda: (f"path={path} B={b} Sq={sq} Sk={sk} H={h} "
+                         f"Hkv={hkv} D={d} dtype={q.dtype}"))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

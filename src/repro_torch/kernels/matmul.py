@@ -52,13 +52,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..core.dtypes import (TORCH_DTYPES, accumulator_dtype, canonical_dtype,
-                           dtype_name)
+from ..core.dtypes import TORCH_DTYPES, accumulator_dtype, canonical_dtype
 from . import build
 from .ref import ACTIVATIONS, batched_contract_ref
 
@@ -79,49 +77,12 @@ SMEM_PAD = 4          # elements of skew in the simt and dmma stages
 SMEM_BUDGET = 232448  # bytes of shared memory one block may use (227 KB)
 TMA_ROW = 8           # a 16-bit row TMA reads is a multiple of 8 elements
 
-_DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.float16: 2,
-                torch.bfloat16: 3}
-
 # the epilogue's activation codes (csrc/blasx_gemm.cu ``enum Act``)
 ACTIVATION_CODES = {None: 0, "none": 0, "relu": 1, "gelu": 2, "silu": 3,
                     "tanh": 4}
 
 # the simt path's copy variants, by the floats one copy moves
 SIMT_COPIES = {4: "16-byte", 1: "4-byte"}
-
-# launches of the kernel in this process, in all, by storage dtype, by
-# path and dtype ({"wgmma": {"bfloat16": n}, ...}), those with an
-# epilogue, those on staged operands, by dtype, and simt's by copy
-# variant ({"16-byte": n, "4-byte": n}); plain-version calls never count
-LAUNCHES = 0
-LAUNCHES_BY_DTYPE: Dict[str, int] = {}
-LAUNCHES_BY_PATH: Dict[str, Dict[str, int]] = {}
-LAUNCHES_EPILOGUE = 0
-LAUNCHES_STAGED: Dict[str, int] = {}
-LAUNCHES_SIMT_COPY: Dict[str, int] = {}
-# the counts are bumped from every thread that launches (one worker per
-# pooled context in a BlasxServer), so each bump is one locked update
-_count_lock = threading.Lock()
-
-
-def count_launch(path: str, dtype: torch.dtype, epilogue: bool,
-                 staged: bool = False, vec: int = 0) -> None:
-    """Add one launch of ``path`` in ``dtype`` to every count (``vec``:
-    a simt launch's :func:`simt_vec`, counted by variant when given)."""
-    global LAUNCHES, LAUNCHES_EPILOGUE
-    name = dtype_name(dtype)
-    with _count_lock:
-        LAUNCHES += 1
-        LAUNCHES_EPILOGUE += int(epilogue)
-        if staged:
-            LAUNCHES_STAGED[name] = LAUNCHES_STAGED.get(name, 0) + 1
-        if vec:
-            copy = SIMT_COPIES[vec]
-            LAUNCHES_SIMT_COPY[copy] = LAUNCHES_SIMT_COPY.get(copy, 0) + 1
-        LAUNCHES_BY_DTYPE[name] = LAUNCHES_BY_DTYPE.get(name, 0) + 1
-        by_dtype = LAUNCHES_BY_PATH.setdefault(path, {})
-        by_dtype[name] = by_dtype.get(name, 0) + 1
-
 
 def _path(itemsize: int) -> str:
     return {8: "dmma", 2: "wgmma"}.get(itemsize, "simt")
@@ -243,7 +204,7 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
                          f"and {b.device}")
     if a.dtype != b.dtype:
         raise ValueError(f"operand dtypes differ: {a.dtype} and {b.dtype}")
-    if a.dtype not in _DTYPE_CODES:
+    if a.dtype not in build._DTYPE_CODES:
         raise ValueError(f"unsupported dtype {a.dtype}; the kernel takes "
                          f"{sorted(TORCH_DTYPES)}")
     if a.ndim != 4 or b.ndim != 4:
@@ -262,14 +223,12 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    fn = build.load("blasx_gemm").blasx_batched_gemm
     # path, dtype, out_acc, a, b, bias, act, c, G, S, M, K, N, lda, ldb,
     # bm, bn, bk, stages, vec, stream
-    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 12
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return build.bind("blasx_gemm", "blasx_batched_gemm",
+                      [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+                      + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 12
+                      + [ctypes.c_void_p])
 
 
 class Operands(NamedTuple):
@@ -353,7 +312,8 @@ def _launch(ops: Operands, out_dtype: Optional[torch.dtype] = None, *,
             activation: Optional[str] = None) -> torch.Tensor:
     """The kernel's launch on CUDA operands as :func:`batched_contract`
     has checked and staged them (``bias`` contiguous in the accumulator
-    type); counts it."""
+    type), counted in the ledger with its tags: ``"epilogue"``,
+    ``"staged"`` and simt's copy variant (``SIMT_COPIES``)."""
     a, b = ops.a, ops.b
     g, s, m, _ = a.shape
     k, n = ops.k, ops.n
@@ -370,21 +330,18 @@ def _launch(ops: Operands, out_dtype: Optional[torch.dtype] = None, *,
                     dtype=out_dtype if out_acc else a.dtype)
     if c.numel() == 0:
         return c.to(out_dtype)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = _entry()(PATH_CODES[path], _DTYPE_CODES[a.dtype], int(out_acc),
-                      a.data_ptr(), b.data_ptr(),
-                      None if bias is None else bias.data_ptr(),
-                      ACTIVATION_CODES[activation], c.data_ptr(), g, s, m, k,
-                      n, a.shape[3], b.shape[3], bm, bn, bk,
-                      BLOCKS[path][(bm, bn, bk)], vec, stream)
-    if rc != 0:
-        raise RuntimeError(f"blasx_batched_gemm launch failed: error {rc} "
-                           f"(G={g} S={s} M={m} K={k} N={n} "
-                           f"lda={a.shape[3]} ldb={b.shape[3]} "
-                           f"blocks={bm}x{bn}x{bk} path={path} vec={vec} "
-                           f"dtype={a.dtype} "
-                           f"activation={activation})")
-    count_launch(path, a.dtype, bias is not None
-                 or ACTIVATION_CODES[activation] != 0, ops.staged, vec)
+    epilogue = bias is not None or ACTIVATION_CODES[activation] != 0
+    tags = (("epilogue",) * epilogue + ("staged",) * ops.staged
+            + ((SIMT_COPIES[vec],) if vec else ()))
+    build.launch(
+        _entry(), a.device, PATH_CODES[path], build._DTYPE_CODES[a.dtype],
+        int(out_acc), a.data_ptr(), b.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        ACTIVATION_CODES[activation], c.data_ptr(), g, s, m, k, n,
+        a.shape[3], b.shape[3], bm, bn, bk, BLOCKS[path][(bm, bn, bk)], vec,
+        key=("gemm", path, a.dtype, tags),
+        details=lambda: (f"G={g} S={s} M={m} K={k} N={n} lda={a.shape[3]} "
+                         f"ldb={b.shape[3]} blocks={bm}x{bn}x{bk} "
+                         f"path={path} vec={vec} dtype={a.dtype} "
+                         f"activation={activation}"))
     return c if c.dtype == out_dtype else c.to(out_dtype)

@@ -42,8 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -59,7 +58,8 @@ from .ref import mla_decode_ref
 R, ROPE, HEADS, BK = 512, 64, 64, 32
 SIMT_MAX_R, SIMT_MAX_DQ = 512, 1024
 PATHS: Tuple[str, ...] = ("wgmma", "simt")
-_DTYPE_CODES = {torch.float32: 1, torch.float16: 2, torch.bfloat16: 3}
+DTYPES: Tuple[torch.dtype, ...] = (torch.float32, torch.float16,
+                                   torch.bfloat16)  # the caches' dtypes
 # the split (:func:`splits`): blocks enough for WAVES waves of the card's
 # SMs, each over at least MIN_SPLIT positions.  Timed on an H100 (PERF.md
 # §6): one slot of 8192 live positions takes 0.56 ms unsplit and 0.03 ms
@@ -67,19 +67,6 @@ _DTYPE_CODES = {torch.float32: 1, torch.float16: 2, torch.bfloat16: 3}
 # split only adds partials (0.90 ms unsplit, 0.92 in 4 runs, 1.16 in 16)
 WAVES = 2
 MIN_SPLIT = 256
-
-# launches of the kernel in this process by path and cache dtype
-# ({"wgmma": {"bfloat16": n}, ...}); plain-version calls never count
-LAUNCHES_BY_PATH: Dict[str, Dict[str, int]] = {}
-_count_lock = threading.Lock()
-
-
-def count_launch(path: str, dtype: torch.dtype) -> None:
-    """Add one launch of ``path`` on a cache of ``dtype``."""
-    name = dtype_name(dtype)
-    with _count_lock:
-        by_path = LAUNCHES_BY_PATH.setdefault(path, {})
-        by_path[name] = by_path.get(name, 0) + 1
 
 
 def mla_path(dtype: torch.dtype) -> str:
@@ -153,9 +140,9 @@ def _card_check(q_c, ckv, k_rope) -> None:
     """What the card's paths take beyond :func:`_check`."""
     if q_c.dtype != torch.float32:
         raise ValueError(f"the kernel takes q_c in float32, got {q_c.dtype}")
-    if ckv.dtype not in _DTYPE_CODES:
+    if ckv.dtype not in DTYPES:
         raise ValueError(f"no kernel for a {ckv.dtype} cache; it takes "
-                         f"{sorted(dtype_name(t) for t in _DTYPE_CODES)}")
+                         f"{sorted(dtype_name(t) for t in DTYPES)}")
     b, h, r = q_c.shape
     dr = k_rope.shape[2]
     if mla_path(ckv.dtype) == "simt":
@@ -178,21 +165,14 @@ def _card_check(q_c, ckv, k_rope) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def _entry():
-    fn = build.load("mla_decode").mla_decode
     # dtype, qc, qr, ckv, kr, idx, idx64, o, ws, B, H, Skv, R, Dr,
     # split_len, n_splits, scale, 10 strides, stream
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] + [ctypes.c_longlong] * 10
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return build.bind("mla_decode", "mla_decode",
+                      [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+                      + [ctypes.c_float] + [ctypes.c_longlong] * 10
+                      + [ctypes.c_void_p])
 
 
 @torch.library.custom_op("repro_torch::mla_decode", mutates_args=("o",))
@@ -204,7 +184,6 @@ def _mla_decode_op(q_c: torch.Tensor, q_rope: torch.Tensor,
     launching or counting (its fake below), and ``FlopCounterMode``
     counts it by the formula below."""
     _launch(q_c, q_rope, ckv, k_rope, idx, o, scale)
-    count_launch(mla_path(ckv.dtype), ckv.dtype)
 
 
 @_mla_decode_op.register_fake
@@ -223,28 +202,26 @@ def _mla_decode_flops(q_c_shape, q_rope_shape, ckv_shape, k_rope_shape,
 
 
 def _launch(q_c, q_rope, ckv, k_rope, idx, o, scale: float) -> None:
+    """The kernel's launch, counted in the ledger by path and cache
+    dtype."""
     b, h, r = q_c.shape
     skv, dr = ckv.shape[1], k_rope.shape[2]
     path = mla_path(ckv.dtype)
     split, n = (skv, 1) if path == "simt" else splits(
-        skv, b, h, _sm_count(ckv.device.index))
+        skv, b, h, build._sm_count(ckv.device.index))
     nws = workspace_floats(b, h, n) if path == "wgmma" else 0
     ws = torch.empty(nws, device=ckv.device) if nws else None
-    with torch.cuda.device(ckv.device):
-        stream = torch.cuda.current_stream(ckv.device).cuda_stream
-        rc = _entry()(_DTYPE_CODES[ckv.dtype], q_c.data_ptr(),
-                      q_rope.data_ptr(), ckv.data_ptr(), k_rope.data_ptr(),
-                      idx.data_ptr(), int(idx.dtype == torch.int64),
-                      o.data_ptr(), None if ws is None else ws.data_ptr(),
-                      b, h, skv, r, dr, split, n, scale,
-                      q_c.stride(0), q_c.stride(1), q_rope.stride(0),
-                      q_rope.stride(1), o.stride(0), o.stride(1),
-                      ckv.stride(0), ckv.stride(1), k_rope.stride(0),
-                      k_rope.stride(1), stream)
-    if rc != 0:
-        raise RuntimeError(f"mla_decode launch failed: error {rc} (path="
-                           f"{path} B={b} H={h} Skv={skv} R={r} Dr={dr} "
-                           f"dtype={ckv.dtype})")
+    build.launch(
+        _entry(), ckv.device, build._DTYPE_CODES[ckv.dtype], q_c.data_ptr(),
+        q_rope.data_ptr(), ckv.data_ptr(), k_rope.data_ptr(), idx.data_ptr(),
+        int(idx.dtype == torch.int64), o.data_ptr(),
+        None if ws is None else ws.data_ptr(), b, h, skv, r, dr, split, n,
+        scale, q_c.stride(0), q_c.stride(1), q_rope.stride(0),
+        q_rope.stride(1), o.stride(0), o.stride(1), ckv.stride(0),
+        ckv.stride(1), k_rope.stride(0), k_rope.stride(1),
+        key=("mla_decode", path, ckv.dtype, ()),
+        details=lambda: (f"path={path} B={b} H={h} Skv={skv} R={r} Dr={dr} "
+                         f"dtype={ckv.dtype}"))
 
 
 def mla_decode(q_c: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.api import BlasxContext
 from repro_torch.core.runtime import RuntimeConfig
+from repro_torch.kernels import build
 from repro_torch.kernels import matmul as kmm
 from repro_torch.kernels.ref import batched_contract_ref
 
@@ -37,10 +38,10 @@ def test_kernel_matches_plain_version(card, dtype, shape):
     gen = torch.Generator(device=card).manual_seed(0)
     a = torch.randn((g, s, m, k), generator=gen, device=card).to(dtype)
     b = torch.randn((g, s, k, n), generator=gen, device=card).to(dtype)
-    before = kmm.LAUNCHES
+    before = build.launches("gemm")
     got = kmm.batched_contract(a, b)
     torch.cuda.synchronize()
-    assert kmm.LAUNCHES == before + 1
+    assert build.launches("gemm") == before + 1
     want = batched_contract_ref(a, b)
     err = torch.linalg.norm((got - want).double()) / torch.linalg.norm(
         want.double())
@@ -66,10 +67,10 @@ def test_tensor_core_paths_match_plain_version(card, dtype, shape):
     a = torch.randn((g, s, m, k), generator=gen, device=card).to(dtype)
     b = torch.randn((g, s, k, n), generator=gen, device=card).to(dtype)
     name = dtype_name(dtype)
-    before = kmm.LAUNCHES_BY_PATH.get(path, {}).get(name, 0)
+    before = build.launches("gemm", path=path, dtype=name)
     got = kmm.batched_contract(a, b)
     torch.cuda.synchronize()
-    assert kmm.LAUNCHES_BY_PATH[path][name] == before + 1
+    assert build.launches("gemm", path=path, dtype=name) == before + 1
     want = batched_contract_ref(a, b)
     err = torch.linalg.norm((got - want).double()) / torch.linalg.norm(
         want.double())
@@ -87,37 +88,49 @@ def test_entry_refuses_operands_the_path_cannot_read(card):
     rather than reading past it: another type on dmma, wgmma or simt
     (16-bit is never simt's), 16-bit operands off TMA's 16-byte
     alignment or rows, 16-byte simt copies off their rows or bases, and
-    padded rows off wgmma; a copy width simt does not have is rc -1."""
+    padded rows off wgmma; a copy width simt does not have is rc -1.
+    The shared launch call raises on each and counts none."""
     def call(path, a, b, blocks, k=None, n=None, vec=1):
         g, s, m, lda = a.shape
         ldb = b.shape[3]
         k, n = k or lda, n or ldb
         c = torch.empty((g, m, n), device=card, dtype=torch.float32)
-        stream = torch.cuda.current_stream().cuda_stream
-        return kmm._entry()(kmm.PATH_CODES[path], kmm._DTYPE_CODES[a.dtype],
-                            1, a.data_ptr(), b.data_ptr(), None, 0,
-                            c.data_ptr(), g, s, m, k, n, lda, ldb, *blocks,
-                            kmm.BLOCKS[path][blocks], vec, stream)
+        build.launch(kmm._entry(), card, kmm.PATH_CODES[path],
+                     build._DTYPE_CODES[a.dtype], 1, a.data_ptr(),
+                     b.data_ptr(), None, 0, c.data_ptr(), g, s, m, k, n,
+                     lda, ldb, *blocks, kmm.BLOCKS[path][blocks], vec,
+                     key=("gemm", path, a.dtype, ()),
+                     details=lambda: f"{path} {a.dtype} vec={vec}")
+
+    def refused(rc, *args, **kw):
+        with pytest.raises(RuntimeError, match="blasx_batched_gemm launch "
+                           f"failed: error {rc} "):
+            call(*args, **kw)
+        return True
     wg, dm = kmm.compiled_blocks("wgmma")[0], kmm.compiled_blocks("dmma")[0]
     sm = kmm.compiled_blocks("simt")[0]
     f32 = torch.ones((1, 1, 64, 64), device=card)
     bf = f32.bfloat16()
-    assert call("wgmma", f32, f32, wg) == -2
-    assert call("dmma", bf, bf, dm) == -2
-    assert call("simt", f32.double(), f32.double(), sm) == -2
-    assert call("simt", bf, bf, sm) == -2
-    assert call("simt", f32, f32, sm, k=60) == -2  # padded rows off wgmma
-    assert call("simt", f32, f32, sm, vec=2) == -1
+    before = build.snapshot()
+    assert refused(-2, "wgmma", f32, f32, wg)
+    assert refused(-2, "dmma", bf, bf, dm)
+    assert refused(-2, "simt", f32.double(), f32.double(), sm)
+    assert refused(-2, "simt", bf, bf, sm)
+    assert refused(-2, "simt", f32, f32, sm, k=60)  # padded rows off wgmma
+    assert refused(-1, "simt", f32, f32, sm, vec=2)
     f32_62 = torch.ones((1, 1, 64, 62), device=card)
-    assert call("simt", f32_62, f32[:, :, :62], sm, vec=4) == -2
+    assert refused(-2, "simt", f32_62, f32[:, :, :62], sm, vec=4)
     f32_off = torch.ones(64 * 64 + 1, device=card)[1:].view(1, 1, 64, 64)
-    assert call("simt", f32_off, f32, sm, vec=4) == -2
-    assert call("simt", f32_off, f32, sm, vec=1) == 0
+    assert refused(-2, "simt", f32_off, f32, sm, vec=4)
     off = torch.ones(64 * 64 + 1, device=card, dtype=torch.bfloat16)[1:]
-    assert call("wgmma", off.view(1, 1, 64, 64), bf, wg) == -2
+    assert refused(-2, "wgmma", off.view(1, 1, 64, 64), bf, wg)
     rows60 = torch.ones((1, 1, 64, 60), device=card, dtype=torch.bfloat16)
-    assert call("wgmma", rows60, bf[:, :, :60], wg) == -2
+    assert refused(-2, "wgmma", rows60, bf[:, :, :60], wg)
+    assert build.snapshot() == before
+    call("simt", f32_off, f32, sm, vec=1)
     torch.cuda.synchronize()
+    assert build.launches("gemm") == sum(
+        n for k, n in before.items() if k.kernel == "gemm") + 1
 
 
 # ------------------------------------------- f32 simt and 16-bit staging
@@ -153,12 +166,13 @@ def test_f32_simt_on_every_block_and_copy_variant(card, blocks, variant):
         cases.append((a, torch.randn((g, s, k, n), generator=gen,
                                      device=card)))
     for a, b in cases:
-        before = kmm.LAUNCHES_BY_PATH.get("simt", {}).get("float32", 0)
-        copies = kmm.LAUNCHES_SIMT_COPY.get(variant, 0)
+        before = build.launches("gemm", path="simt", dtype="float32")
+        copies = build.launches("gemm", tag=variant)
         got = kmm.batched_contract(a, b, blocks=blocks)
         torch.cuda.synchronize()
-        assert kmm.LAUNCHES_BY_PATH["simt"]["float32"] == before + 1
-        assert kmm.LAUNCHES_SIMT_COPY[variant] == copies + 1
+        assert build.launches("gemm", path="simt", dtype="float32") == \
+            before + 1
+        assert build.launches("gemm", tag=variant) == copies + 1
         assert _normwise(got, batched_contract_ref(a, b)) <= 1e-4
 
 
@@ -190,13 +204,13 @@ def test_staged_16bit_shapes_take_wgmma(card, dtype):
     for a, b in cases:
         assert kmm.operand_path(a, b) == "wgmma"
         assert any(kmm.operand_staging(a, b))
-        before = kmm.LAUNCHES_BY_PATH.get("wgmma", {}).get(name, 0)
-        simt = kmm.LAUNCHES_BY_PATH.get("simt", {}).get(name, 0)
+        before = build.launches("gemm", path="wgmma", dtype=name)
+        simt = build.launches("gemm", path="simt", dtype=name)
         got = kmm.batched_contract(a, b)
         wide = kmm.batched_contract(a, b, torch.float32)
         torch.cuda.synchronize()
-        assert kmm.LAUNCHES_BY_PATH["wgmma"][name] == before + 2
-        assert kmm.LAUNCHES_BY_PATH.get("simt", {}).get(name, 0) == simt
+        assert build.launches("gemm", path="wgmma", dtype=name) == before + 2
+        assert build.launches("gemm", path="simt", dtype=name) == simt
         assert _normwise(got, batched_contract_ref(a, b)) <= 2e-2
         assert _normwise(wide, batched_contract_ref(a, b, torch.float32)) \
             <= 1e-4
@@ -216,10 +230,10 @@ def test_epilogue_on_staged_16bit_shapes(card, dtype, activation):
         b = torch.randn((k, n), generator=gen, device=card).to(dtype)
         bias = torch.randn((n,), generator=gen, device=card)
         assert kmm.operand_staging(a, b) == (True, True)
-        before = kmm.LAUNCHES_EPILOGUE
+        before = build.launches("gemm", tag="epilogue")
         got = ops.matmul(a, b, bias, activation=activation)
         torch.cuda.synchronize()
-        assert kmm.LAUNCHES_EPILOGUE == before + 1
+        assert build.launches("gemm", tag="epilogue") == before + 1
         assert _normwise(got, matmul_ref(a, b, bias, activation)) <= 2e-2
 
 
@@ -247,7 +261,6 @@ def test_train_mode_attention_on_the_card_keeps_grad_fn(card):
     default "flash" backend takes the plain chunked path (no flash
     launch) and keeps its gradients; without grad the kernel runs."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models import Model
     from repro_torch.models import attention as attn
     cfg = get_config("qwen3_0_6b").reduced()
@@ -262,15 +275,15 @@ def test_train_mode_attention_on_the_card_keeps_grad_fn(card):
     train = trainable(params)
     tok = torch.randint(0, cfg.vocab_size, (2, 16), device=card)
     assert attn.ATTENTION_BACKEND == "flash"
-    before = kfa.LAUNCHES
+    before = build.launches("flash")
     logits, _ = model.train_logits(train, tokens=tok)
-    assert kfa.LAUNCHES == before and logits.grad_fn is not None
+    assert build.launches("flash") == before and logits.grad_fn is not None
     logits.float().square().mean().backward()
     assert train["blocks"]["attn"]["wq"].grad is not None
     with torch.no_grad():
         model.train_logits(train, tokens=tok)
     torch.cuda.synchronize()
-    assert kfa.LAUNCHES == before + cfg.n_layers
+    assert build.launches("flash") == before + cfg.n_layers
 
 
 def test_context_launches_take_the_tensor_core_paths(card):
@@ -280,13 +293,13 @@ def test_context_launches_take_the_tensor_core_paths(card):
     A = rng.standard_normal((256, 192))
     B = rng.standard_normal((192, 320))
     for dtype, path in (("bfloat16", "wgmma"), ("float64", "dmma")):
-        kmm.LAUNCHES_BY_PATH.clear()
-        kmm.LAUNCHES_BY_DTYPE.clear()
+        build.reset()
         with BlasxContext(RuntimeConfig(n_devices=2), tile=64,
                           dtype=dtype) as ctx:
             out = ctx.gemm(A, B)
             launches = ctx.stats()["launch"]["kernel_launches"]
-        assert kmm.LAUNCHES_BY_PATH == {path: {dtype: launches}}
+        assert build.launches("gemm") == launches
+        assert build.launches("gemm", path=path, dtype=dtype) == launches
         tol = 1e-12 if dtype == "float64" else 2e-2
         got = torch.as_tensor(out.array()).double().numpy()
         assert np.linalg.norm(got - A @ B) / np.linalg.norm(A @ B) <= tol
@@ -297,10 +310,10 @@ def test_context_gemm_launches_match_ledger(card):
     A = rng.standard_normal((300, 200))
     B = rng.standard_normal((200, 250))
     with BlasxContext(RuntimeConfig(n_devices=2), tile=64) as ctx:
-        before = kmm.LAUNCHES
+        before = build.launches("gemm")
         out = ctx.gemm(A, B)
         ls = ctx.stats()["launch"]
-        assert kmm.LAUNCHES - before == ls["kernel_launches"]
+        assert build.launches("gemm") - before == ls["kernel_launches"]
         assert set(ls["engine_flops"]) <= {"cuda", "torch"}
         np.testing.assert_allclose(out.array(), A @ B, rtol=1e-12,
                                    atol=1e-12)
@@ -317,10 +330,10 @@ def test_epilogue_matches_plain_version(card, dtype, activation):
     a = torch.randn((100, 70), generator=gen, device=card).to(dtype)
     b = torch.randn((70, 130), generator=gen, device=card).to(dtype)
     bias = torch.randn((130,), generator=gen, device=card)
-    before = kmm.LAUNCHES_EPILOGUE
+    before = build.launches("gemm", tag="epilogue")
     got = ops.matmul(a, b, bias, activation=activation)
     torch.cuda.synchronize()
-    assert kmm.LAUNCHES_EPILOGUE == before + 1
+    assert build.launches("gemm", tag="epilogue") == before + 1
     want = matmul_ref(a, b, bias, activation)
     err = torch.linalg.norm((got - want).double()) / torch.linalg.norm(
         want.double())
@@ -341,10 +354,11 @@ def test_epilogue_on_the_wgmma_path(card, dtype, activation):
     b = torch.randn((1024, 3072), generator=gen, device=card).to(dtype)
     bias = torch.randn((3072,), generator=gen, device=card)
     assert ops.kernel_path(dtype) == "wgmma"
-    before = kmm.LAUNCHES_BY_PATH.get("wgmma", {}).get(dtype_name(dtype), 0)
+    name = dtype_name(dtype)
+    before = build.launches("gemm", path="wgmma", dtype=name)
     got = ops.matmul(a, b, bias, activation=activation)
     torch.cuda.synchronize()
-    assert kmm.LAUNCHES_BY_PATH["wgmma"][dtype_name(dtype)] == before + 1
+    assert build.launches("gemm", path="wgmma", dtype=name) == before + 1
     want = matmul_ref(a, b, bias, activation)
     err = torch.linalg.norm((got - want).double()) / torch.linalg.norm(
         want.double())
@@ -402,10 +416,10 @@ def test_flash_kernel_matches_plain_version(card, dtype, case):
     assert path == ("simt" if dtype == torch.float32 else "mma")
     assert not any(kfa.operand_staging(q, k, v))
     name = dtype_name(dtype)
-    before = kfa.LAUNCHES_BY_PATH.get(path, {}).get(name, 0)
+    before = build.launches("flash", path=path, dtype=name)
     got = kfa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert kfa.LAUNCHES_BY_PATH[path][name] == before + 1
+    assert build.launches("flash", path=path, dtype=name) == before + 1
     _flash_close(got, flash_attention_ref(q, k, v, causal=causal), dtype)
 
 
@@ -413,7 +427,7 @@ def test_flash_kernel_matches_plain_version(card, dtype, case):
 def test_flash_views_take_the_path_their_strides_allow(card, dtype):
     """flash_attention_bhsd's permuted views read in place on the mma
     path; a seq stride off a multiple of 8 elements is staged onto mma
-    (counted in LAUNCHES_STAGED), never put on simt."""
+    (its launch tagged "staged"), never put on simt."""
     from repro_torch.core.dtypes import dtype_name
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels.ref import flash_attention_ref
@@ -421,10 +435,10 @@ def test_flash_views_take_the_path_their_strides_allow(card, dtype):
     gen = torch.Generator(device=card).manual_seed(5)
     q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
                for shape in ((8, 150, 64), (2, 150, 64), (2, 150, 64)))
-    before = dict(kfa.LAUNCHES_BY_PATH.get("mma", {}))
+    before = build.launches("flash", path="mma", dtype=name)
     got = kfa.flash_attention_bhsd(q, k, v)
     torch.cuda.synchronize()
-    assert kfa.LAUNCHES_BY_PATH["mma"][name] == before.get(name, 0) + 1
+    assert build.launches("flash", path="mma", dtype=name) == before + 1
     view = lambda x: x.permute(1, 0, 2)[None]
     want = flash_attention_ref(view(q), view(k), view(v))[0].permute(1, 0, 2)
     _flash_close(got, want, dtype)
@@ -435,14 +449,14 @@ def test_flash_views_take_the_path_their_strides_allow(card, dtype):
         ..., :heads * d].unflatten(-1, (heads, d))
     q, k, v = wide(h), wide(hkv), wide(hkv)
     assert kfa.operand_staging(q, k, v) == (True, True, True)
-    before = kfa.LAUNCHES_BY_PATH.get("mma", {}).get(name, 0)
-    staged = kfa.LAUNCHES_STAGED.get(name, 0)
-    simt = kfa.LAUNCHES_BY_PATH.get("simt", {}).get(name, 0)
+    before = build.launches("flash", path="mma", dtype=name)
+    staged = build.launches("flash", dtype=name, tag="staged")
+    simt = build.launches("flash", path="simt", dtype=name)
     got = kfa.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert kfa.LAUNCHES_BY_PATH["mma"][name] == before + 1
-    assert kfa.LAUNCHES_STAGED[name] == staged + 1
-    assert kfa.LAUNCHES_BY_PATH.get("simt", {}).get(name, 0) == simt
+    assert build.launches("flash", path="mma", dtype=name) == before + 1
+    assert build.launches("flash", dtype=name, tag="staged") == staged + 1
+    assert build.launches("flash", path="simt", dtype=name) == simt
     _flash_close(got, flash_attention_ref(q, k, v), dtype)
 
 
@@ -458,12 +472,14 @@ def test_f32_simt_kernel_on_every_head_dim(card, d):
     for case in FLASH_CASES + FLASH_HAZARDS:
         case = (*case[:5], d, case[6])
         q, k, v = _flash_operands(card, torch.float32, case)
-        before = kfa.LAUNCHES_BY_PATH.get("simt", {}).get("float32", 0)
-        staged = kfa.LAUNCHES_STAGED.get("float32", 0)
+        before = build.launches("flash", path="simt", dtype="float32")
+        staged = build.launches("flash", dtype="float32", tag="staged")
         got = kfa.flash_attention(q, k, v, causal=case[6])
         torch.cuda.synchronize()
-        assert kfa.LAUNCHES_BY_PATH["simt"]["float32"] == before + 1, case
-        assert kfa.LAUNCHES_STAGED.get("float32", 0) == staged, case
+        assert build.launches("flash", path="simt", dtype="float32") == \
+            before + 1, case
+        assert build.launches("flash", dtype="float32", tag="staged") == \
+            staged, case
         want = flash_attention_ref(q, k, v, causal=case[6])
         err = float((got - want).abs().max())
         assert err <= FLASH_TOL[torch.float32], (case, err)
@@ -487,10 +503,10 @@ def test_flash_kernel_at_head_dim_80_and_full_attention(card, dtype, case):
     causal, d = case[6], case[5]
     q, k, v = _flash_operands(card, dtype, case)
     key = kfa.shape_key(d, causal)
-    before = kfa.LAUNCHES_BY_SHAPE.get(key, 0)
+    before = build.launches("flash", tag=key)
     got = kfa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert kfa.LAUNCHES_BY_SHAPE[key] == before + 1
+    assert build.launches("flash", tag=key) == before + 1
     _flash_close(got, flash_attention_ref(q, k, v, causal=causal), dtype)
 
 
@@ -504,7 +520,6 @@ def test_reduced_family_on_the_card_matches_the_cpu_port(card, arch,
     (the kernel's plain version): train and prefill logits and two decode
     steps within 2e-4, and the prefill's flash launches by shape."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models import Model
     cfg = get_config(arch).reduced()
     model = Model(cfg)
@@ -523,14 +538,17 @@ def test_reduced_family_on_the_card_matches_the_cpu_port(card, arch,
     kw_p = dict(kw, tokens=kw["tokens"][:, :10])
     close = lambda a, b: np.testing.assert_allclose(
         a.cpu().numpy(), b.numpy(), rtol=2e-4, atol=2e-4)
-    monkeypatch.setattr(kfa, "LAUNCHES_BY_SHAPE", {})
+    monkeypatch.setattr(build, "LAUNCHES", {})
     with torch.no_grad():
         close(model.train_logits(gpu, **on(kw, card))[0],
               model.train_logits(cpu, **kw)[0])
-        monkeypatch.setattr(kfa, "LAUNCHES_BY_SHAPE", {})
+        build.reset()
         lg, cg = model.prefill(gpu, **on(kw_p, card))
         torch.cuda.synchronize()
-        shapes = dict(kfa.LAUNCHES_BY_SHAPE)
+        flash = build.launches("flash")
+        shapes = {t: build.launches("flash", tag=t) for t in (
+            f"d{cfg.resolved_head_dim},causal",
+            f"d{cfg.resolved_head_dim},full")}
         lc, cc = model.prefill(cpu, **kw_p)
         close(lg, lc)
         cg, cc = model.pad_cache(cg, S), model.pad_cache(cc, S)
@@ -544,7 +562,9 @@ def test_reduced_family_on_the_card_matches_the_cpu_port(card, arch,
     want = {"olmoe_1b_7b": {f"d{hd},causal": 2}, "deepseek_v3_671b": {},
             "mamba2_780m": {}, "zamba2_2_7b": {f"d{hd},causal": 2},
             "seamless_m4t_medium": {f"d{hd},full": 2, f"d{hd},causal": 2}}
-    assert shapes == want[arch]
+    # every launch carries one shape tag: none of another shape
+    assert {t: n for t, n in shapes.items() if n} == want[arch]
+    assert flash == sum(want[arch].values())
 
 
 @pytest.mark.parametrize("case", [(1, 1024, 1024, 16, 8, 128, True),
@@ -567,18 +587,19 @@ def test_f32_simt_split_and_whole_tiles_agree(card, case):
     tiles = b * h * -(-sq // bq)
     ws = torch.empty(2 * tiles * bq * (d + 2), device=card)
     counts = torch.zeros(tiles, device=card, dtype=torch.int32)
-    stream = torch.cuda.current_stream().cuda_stream
     st = [x.stride(i) if x.shape[i] > 1 else 0
           for x in (q, k, v, q) for i in range(3)]
     for split in (False, True, True):
         o = torch.full_like(q, float("nan"))
         ptrs = (ws.data_ptr(), counts.data_ptr()) if split else (None, None)
-        rc = kfa._entry()(kfa.PATH_CODES["simt"], 1, d, *kfa.BLOCKS["simt"],
-                          q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          o.data_ptr(), *ptrs, b, h, hkv, sq, sk, d ** -0.5,
-                          int(causal), *st, stream)
+        build.launch(kfa._entry(), card, kfa.PATH_CODES["simt"], 1, d,
+                     *kfa.BLOCKS["simt"], q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), o.data_ptr(), *ptrs, b, h, hkv, sq, sk,
+                     d ** -0.5, int(causal), *st,
+                     key=("flash", "simt", torch.float32,
+                          (kfa.shape_key(d, causal),)),
+                     details=lambda: f"split={split}")
         torch.cuda.synchronize()
-        assert rc == 0
         err = float((o - want).abs().max())
         assert err <= FLASH_TOL[torch.float32], (split, err)
         assert int(counts.abs().sum()) == 0
@@ -598,8 +619,8 @@ def test_staged_routes_on_the_card(card, dtype):
     """Operands the 16-byte copies cannot read in place (a seq stride off
     the chunk, a base off 16 bytes), output included, are staged onto
     the dtype's path: f32 on simt, 16-bit on mma, each launch counted in
-    LAUNCHES_STAGED; the result lands in the caller's output view, whose
-    padding stays untouched."""
+    the ledger with the "staged" tag; the result lands in the caller's
+    output view, whose padding stays untouched."""
     from repro_torch.core.dtypes import dtype_name
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels.ref import flash_attention_ref
@@ -618,83 +639,105 @@ def test_staged_routes_on_the_card(card, dtype):
         out.as_strided((b, s, 5), out.stride()[:2] + (1,),
                        out.storage_offset() + h * d).fill_(7.0)
         assert kfa.operand_staging(q, k, v, out) == (True,) * 4
-        before = kfa.LAUNCHES_BY_PATH.get(path, {}).get(name, 0)
-        staged = kfa.LAUNCHES_STAGED.get(name, 0)
+        before = build.launches("flash", path=path, dtype=name)
+        staged = build.launches("flash", dtype=name, tag="staged")
         assert kfa._attend(q, k, v, out, causal, None) is out
         got = kfa.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        assert kfa.LAUNCHES_BY_PATH[path][name] == before + 2
-        assert kfa.LAUNCHES_STAGED[name] == staged + 2
+        assert build.launches("flash", path=path, dtype=name) == before + 2
+        assert build.launches("flash", dtype=name, tag="staged") == \
+            staged + 2
         want = flash_attention_ref(q, k, v, causal=causal)
         _flash_close(out, want, dtype)
         _flash_close(got, want, dtype)
         pad = out.as_strided((b, s, 5), out.stride()[:2] + (1,),
                              out.storage_offset() + h * d)
         assert bool((pad == 7.0).all())
-    assert set(kfa.LAUNCHES_BY_PATH.get("simt", {})) <= {"float32"}
+    assert build.launches("flash", path="simt") == build.launches(
+        "flash", path="simt", dtype="float32")
 
 
 def test_flash_entry_refuses_16_bit_on_simt(card):
     """The C entry compiles simt for f32 alone: 16-bit operands on simt
     are refused (rc -2), as are f32 operands off its 16-byte copies; an
-    unknown dtype is rc -1."""
+    unknown dtype is rc -1.  The shared launch call raises on each and
+    counts only the launch that ran."""
     from repro_torch.kernels import flash_attention as kfa
 
     def call(q, kv, o, dtype=None):
         b, s, h, d = q.shape
-        stream = torch.cuda.current_stream().cuda_stream
         st = [x.stride(i) for x in (q, kv, kv, o) for i in range(3)]
-        return kfa._entry()(kfa.PATH_CODES["simt"],
-                            dtype or kfa._DTYPE_CODES[q.dtype], d,
-                            *kfa.BLOCKS["simt"], q.data_ptr(),
-                            kv.data_ptr(), kv.data_ptr(), o.data_ptr(), None,
-                            None, b, h, kv.shape[2], s, kv.shape[1], 0.125, 1,
-                            *st, stream)
+        build.launch(kfa._entry(), card, kfa.PATH_CODES["simt"],
+                     dtype or build._DTYPE_CODES[q.dtype], d,
+                     *kfa.BLOCKS["simt"], q.data_ptr(), kv.data_ptr(),
+                     kv.data_ptr(), o.data_ptr(), None, None, b, h,
+                     kv.shape[2], s, kv.shape[1], 0.125, 1, *st,
+                     key=("flash", "simt", q.dtype, ()),
+                     details=lambda: f"{q.dtype} on simt")
+
+    def refused(rc, *operands, dtype=None):
+        with pytest.raises(RuntimeError, match="flash_attention_fwd launch "
+                           f"failed: error {rc} "):
+            call(*operands, dtype=dtype)
+        return True
     f32 = torch.ones((1, 64, 2, 64), device=card)
+    before = build.snapshot()
+    ran = build.launches("flash", path="simt", dtype="float32")
     for half in (torch.bfloat16, torch.float16):
         x = f32.to(half)
-        assert call(x, x, torch.empty_like(x)) == -2
+        assert refused(-2, x, x, torch.empty_like(x))
     off = torch.ones(f32.numel() + 1, device=card)[1:].view(f32.shape)
-    assert call(off, f32, torch.empty_like(f32)) == -2
+    assert refused(-2, off, f32, torch.empty_like(f32))
     ragged = _off_copies(card, torch.float32, (1, 64, 2, 64), pad=2)
-    assert call(ragged, f32, torch.empty_like(f32)) == -2
-    assert call(f32, f32, torch.empty_like(f32), dtype=7) == -1
-    assert call(f32, f32, torch.empty_like(f32)) == 0
+    assert refused(-2, ragged, f32, torch.empty_like(f32))
+    assert refused(-1, f32, f32, torch.empty_like(f32), dtype=7)
+    assert build.snapshot() == before
+    call(f32, f32, torch.empty_like(f32))
     torch.cuda.synchronize()
+    assert build.launches("flash", path="simt", dtype="float32") == ran + 1
 
 
 def test_flash_entry_refuses_operands_the_path_cannot_read(card):
     """The wrapper picks the path; the C entry still refuses (rc -2) what
-    the mma path cannot read: f32, and a 16-bit base off 16 bytes."""
+    the mma path cannot read: f32, and a 16-bit base off 16 bytes.  The
+    shared launch call raises on each and counts none."""
     from repro_torch.kernels import flash_attention as kfa
 
     def call(q, kv, o):
         b, s, h, d = q.shape
-        stream = torch.cuda.current_stream().cuda_stream
         st = [x.stride(i) for x in (q, kv, kv, o) for i in range(3)]
-        return kfa._entry()(kfa.PATH_CODES["mma"], kfa._DTYPE_CODES[q.dtype],
-                            d, *kfa.BLOCKS["mma"], q.data_ptr(), kv.data_ptr(),
-                            kv.data_ptr(), o.data_ptr(), None, None, b, h,
-                            kv.shape[2], s, kv.shape[1], 0.125, 1, *st,
-                            stream)
+        build.launch(kfa._entry(), card, kfa.PATH_CODES["mma"],
+                     build._DTYPE_CODES[q.dtype], d, *kfa.BLOCKS["mma"],
+                     q.data_ptr(), kv.data_ptr(), kv.data_ptr(), o.data_ptr(),
+                     None, None, b, h, kv.shape[2], s, kv.shape[1], 0.125, 1,
+                     *st, key=("flash", "mma", q.dtype, ()),
+                     details=lambda: f"{q.dtype} on mma")
+
+    def refused(*operands):
+        with pytest.raises(RuntimeError, match="flash_attention_fwd launch "
+                           "failed: error -2 "):
+            call(*operands)
+        return True
     f32 = torch.ones((1, 64, 2, 64), device=card)
-    assert call(f32, f32, torch.empty_like(f32)) == -2
+    before = build.snapshot()
+    assert refused(f32, f32, torch.empty_like(f32))
     bf = f32.bfloat16()
     off = torch.ones(bf.numel() + 1, device=card,
                      dtype=torch.bfloat16)[1:].view(bf.shape)
-    assert call(off, bf, torch.empty_like(bf)) == -2
-    assert call(bf, bf, torch.empty_like(bf)) == 0
+    assert refused(off, bf, torch.empty_like(bf))
+    assert build.snapshot() == before
+    call(bf, bf, torch.empty_like(bf))
     torch.cuda.synchronize()
 
 
 def test_serve_run_launches_flash_once_per_layer_and_prefill(card):
-    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.launch.serve import ServeConfig, run
-    before = kfa.LAUNCHES
+    before = build.launches("flash")
     out = run(ServeConfig(smoke=True, device="cuda", requests=5,
                           batch_slots=2, max_new=4))
     assert out["requests"] == 5 and out["tokens"] == 20
-    assert kfa.LAUNCHES - before == 2 * 5  # 2 layers x 5 prefills
+    # 2 layers x 5 prefills
+    assert build.launches("flash") - before == 2 * 5
 
 
 def test_bf16_serve_run_puts_every_flash_launch_on_mma(card, monkeypatch):
@@ -702,17 +745,17 @@ def test_bf16_serve_run_puts_every_flash_launch_on_mma(card, monkeypatch):
     is a 16-bit one on the mma path."""
     import dataclasses
     from repro_torch.configs.base import ModelConfig
-    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.launch.serve import ServeConfig, run
     reduced = ModelConfig.reduced
     monkeypatch.setattr(ModelConfig, "reduced", lambda self:
                         dataclasses.replace(reduced(self), dtype="bfloat16"))
-    monkeypatch.setattr(kfa, "LAUNCHES_BY_PATH", {})
+    monkeypatch.setattr(build, "LAUNCHES", {})
     out = run(ServeConfig(smoke=True, device="cuda", requests=5,
                           batch_slots=2, max_new=4))
     assert out["requests"] == 5 and out["tokens"] == 20
     assert out["nonfinite_logits"] == 0
-    assert kfa.LAUNCHES_BY_PATH == {"mma": {"bfloat16": 2 * 5}}
+    assert build.launches("flash") == build.launches(
+        "flash", path="mma", dtype="bfloat16") == 2 * 5
 
 
 def test_cblas_padded_leading_dimensions_on_the_card(card):
@@ -731,8 +774,7 @@ def test_cblas_padded_leading_dimensions_on_the_card(card):
         C0 = rng.standard_normal((m, n)).astype(dt)
         store = np.full(n * ld, 7.0, dtype=dt)
         store.reshape(n, ld).T[:m, :] = C0
-        before = kmm.LAUNCHES_BY_PATH.get(path, {}).get(np.dtype(dt).name,
-                                                        0)
+        before = build.launches("gemm", path=path, dtype=np.dtype(dt).name)
         with BlasxContext(RuntimeConfig(n_devices=2), tile=128) as ctx:
             fn(CblasColMajor, CblasTrans, CblasNoTrans, m, n, k, 0.5,
                np.asfortranarray(A), k, np.asfortranarray(B), k, -1.5,
@@ -742,8 +784,8 @@ def test_cblas_padded_leading_dimensions_on_the_card(card):
         want = 0.5 * A.T.astype(np.float64) @ B - 1.5 * C0
         assert np.linalg.norm(got - want) / np.linalg.norm(want) <= tol
         assert np.all(store.reshape(n, ld)[:, m:] == 7.0)
-        assert kmm.LAUNCHES_BY_PATH[path][np.dtype(dt).name] == \
-            before + launches
+        assert build.launches("gemm", path=path,
+                              dtype=np.dtype(dt).name) == before + launches
 
 
 def test_two_tenant_server_on_the_card(card):
@@ -756,7 +798,7 @@ def test_two_tenant_server_on_the_card(card):
     x = rng.standard_normal((256, 256)).astype(np.float32)
     w = rng.standard_normal((256, 256)).astype(np.float32)
     big = rng.standard_normal((512, 512))
-    kmm.LAUNCHES_BY_PATH.clear()
+    build.reset()
     with BlasxServer(RuntimeConfig(n_devices=2, cache_bytes=64 << 20),
                      pool_size=2, tile=128,
                      quotas={"flood": 256 << 10}) as srv:
@@ -777,9 +819,9 @@ def test_two_tenant_server_on_the_card(card):
     assert st["app"]["completed"] == 4 and st["flood"]["completed"] == 4
     assert st["flood"]["quota_evictions"] > 0
     assert st["app"]["quota_evictions"] == 0
-    assert set(kmm.LAUNCHES_BY_PATH) == {"wgmma", "simt"}
-    assert set(kmm.LAUNCHES_BY_PATH["wgmma"]) == {"bfloat16"}
-    assert set(kmm.LAUNCHES_BY_PATH["simt"]) == {"float32"}
+    assert {(k.path, k.dtype) for k in build.snapshot()
+            if k.kernel == "gemm"} == {("wgmma", "bfloat16"),
+                                       ("simt", "float32")}
 
 
 # ---- work-centric (Stream-K) parity on the card: the fix-ups regroup
@@ -820,13 +862,13 @@ def _wc_run(routine, dtype, *, work_centric, time_model="lump",
                          ids=["f64", "f32"])
 @pytest.mark.parametrize("routine", WC_ROUTINES)
 def test_workcentric_bitwise_parity_on_card(card, routine, dtype):
-    before = kmm.LAUNCHES
+    before = build.launches("gemm")
     owner = _wc_run(routine, dtype, work_centric=False)
     wc_lump = _wc_run(routine, dtype, work_centric=True)
     wc_events = _wc_run(routine, dtype, work_centric=True,
                         time_model="events")
     if routine in ("gemm", "syrk", "syr2k", "symm"):
-        assert kmm.LAUNCHES > before       # full-fill groups took K4
+        assert build.launches("gemm") > before  # full-fill groups took K4
     assert owner.dtype == wc_lump.dtype == wc_events.dtype
     assert np.isfinite(owner).all()
     assert np.array_equal(owner, wc_lump)

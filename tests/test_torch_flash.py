@@ -16,10 +16,12 @@ import torch
 from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro.kernels.flash_attention import flash_attention_bhsd as ref_bhsd
 from repro.kernels.ref import flash_attention_ref as ref_oracle
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bhsd)
 from repro_torch.kernels.ref import flash_attention_ref
+from torch_launch import cpu_launch, fake_entry  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -98,19 +100,35 @@ def test_head_dim_80_and_full_attention_vs_reference_pallas(B, Sq, Sk, H,
     assert kfa.shape_key(D, causal) == f"d{D},{'causal' if causal else 'full'}"
 
 
-def test_launches_by_shape_count_each_key(monkeypatch):
-    """count_launch adds one to its shape's key where it is given one,
-    and touches no key where it is not."""
-    for name in ("LAUNCHES_BY_DTYPE", "LAUNCHES_BY_PATH",
-                 "LAUNCHES_BY_SHAPE"):
-        monkeypatch.setattr(kfa, name, {})
-    monkeypatch.setattr(kfa, "LAUNCHES", 0)
-    kfa.count_launch("mma", torch.bfloat16, shape=kfa.shape_key(80, True))
-    kfa.count_launch("mma", torch.bfloat16, shape="d64,full")
-    kfa.count_launch("mma", torch.float16, shape="d64,full")
-    kfa.count_launch("simt", torch.float32)
-    assert kfa.LAUNCHES_BY_SHAPE == {"d80,causal": 1, "d64,full": 2}
-    assert kfa.LAUNCHES == 4
+def test_launches_by_shape_count_each_key(cpu_launch, monkeypatch):
+    """The operator's launch (on CPU operands through a stand-in entry)
+    tags each launch with its shape key, and with "staged" where an
+    operand was staged; the ledger's tag query counts each key."""
+    entry = fake_entry("flash_attention_fwd")
+    monkeypatch.setattr(kfa, "_entry", lambda: entry)
+
+    def launch(dtype, d, causal, sq=16):
+        q = torch.zeros((1, sq, 2, d), dtype=dtype)
+        kv = torch.zeros((1, 16, 2, d), dtype=dtype)
+        o = torch.empty_like(q)
+        torch.ops.repro_torch.flash_attention_fwd(q, kv, kv, o, causal, 0.5)
+
+    launch(torch.bfloat16, 80, True)
+    launch(torch.bfloat16, 64, False)
+    launch(torch.float16, 64, False)
+    launch(torch.float32, 16, True)
+    q = torch.zeros((1, 16, 2, 65), dtype=torch.bfloat16)[..., :64]
+    kv = torch.zeros((1, 16, 2, 64), dtype=torch.bfloat16)
+    torch.ops.repro_torch.flash_attention_fwd(q, kv, kv, torch.empty_like(
+        kv), False, 0.5)  # q's head stride 65: off 16 bytes, staged
+    assert build.launches("flash", tag=kfa.shape_key(80, True)) == 1
+    assert build.launches("flash", tag="d64,full") == 3
+    assert build.launches("flash", tag="d16,causal") == 1
+    assert build.launches("flash", tag="staged") == 1
+    assert build.launches("flash", dtype="bfloat16", tag="staged") == 1
+    assert build.launches("flash", path="mma") == 4
+    assert build.launches("flash", path="simt", dtype="float32") == 1
+    assert build.launches("flash") == len(entry.calls) == 5
 
 
 def test_flash_attention_block_shape_independence():
@@ -194,7 +212,7 @@ def test_wrapper_raises_instead_of_falling_back():
     count a launch."""
     q = torch.zeros((1, 8, 4, 16))
     kv = torch.zeros((1, 8, 2, 16))
-    before = kfa.LAUNCHES
+    before = build.snapshot()
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(torch.zeros((1, 8, 4, 24)), torch.zeros((1, 8, 2, 24)),
                         torch.zeros((1, 8, 2, 24)))
@@ -210,7 +228,7 @@ def test_wrapper_raises_instead_of_falling_back():
         flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
     out = flash_attention(q, kv, kv)
     assert tuple(out.shape) == (1, 8, 4, 16)
-    assert kfa.LAUNCHES == before
+    assert build.snapshot() == before
 
 
 def test_compiled_blocks_fit_shared_memory():
@@ -409,13 +427,11 @@ def test_staged_call_matches_the_reference(dtype, tol):
                                    torch.float16], ids=str)
 def test_cpu_calls_never_count_a_launch(dtype):
     """The plain version runs for CPU tensors on either path and counts
-    nothing: not in all, by dtype or by path."""
+    nothing: the ledger is as it was, every kernel, path, dtype and
+    tag."""
     q, kv = _bshd(dtype), _bshd(dtype, h=2)
-    before = (kfa.LAUNCHES, dict(kfa.LAUNCHES_BY_DTYPE),
-              {p: dict(n) for p, n in kfa.LAUNCHES_BY_PATH.items()},
-              dict(kfa.LAUNCHES_BY_SHAPE))
+    before = build.snapshot()
     flash_attention(q, kv, kv)
     flash_attention_bhsd(q[0].transpose(0, 1), kv[0].transpose(0, 1),
                          kv[0].transpose(0, 1))
-    assert (kfa.LAUNCHES, kfa.LAUNCHES_BY_DTYPE, kfa.LAUNCHES_BY_PATH,
-            kfa.LAUNCHES_BY_SHAPE) == before
+    assert build.snapshot() == before

@@ -22,6 +22,7 @@ from repro.kernels import ops as ref_ops
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import matmul as kmm
 from repro_torch.kernels.ref import batched_contract_ref, matmul_ref
+from torch_launch import cpu_launch, fake_entry  # noqa: F401
 
 # one intra-op thread: the suite runs several worker processes at
 # once, and this process's idle OpenMP threads would otherwise spin
@@ -490,7 +491,7 @@ def test_wrapper_raises_instead_of_falling_back():
     operands on two devices; the plain version never counts a launch."""
     meta_a = torch.empty((1, 1, 4, 4), device="meta")
     meta_b = torch.empty((1, 1, 4, 4), device="meta")
-    before = kmm.LAUNCHES
+    before = build.snapshot()
     with pytest.raises(ValueError, match="no kernel"):
         kmm.batched_contract(meta_a, meta_b)
     with pytest.raises(ValueError, match="different devices"):
@@ -498,7 +499,7 @@ def test_wrapper_raises_instead_of_falling_back():
     out = kmm.batched_contract(torch.ones((1, 2, 4, 3)),
                                torch.ones((1, 2, 3, 5)))
     assert torch.equal(out, torch.full((1, 4, 5), 6.0))
-    assert kmm.LAUNCHES == before
+    assert build.snapshot() == before
 
 
 def test_plain_versions_accumulate_in_the_accumulator_type():
@@ -523,36 +524,37 @@ def test_library_is_named_by_source_and_flags(tmp_path, monkeypatch):
     assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
 
 
-@pytest.mark.parametrize("module", ["matmul", "flash_attention"])
-def test_launch_counts_are_exact_under_eight_threads(module, monkeypatch):
-    """The GEMM and flash wrappers count launches from every thread
-    that launches (one worker per pooled context in a BlasxServer):
-    eight threads bumping at once, with a 1 us switch interval, lose no
-    update in the total, by dtype or by path.  Ten rounds: without the
-    lock a round loses updates about four times in ten here."""
+# each kernel's two paths and the tag some of its launches carry
+LEDGER_KEYS = {"gemm": (("simt", "dmma"), "epilogue"),
+               "flash": (("simt", "mma"), "d80,causal"),
+               "mla_decode": (("simt", "wgmma"), None)}
+
+
+@pytest.mark.parametrize("kernel", list(LEDGER_KEYS))
+def test_launch_counts_are_exact_under_eight_threads(kernel, cpu_launch):
+    """The shared launch call counts launches from every thread that
+    launches (one worker per pooled context in a BlasxServer): eight
+    threads launching at once, with a 1 us switch interval, lose no
+    update by kernel, path, dtype or tag.  Ten rounds: without the lock
+    a round loses updates about four times in ten here."""
     import sys
     import threading
 
-    from repro_torch.kernels import flash_attention as kfa
-    mod = kmm if module == "matmul" else kfa
-    paths = ("simt", "dmma") if module == "matmul" else ("simt", "mma")
+    paths, tag = LEDGER_KEYS[kernel]
     dtypes = (torch.float32, torch.bfloat16)
+    entry = lambda *args: 0  # noqa: E731  (160000 calls: keep none)
 
     def bump(i, k):
-        if module == "matmul":
-            mod.count_launch(paths[i % 2], dtypes[k % 2], i % 3 == 0)
-        else:
-            mod.count_launch(paths[i % 2], dtypes[k % 2])
+        tags = (tag,) if tag and i % 3 == 0 else ()
+        build.launch(entry, None, i, k,
+                     key=(kernel, paths[i % 2], dtypes[k % 2], tags),
+                     details=str)
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         for _ in range(10):
-            for name in ("LAUNCHES_BY_DTYPE", "LAUNCHES_BY_PATH"):
-                monkeypatch.setattr(mod, name, {})
-            monkeypatch.setattr(mod, "LAUNCHES", 0)
-            if module == "matmul":
-                monkeypatch.setattr(mod, "LAUNCHES_EPILOGUE", 0)
+            build.reset()
             barrier = threading.Barrier(8)
 
             def worker(i):
@@ -567,12 +569,70 @@ def test_launch_counts_are_exact_under_eight_threads(module, monkeypatch):
             for t in threads:
                 t.join(timeout=30)
             assert not any(t.is_alive() for t in threads)
-            assert mod.LAUNCHES == 16000
-            assert mod.LAUNCHES_BY_DTYPE == {"float32": 8000,
-                                             "bfloat16": 8000}
-            assert mod.LAUNCHES_BY_PATH == {
-                p: {"float32": 4000, "bfloat16": 4000} for p in paths}
-            if module == "matmul":
-                assert mod.LAUNCHES_EPILOGUE == 3 * 2000  # threads 0, 3, 6
+            assert {k.kernel for k in build.snapshot()} == {kernel}
+            assert build.launches(kernel) == 16000
+            for name in ("float32", "bfloat16"):
+                assert build.launches(kernel, dtype=name) == 8000
+                for p in paths:
+                    assert build.launches(kernel, path=p, dtype=name) == 4000
+            if tag:  # threads 0, 3, 6
+                assert build.launches(kernel, tag=tag) == 3 * 2000
     finally:
         sys.setswitchinterval(old)
+
+
+def test_reset_clears_every_kernel_at_once(cpu_launch):
+    """One call clears the launches of all three kernels."""
+    for kernel, (paths, tag) in LEDGER_KEYS.items():
+        build.launch(fake_entry(kernel), None, key=(
+            kernel, paths[0], torch.bfloat16, (tag,) if tag else ()),
+            details=str)
+    assert {k.kernel for k in build.snapshot()} == set(LEDGER_KEYS)
+    build.reset()
+    assert build.snapshot() == {}
+    assert not any(build.launches(kernel) for kernel in LEDGER_KEYS)
+
+
+def test_a_refused_launch_raises_naming_the_entry_and_counts_nothing(
+        cpu_launch):
+    """A nonzero return code raises with the entry's name, the code and
+    the call's details; only a launch that returned 0 is counted."""
+    key = ("gemm", "simt", torch.float32, ())
+    with pytest.raises(RuntimeError, match=re.escape(
+            "blasx_batched_gemm launch failed: error -2 (G=1 S=2)")):
+        build.launch(fake_entry("blasx_batched_gemm", rc=-2), None, 7,
+                     key=key, details=lambda: "G=1 S=2")
+    assert build.snapshot() == {}
+    entry = fake_entry("blasx_batched_gemm")
+    build.launch(entry, None, 7, key=key, details=str)
+    assert entry.calls == [(7, 0)]  # the arguments, then the stream
+    assert build.snapshot() == {build.Launch("gemm", "simt", "float32"): 1}
+
+
+@pytest.mark.parametrize("case", [
+    # dtype, (M, K, N), A one element off its base, epilogue -> key
+    (torch.float32, (8, 16, 8), False, False, ("simt", ("16-byte",))),
+    (torch.float32, (8, 16, 8), True, False, ("simt", ("4-byte",))),
+    (torch.bfloat16, (8, 12, 8), False, False, ("wgmma", ("staged",))),
+    (torch.float64, (8, 16, 8), False, True, ("dmma", ("epilogue",))),
+    (torch.float16, (8, 16, 8), False, True, ("wgmma", ("epilogue",)))],
+    ids=["f32-16byte", "f32-4byte", "bf16-staged", "f64-epilogue",
+         "f16-epilogue"])
+def test_gemm_launch_records_its_path_dtype_and_tags(case, cpu_launch,
+                                                     monkeypatch):
+    """The GEMM wrapper's launch, on CPU operands through a stand-in
+    entry: one ledger key naming its path, dtype and tags (simt's copy
+    variant, a staged operand, an epilogue), and the path and dtype
+    codes the entry is given."""
+    dtype, (m, k, n), off, epilogue, (path, tags) = case
+    entry = fake_entry("blasx_batched_gemm")
+    monkeypatch.setattr(kmm, "_entry", lambda: entry)
+    a = torch.ones(m * k + 1, dtype=dtype)[off:m * k + off].view(1, 1, m, k)
+    b = torch.ones((1, 1, k, n), dtype=dtype)
+    bias = torch.ones(n, dtype=dtype) if epilogue else None
+    kmm._launch(kmm.stage_operands(a, b), bias=bias,
+                activation="relu" if epilogue else None)
+    name = str(dtype).removeprefix("torch.")
+    assert build.snapshot() == {build.Launch("gemm", path, name, tags): 1}
+    assert entry.calls[0][:2] == (kmm.PATH_CODES[path],
+                                  build._DTYPE_CODES[dtype])

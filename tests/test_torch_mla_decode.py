@@ -18,9 +18,11 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import get_config
 from repro_torch.core.dtypes import dtype_name
+from repro_torch.kernels import build
 from repro_torch.kernels import mla_decode as kmla
 from repro_torch.kernels.ref import mla_decode_ref
 from repro_torch.models import attention as attn
+from torch_launch import cpu_launch, fake_entry  # noqa: F401
 
 SOURCE = Path(kmla.__file__).parent / "csrc" / "mla_decode.cu"
 
@@ -34,11 +36,6 @@ def _operands(gen, b, h, skv, r, dr, cache_dtype):
     ckv = torch.randn((b, skv, r), generator=gen, device=dev).to(cache_dtype)
     kr = torch.randn((b, skv, dr), generator=gen, device=dev).to(cache_dtype)
     return q_c, q_rope, ckv, kr
-
-
-def _launches() -> int:
-    """The kernel's launches in this process, of every path and dtype."""
-    return sum(n for d in kmla.LAUNCHES_BY_PATH.values() for n in d.values())
 
 
 def _old_absorbed_decode(cfg, p, cache, idx, q_nope, q_rope, ckv, k_rope,
@@ -93,14 +90,14 @@ def test_absorbed_decode_equals_the_code_it_replaced_bit_for_bit(dtype):
              "k_rope": torch.randn((B, S, rope), generator=g).to(dtype)}
     twin = {k: v.clone() for k, v in cache.items()}
     idx = torch.tensor([0, 5, S - 1])
-    before = _launches()
+    before = build.launches("mla_decode")
     got = attn._absorbed_decode(cfg, p, cache, idx, q_nope, q_rope, ckv,
                                 kr, H, 0.3)
     want = _old_absorbed_decode(cfg, p, twin, idx, q_nope, q_rope, ckv, kr,
                                 H, 0.3)
     assert torch.equal(got, want)
     assert all(torch.equal(cache[k], twin[k]) for k in cache)
-    assert _launches() == before
+    assert build.launches("mla_decode") == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -108,16 +105,38 @@ def test_absorbed_decode_equals_the_code_it_replaced_bit_for_bit(dtype):
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64], ids=str)
 def test_cpu_calls_take_the_plain_version_and_count_no_launch(
         dtype, idx_dtype, monkeypatch):
-    monkeypatch.setattr(kmla, "LAUNCHES_BY_PATH", {})
+    monkeypatch.setattr(build, "LAUNCHES", {})
     g = torch.Generator().manual_seed(1)
     ops = _operands(g, 2, 3, 10, 16, 8, dtype)
     idx = torch.tensor([2, 9], dtype=idx_dtype)
-    before = _launches()
+    before = build.launches("mla_decode")
     got = kmla.mla_decode(*ops, idx, 0.25)
     assert torch.equal(got, mla_decode_ref(*ops, idx, 0.25))
     assert got.shape == (2, 3, 16) and got.dtype == torch.float32
-    assert _launches() == before
-    assert kmla.LAUNCHES_BY_PATH == {}
+    assert build.launches("mla_decode") == before
+    assert build.snapshot() == {}
+
+
+@pytest.mark.parametrize("dtype,path", [(torch.float32, "simt"),
+                                        (torch.bfloat16, "wgmma")], ids=str)
+def test_operator_launch_records_its_path_and_cache_dtype(
+        dtype, path, cpu_launch, monkeypatch):
+    """The operator's launch, on CPU operands through a stand-in entry:
+    one ledger key, the path and the cache's dtype with no tag; the entry
+    is given the cache's dtype code and the split of the positions."""
+    entry = fake_entry("mla_decode")
+    monkeypatch.setattr(kmla, "_entry", lambda: entry)
+    g = torch.Generator().manual_seed(2)
+    q_c, q_rope, ckv, kr = _operands(g, 2, 64, 512, 512, 64, dtype)
+    o = torch.empty_like(q_c)
+    torch.ops.repro_torch.mla_decode(q_c, q_rope, ckv, kr,
+                                     torch.tensor([100, 511]), o, 0.1)
+    assert build.snapshot() == {
+        build.Launch("mla_decode", path, dtype_name(dtype)): 1}
+    args = entry.calls[0]
+    assert args[0] == build._DTYPE_CODES[dtype]
+    assert args[14:16] == ((512, 1) if path == "simt"
+                           else kmla.splits(512, 2, 64, 132))
 
 
 def test_plain_version_reads_only_the_live_positions():
@@ -154,13 +173,13 @@ def test_operator_fake_and_flop_formula():
         kr = torch.empty(B, S, Dr, dtype=torch.bfloat16)
         idx = torch.zeros(B, dtype=torch.int64)
         o = torch.empty(B, H, R)
-        before = _launches()
+        before = build.launches("mla_decode")
         with FlopCounterMode(display=False) as fc:
             out = torch.ops.repro_torch.mla_decode(q_c, q_rope, ckv, kr,
                                                    idx, o, 0.1)
     assert out is None
     assert o.shape == (B, H, R) and o.dtype == torch.float32
-    assert _launches() == before
+    assert build.launches("mla_decode") == before
     assert fc.get_total_flops() == 2 * B * H * S * (2 * R + Dr)
 
 
@@ -289,10 +308,11 @@ def test_kernel_at_the_cells_shape(card, dtype):
     ops = _operands(g, B, H, S, 512, 64, dtype)
     idx = _lengths(B, S, 10).to(card)
     name = dtype_name(dtype)
-    before = kmla.LAUNCHES_BY_PATH.get("wgmma", {}).get(name, 0)
+    before = build.launches("mla_decode", path="wgmma", dtype=name)
     got = kmla.mla_decode(*ops, idx, 192 ** -0.5)
     torch.cuda.synchronize()
-    assert kmla.LAUNCHES_BY_PATH["wgmma"][name] == before + 1
+    assert build.launches("mla_decode", path="wgmma", dtype=name) == \
+        before + 1
     want = mla_decode_ref(*ops, idx, 192 ** -0.5)
     assert _worst_slot(got, want) <= WGMMA_TOL
 
@@ -363,10 +383,11 @@ def test_f32_cache_takes_the_simt_path(card, widths):
     g = torch.Generator(device=card).manual_seed(r)
     ops = _operands(g, B, H, S, r, dr, torch.float32)
     idx = torch.tensor([0, 64, 299], device=card)
-    before = kmla.LAUNCHES_BY_PATH.get("simt", {}).get("float32", 0)
+    before = build.launches("mla_decode", path="simt", dtype="float32")
     got = kmla.mla_decode(*ops, idx, 0.2)
     torch.cuda.synchronize()
-    assert kmla.LAUNCHES_BY_PATH["simt"]["float32"] == before + 1
+    assert build.launches("mla_decode", path="simt",
+                          dtype="float32") == before + 1
     assert _worst_slot(got, mla_decode_ref(*ops, idx, 0.2)) <= SIMT_TOL
 
 
@@ -388,13 +409,18 @@ def test_bad_shapes_raise_and_a_good_launch_follows(card):
     with pytest.raises(ValueError, match="16-byte"):
         kmla.mla_decode(q_c, q_rope, odd, kr, idx, 0.1)
     o = torch.empty_like(q_c)
-    rc = kmla._entry()(3, q_c.data_ptr(), q_rope.data_ptr(),
-                       ckv.data_ptr(), kr.data_ptr(), idx.data_ptr(), 1,
-                       o.data_ptr(), None, 2, 64, 256, 256, 64, 256, 1,
-                       0.1, *q_c.stride()[:2], *q_rope.stride()[:2],
-                       *o.stride()[:2], *ckv.stride()[:2], *kr.stride()[:2],
-                       torch.cuda.current_stream().cuda_stream)
-    assert rc == -2
+    before = build.snapshot()
+    with pytest.raises(RuntimeError, match="mla_decode launch failed: "
+                       "error -2 "):
+        build.launch(kmla._entry(), card, 3, q_c.data_ptr(),
+                     q_rope.data_ptr(), ckv.data_ptr(), kr.data_ptr(),
+                     idx.data_ptr(), 1, o.data_ptr(), None, 2, 64, 256, 256,
+                     64, 256, 1, 0.1, *q_c.stride()[:2],
+                     *q_rope.stride()[:2], *o.stride()[:2],
+                     *ckv.stride()[:2], *kr.stride()[:2],
+                     key=("mla_decode", "wgmma", torch.bfloat16, ()),
+                     details=lambda: "R 256 on the wgmma path")
+    assert build.snapshot() == before
     got = kmla.mla_decode(q_c, q_rope, ckv, kr, idx, 0.1)
     torch.cuda.synchronize()
     want = mla_decode_ref(q_c, q_rope, ckv, kr, idx, 0.1)
@@ -419,11 +445,11 @@ def test_mla_layer_decodes_through_the_kernel_on_the_card(card):
     cache = {"ckv": randn(B, S, cfg.kv_lora_rank), "k_rope": randn(B, S, rope)}
     twin = {k: v.clone() for k, v in cache.items()}
     idx = torch.tensor([0, 700, 1500, S - 1], device=card)
-    before = _launches()
+    before = build.launches("mla_decode")
     got = attn._absorbed_decode(cfg, p, cache, idx, q_nope, q_rope, ckv, kr,
                                 H, 0.1)
     torch.cuda.synchronize()
-    assert _launches() == before + 1
+    assert build.launches("mla_decode") == before + 1
     want = _old_absorbed_decode(cfg, p, twin, idx, q_nope, q_rope, ckv, kr,
                                 H, 0.1)
     assert all(torch.equal(cache[k], twin[k]) for k in cache)

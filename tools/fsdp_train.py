@@ -597,6 +597,7 @@ def serve_run(arch, cut, rank, world, device, smoke):
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.core import distributed as D
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.launch import steps as S
     from repro_torch.launch.mesh import make_mesh_for_devices
@@ -701,7 +702,7 @@ def serve_run(arch, cut, rank, world, device, smoke):
                                   device=device)
             # a first prefill loads the kernels; the one timed is the next
             prefill(params, {"tokens": tokens})
-            kfa.LAUNCHES_BY_PATH.clear()
+            build.reset()
             D.reset_collectives()
             sync()
             t0 = time.perf_counter()
@@ -709,7 +710,11 @@ def serve_run(arch, cut, rank, world, device, smoke):
                 logits, cache = prefill(params, {"tokens": tokens})
             sync()
             prefill_s = time.perf_counter() - t0
-            launches = {p: dict(c) for p, c in kfa.LAUNCHES_BY_PATH.items()}
+            launches = {}  # K5's, {path: {dtype: n}}
+            for key, n in build.snapshot().items():
+                if key.kernel == "flash":
+                    by_dtype = launches.setdefault(key.path, {})
+                    by_dtype[key.dtype] = by_dtype.get(key.dtype, 0) + n
             coll = {a: dict(c) for a, c in
                     D.COLLECTIVE_BYTES_BY_AXIS.items()}
             drops = [dropped(calls)]
