@@ -8,8 +8,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device — the card's name and power limit (nvidia-smi) and
    ``torch.cuda.get_device_name``; exits 1 without CUDA.
 2. build  — compiles ``src/repro_torch/kernels/csrc/blasx_gemm.cu``,
-   ``flash_attention.cu`` and ``mla_decode.cu`` with nvcc, one process
-   each, all at once, and
+   ``flash_attention.cu``, ``mla_decode.cu`` and ``moe_experts.cu`` with
+   nvcc, one process each, all at once, and
    prints the build seconds and ptxas's register report.
 3. kernel — the hand-written batched long-K GEMM against its plain
    PyTorch version on the card, in f64/f32/bf16/f16, at the runtime's
@@ -188,6 +188,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``python3 -c 'import chip_smoke as s; c = s.phase_device();
    s.warm_profiler(); s.phase_build(); s.phase_mla_decode(c)'``.
 
+14. moe_experts — runs after phase 13: the held experts' grouped kernels
+   (``src/repro_torch/kernels/csrc/moe_experts.cu``) at the benchmark
+   cell's decode shape (256 tokens, top 8 of 256 by the published router
+   on seeded inputs, experts 0-7 held, d 7168, ff 2048, bf16) and at its
+   longest prefill (4096 tokens), one layer, against their plain version
+   (the per-expert loop with the kernels' numerics) by the worst token's
+   normwise error; each call must launch ``moe_experts`` twice (tags
+   ``gate_up`` and ``down``) and ``moe_layout`` once.  Timed by CUDA
+   events and profiler device time (each kernel apart) beside the
+   cell's ``Counts`` bound (the used experts' weights read once), the
+   plain version and, as ``library_ms``, the layer's loop before the
+   kernels (one ``torch.matmul`` an expert and weight, its counts read
+   to the host; a yardstick the port no longer calls).  Its numbers go
+   on a ``{"moe_experts": ...}`` JSON line.  Phases 1, 2 and 14 alone:
+   ``python3 -c 'import chip_smoke as s; c = s.phase_device();
+   s.warm_profiler(); s.phase_build(); s.phase_moe_experts(c)'``.
+
 Phases 4, 8, 7, 9, each model of 10, 11 and 12's prefill are the main
 paths, in that order: each kernel's launch count is set to 0 just before each and read
 just after it (in phase 9 before the owner-mode comparison runs, in
@@ -226,7 +243,11 @@ MLA_SOURCE = "src/repro_torch/kernels/csrc/mla_decode.cu"
 # replaces no TPU kernel: the reference's absorbed decode is plain jnp
 MLA_REPLACES = ("none: the reference's absorbed decode is plain jnp "
                 "(src/repro/models/attention.py)")
-SOURCES = ("blasx_gemm", "flash_attention", "mla_decode")
+MOE_SOURCE = "src/repro_torch/kernels/csrc/moe_experts.cu"
+# replaces no TPU kernel: the reference's MoE is einsums
+MOE_REPLACES = ("none: the reference's MoE is einsums over capacity "
+                "buffers (src/repro/models/moe.py)")
+SOURCES = ("blasx_gemm", "flash_attention", "mla_decode", "moe_experts")
 
 # least-time model: the H100 SXM data sheet's peaks, from the port's
 # roofline module (FP64 on the tensor cores, FP32 outside them, bf16/
@@ -470,16 +491,17 @@ def _timed_build(name):
 def _kernel_label(mangled: str) -> str:
     """``wgmma_gemm bf16 128`` from a mangled template kernel's name."""
     t = re.search(r"(sgemm|wgmma_gemm|dmma_gemm|flash_simt|flash_mma|"
-                  r"mla_wgmma|mla_simt|mla_combine)"
+                  r"mla_wgmma|mla_simt|mla_combine|moe_layout|"
+                  r"moe_gather|moe_grouped)"
                   r"_kernelI"
-                  r"((?:\d+\w+?|[df])?)((?:Li\d+E)+)", mangled)
+                  r"((?:\d+\w+?|[df])?)((?:L[ib]\d+E)+)", mangled)
     if not t:
         return mangled[:40]
     name, typ, ints = t.groups()
     typ = {"d": "f64", "f": "f32", "6__half": "f16",
            "13__nv_bfloat16": "bf16"}.get(typ, typ)
     return " ".join(x for x in (name, typ, "x".join(
-        re.findall(r"Li(\d+)E", ints))) if x)
+        re.findall(r"L[ib](\d+)E", ints))) if x)
 
 
 def phase_build():
@@ -2737,6 +2759,195 @@ def phase_mla_decode(card: str):
     return numbers
 
 
+# phase 14: the benchmark cell's MoE layer (chipbench's
+# dsv3-ep32-decode8k): its config file, the tokens of a decode step and
+# of the longest prompt, a seed
+MOE_CONFIG = "chipbench/configs/deepseek_v3_ep32_l9.json"
+MOE_TOKENS = (256, 4096)
+MOE_SEED = 14
+# kernels vs plain version, the worst token's normwise error
+# (tests/test_torch_moe_experts.py TOL): the tensor cores' f32 sums run
+# in another order and round otherwise than the plain version's, so h
+# lands on the other bf16 neighbour in a share of its elements (H100:
+# 0.65e-3 at decode, 2.4e-3 at N 4096); a k16 slice of x lost from the
+# gate and up products reads 0.10-0.11
+MOE_TOL = 1e-2
+
+
+def moe_layer(device: str = "cuda", seed: int = MOE_SEED):
+    """The cell's config and one MoE layer's router, selection bias and
+    held experts' weights, N(0, 1/fan_in) from ``seed`` (bf16 experts)."""
+    import torch
+    from repro_torch.configs.deepseek_v3_ep import DeepSeekV3Config
+    hf = json.loads((ROOT / MOE_CONFIG).read_text())
+    cfg = DeepSeekV3Config.from_hf(hf, dtype=hf["dtype"])
+    g = torch.Generator(device=device).manual_seed(seed)
+    d, ff, held = cfg.d_model, cfg.moe_d_ff, len(cfg.held_experts())
+
+    def mat(*shape, dt=torch.bfloat16):
+        w = torch.randn(shape, generator=g, device=device)
+        return (w * shape[-2] ** -0.5).to(dt)
+
+    p = {"router": mat(d, cfg.n_experts, dt=torch.float32),
+         "bias": 0.1 * torch.randn((cfg.n_experts,), generator=g,
+                                   device=device),
+         "w_gate": mat(held, d, ff), "w_up": mat(held, d, ff),
+         "w_down": mat(held, ff, d)}
+    return cfg, p
+
+
+def moe_loop_before(xt, experts, weights, w_gate, w_up, w_down, first):
+    """The held experts as the layer computed them before the kernels:
+    the counts read to the host, one ``torch.matmul`` an expert and
+    weight in bf16 (a yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+    k, held = experts.shape[1], w_gate.shape[0]
+    flat = experts.reshape(-1) - first
+    local = torch.where((flat >= 0) & (flat < held), flat, held)
+    order = torch.argsort(local, stable=True)
+    counts = torch.bincount(local, minlength=held + 1)[:held].tolist()
+    y = torch.zeros(xt.shape, dtype=torch.float32, device=xt.device)
+    start = 0
+    for e, c in enumerate(counts):
+        if c:
+            slots = order[start:start + c]
+            tokens = slots // k
+            xe = xt[tokens]
+            h = F.silu(xe @ w_gate[e]) * (xe @ w_up[e])
+            y.index_add_(0, tokens, (h @ w_down[e]).float()
+                         * weights.reshape(-1)[slots, None])
+        start += c
+    return y
+
+
+def moe_bound(counts, d: int, ff: int) -> tuple:
+    """One layer call's least time as the cell's ``Counts`` gives it:
+    the slots' operations; each used expert's weights read once, the
+    token rows in and out, in bf16."""
+    n, used = sum(counts), sum(1 for c in counts if c)
+    return least_time(n * 6 * d * ff, 2 * (used * 3 * d * ff + 2 * n * d),
+                      "bfloat16")
+
+
+def _moe_kernel_ms(fn, reps: int) -> dict:
+    """Device ms a call of each of the layer's kernels (the profiler's
+    kernel time, by name), None where the profile is empty."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {"layout": 0.0, "gather": 0.0, "gate_up": 0.0, "down": 0.0}
+    for e in _kernel_events(prof):
+        name = e.key
+        if "moe_grouped" in name:
+            gated = "true" in name or "Lb1E" in name
+            out["gate_up" if gated else "down"] += _device_us(e)
+        elif "moe_layout" in name:
+            out["layout"] += _device_us(e)
+        elif "moe_gather" in name:
+            out["gather"] += _device_us(e)
+    if not any(out.values()):
+        return {k: None for k in out}
+    return {k: v / reps / 1e3 for k, v in out.items()}
+
+
+def phase_moe_experts(card: str):
+    """Phase 14: the held experts' grouped kernels at the cell's decode
+    shape and its longest prefill, one layer each: against their plain
+    version on the card, the launch ledger checked, then timed beside
+    the cell's bound, the plain version and the loop they replaced.
+    Returns the phase's numbers, by token count."""
+    import torch
+    from repro_torch.kernels import moe_experts as kme
+    from repro_torch.kernels.ref import moe_experts_ref
+    from repro_torch.models.moe import published_router
+    t_phase = time.perf_counter()
+    cfg, p = moe_layer()
+    first, d, ff = cfg.held_experts().start, cfg.d_model, cfg.moe_d_ff
+    ws = (p["w_gate"], p["w_up"], p["w_down"])
+    g = torch.Generator(device="cuda").manual_seed(MOE_SEED + 1)
+    by_n = {}
+    for n in MOE_TOKENS:
+        xt = torch.randn((n, d), generator=g, device="cuda"
+                         ).to(torch.bfloat16)
+        weights, experts = published_router(cfg, p, xt)
+        ops = (xt, experts, weights, *ws)
+        build.reset()
+        y, offsets = kme.moe_experts(*ops, first, cfg.n_experts)
+        torch.cuda.synchronize()
+        ledger = {f"{k.kernel}:{k.path}:{k.dtype}:{','.join(k.tags)}": v
+                  for k, v in build.snapshot().items()}
+        want = {"moe_layout:wgmma:bfloat16:": 1,
+                "moe_experts:wgmma:bfloat16:gate_up": 1,
+                "moe_experts:wgmma:bfloat16:down": 1}
+        check(ledger == want, f"MoE launches at N {n}: {ledger}, want "
+              f"{want}")
+        ref, ref_off = moe_experts_ref(*ops, first)
+        check(offsets.tolist() == ref_off.tolist(),
+              f"MoE offsets at N {n}: {offsets.tolist()} against "
+              f"{ref_off.tolist()}")
+        counts = [b - a for a, b in zip(ref_off.tolist(),
+                                        ref_off.tolist()[1:])]
+        num = torch.linalg.norm((y - ref).double(), dim=1)
+        den = torch.linalg.norm(ref.double(), dim=1)
+        live = den > 0
+        check(not y[~live].any(), f"MoE at N {n}: output on a token "
+              f"with no held slot")
+        worst = float((num[live] / den[live]).max())
+        median = float((num[live] / den[live]).median())
+        max_abs = float((y - ref).abs().max())
+        # what the limit separates: the loop before the kernels (bf16
+        # products, g and u rounded), and a planted fault, the plain
+        # version with the first k16 slice of x lost
+        lost = xt.clone()
+        lost[:, :16] = 0
+        readings = {}
+        for name, other in (("loop_before", moe_loop_before(*ops, first)),
+                            ("lost_k16", moe_experts_ref(
+                                lost, *ops[1:], first)[0])):
+            e_ = torch.linalg.norm((other - ref).double(), dim=1)
+            readings[name] = float((e_[live] / den[live]).max())
+        del y, ref, lost
+        call = lambda: kme.moe_experts(*ops, first, cfg.n_experts)  # noqa
+        plain = lambda: moe_experts_ref(*ops, first)  # noqa: E731
+        before = lambda: moe_loop_before(*ops, first)  # noqa: E731
+        ms, dev = time_ms(call, 20), device_ms(call, 10)
+        parts = _moe_kernel_ms(call, 10)
+        plain_ms, plain_dev = time_ms(plain, 5), device_ms(plain, 3)
+        lib_ms, lib_dev = time_ms(before, 5), device_ms(before, 3)
+        bound_ms, bound_by = moe_bound(counts, d, ff)
+        tile = kme.token_tile(n * cfg.top_k, cfg.n_experts)
+        print(f"[moe] N {n} (top {cfg.top_k} of {cfg.n_experts}, held "
+              f"{len(counts)}, slots {counts}, tile {tile}): kernels "
+              f"{ms:.4f} ms (device {dev}; layout {parts['layout']}, "
+              f"gather {parts['gather']}, gate_up {parts['gate_up']}, down "
+              f"{parts['down']}), plain {plain_ms:.3f} ms (device "
+              f"{plain_dev}), loop before {lib_ms:.3f} ms (device "
+              f"{lib_dev}); bound {bound_ms:.4f} ms ({bound_by}); normwise "
+              f"worst token {worst:.3e}, median {median:.3e} (limit "
+              f"{MOE_TOL}; loop before {readings['loop_before']:.3e}, a "
+              f"lost k16 slice {readings['lost_k16']:.3e}) | {card}",
+              flush=True)
+        check(worst <= MOE_TOL, f"MoE kernels vs plain at N {n}: "
+              f"normwise {worst:.3e} > {MOE_TOL}")
+        by_n[n] = dict(
+            slots=counts, tile=tile, normwise_worst=worst,
+            normwise_median=median, readings=readings, max_abs_err=max_abs, ms=ms, device_ms=dev,
+            kernel_device_ms=parts, plain_ms=plain_ms,
+            plain_device_ms=plain_dev, library_ms=lib_ms,
+            library_device_ms=lib_dev, bound_ms=bound_ms,
+            bound_by=bound_by, ledger=ledger)
+    numbers = dict(by_tokens=by_n, phase_s=time.perf_counter() - t_phase)
+    print(f"[moe] phase {numbers['phase_s']:.1f} s | {card}", flush=True)
+    print(json.dumps({"moe_experts": numbers}), flush=True)
+    return numbers
+
+
 def _device_us(event) -> float:
     return float(getattr(event, "self_device_time_total",
                          getattr(event, "self_cuda_time_total", 0.0)))
@@ -2912,15 +3123,17 @@ def _read_counts():
     staged by dtype."""
     counts = {"gemm": {}, "gemm_path": {}, "staged": {}, "simt_copy": {},
               "epilogue": 0, "flash_path": {}, "flash_shape": {},
-              "flash_staged": {}, "mla_path": {}}
+              "flash_staged": {}, "mla_path": {}, "moe_path": {}}
 
     def bump(table, key, n):
         table[key] = table.get(key, 0) + n
 
     for k, n in build.snapshot().items():
-        kind = {"gemm": "gemm", "flash": "flash", "mla_decode": "mla"}[
-            k.kernel]
+        kind = {"gemm": "gemm", "flash": "flash", "mla_decode": "mla",
+                "moe_layout": "moe", "moe_experts": "moe"}[k.kernel]
         bump(counts[f"{kind}_path"].setdefault(k.path, {}), k.dtype, n)
+        if kind == "moe":
+            continue
         if kind == "gemm":
             bump(counts["gemm"], k.dtype, n)
         for tag in k.tags:
@@ -3026,6 +3239,7 @@ def main() -> int:
     _, dry = phase_dryrun(card)
     _check_simt_is_f32("dry-run prefill", dry)
     mla = phase_mla_decode(card)
+    moe = phase_moe_experts(card)
     main_runs = (blas, api, serve, analysis, *families.values(), train, dry)
     # every main-path flash launch is bf16 (phases 7 and 10 check it),
     # so the by-shape counts are bf16's
@@ -3124,6 +3338,17 @@ def main() -> int:
         [mla["normwise_worst"], mla["small_normwise_worst"]]
         + [r["mla_vs_plain"] for r in family_numbers.values()
            if r["mla_vs_plain"] is not None])
+    kernels.append(e)
+    # the held experts' kernels, at the cell's decode shape; no phase's
+    # main path holds experts (the cell's config runs in chipbench)
+    decode = moe["by_tokens"][MOE_TOKENS[0]]
+    e = entry("moe_experts<bfloat16,wgmma>", "wgmma", MOE_SOURCE,
+              MOE_REPLACES, sum(sum(run["moe_path"].get("wgmma", {})
+                                    .values()) for run in main_runs),
+              decode)
+    e.update(normwise_worst=max(r["normwise_worst"]
+                                for r in moe["by_tokens"].values()),
+             kernel_device_ms=decode["kernel_device_ms"])
     kernels.append(e)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -35,8 +35,9 @@ The module reads no clock, keeps nothing and writes nothing; any
   ``blasx.mla.decode``       MLA's absorbed decode attention: the cache
                              write and the attention over the latent
   ``blasx.moe.route``        DeepSeek-V3's router (``held_moe_block``)
-  ``blasx.moe.experts``      the held experts on their routed tokens,
-                             their slot counts read to the host
+  ``blasx.moe.experts``      the held experts on their routed tokens:
+                             the slot layout on the device and the two
+                             grouped products (no host read)
   ``blasx.moe.shared``       the shared expert
 """
 from __future__ import annotations

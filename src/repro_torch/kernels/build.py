@@ -52,9 +52,10 @@ _DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.float16: 2,
 
 class Launch(NamedTuple):
     """A key of the launch ledger: the kernel (``"gemm"``, ``"flash"``,
-    ``"mla_decode"``), its path, the name of its dtype and its tags
-    (``"epilogue"``, ``"staged"``, a simt copy variant such as
-    ``"16-byte"``, a flash shape key such as ``"d80,causal"``)."""
+    ``"mla_decode"``, ``"moe_layout"``, ``"moe_experts"``), its path, the
+    name of its dtype and its tags (``"epilogue"``, ``"staged"``, a simt
+    copy variant such as ``"16-byte"``, a flash shape key such as
+    ``"d80,causal"``, the MoE product ``"gate_up"`` or ``"down"``)."""
 
     kernel: str
     path: str

@@ -7,7 +7,7 @@ kernel against its plain version on the card.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -105,3 +105,40 @@ def mla_decode_ref(q_c: torch.Tensor, q_rope: torch.Tensor,
                                       device=scores.device))
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bhsk,bkr->bshr", w, wide(ckv))[:, 0]
+
+
+def moe_experts_ref(x: torch.Tensor, experts: torch.Tensor,
+                    weights: torch.Tensor, w_gate: torch.Tensor,
+                    w_up: torch.Tensor, w_down: torch.Tensor,
+                    first: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the held experts' grouped kernels: the loop over
+    the held experts that the MoE layer ran before them, with the
+    kernels' numerics.  x (N, d); experts and weights (N, K), the
+    router's choice over all experts; w_gate and w_up (held, d, ff),
+    w_down (held, ff, d), the experts ``first .. first + held - 1``.
+    Each held expert's slots, in slot order, are computed with f32 sums
+    (f64 in an f64 model): h = silu(x W_gate) * (x W_up) rounded once to
+    x's dtype, then y[token] += weight * (h W_down).  Returns y (N, d) in
+    that type and the offsets (held + 1,), an exclusive scan of the held
+    experts' slot counts.  Reads the counts to the host (one sync)."""
+    acc = torch.promote_types(torch.float32, x.dtype)
+    k = experts.shape[1]
+    held = w_gate.shape[0]
+    flat = experts.reshape(-1) - first
+    local = torch.where((flat >= 0) & (flat < held), flat, held)
+    order = torch.argsort(local, stable=True)
+    counts = torch.bincount(local, minlength=held + 1)[:held]
+    offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    y = torch.zeros((x.shape[0], x.shape[1]), dtype=acc, device=x.device)
+    w = weights.reshape(-1)
+    ends = offsets.tolist()
+    for e in range(held):
+        if ends[e + 1] > ends[e]:
+            slots = order[ends[e]:ends[e + 1]]
+            tokens = slots // k
+            xe = x[tokens].to(acc)
+            h = (F.silu(xe @ w_gate[e].to(acc))
+                 * (xe @ w_up[e].to(acc))).to(x.dtype)
+            y.index_add_(0, tokens, (h.to(acc) @ w_down[e].to(acc))
+                         * w[slots, None].to(acc))
+    return y, offsets

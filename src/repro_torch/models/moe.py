@@ -23,9 +23,11 @@ Where the config names the experts held here (``cfg.held_experts()``:
 a ``DeepSeekV3Config``'s) the layer is :func:`held_moe_block` instead:
 DeepSeek-V3's published router over all the experts, and the part of
 the output that the experts held here give, with no capacity and no
-drop, plus the shared expert.  Within :func:`count_held_slots`
-each such layer call counts the slots routed to each held expert, and
-within :func:`record_routes` it keeps its choice of experts.
+drop, plus the shared expert; its experts run as the grouped kernels
+of ``kernels/moe_experts.py`` on the card.  Within
+:func:`count_held_slots` each such layer call counts the slots routed to
+each held expert, and within :func:`record_routes` it keeps its choice
+of experts.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..core.spans import span
+from ..kernels.moe_experts import moe_experts
 from .layers import ACT, Maker, mlp, wide
 from .sharding import MeshRules
 
@@ -61,23 +64,43 @@ def count_drops():
         _DROPS = outer
 
 
-# the open :func:`count_held_slots` list, else None
-MOE_HELD_SLOTS: Optional[List[List[int]]] = None
+# the open :func:`count_held_slots` list, else None: each held-expert
+# layer call's offsets (an exclusive scan of its held experts' slot
+# counts), a tensor on the layer's device, until the block closes
+MOE_HELD_SLOTS: Optional[List[torch.Tensor]] = None
 # the open :func:`record_routes` list, else None
 _ROUTES: Optional[List[torch.Tensor]] = None
 
 
 @contextlib.contextmanager
 def count_held_slots():
-    """Yields a list to which each :func:`held_moe_block` call in the
-    block appends the (token, slot)s routed to each of its held experts,
-    a list of ints (which the layer reads to the host anyway)."""
+    """Yields a list that, once the block closes, holds one list of ints
+    for each :func:`held_moe_block` call in the block: the (token, slot)s
+    routed to each of its held experts.  Inside the block the calls
+    append their offsets, tensors on their device (no sync); the close
+    reads them all to the host in one read, so a block around a decode
+    step reads nothing before the step's own token read."""
     global MOE_HELD_SLOTS
     outer, MOE_HELD_SLOTS = MOE_HELD_SLOTS, []
+    calls = MOE_HELD_SLOTS
     try:
-        yield MOE_HELD_SLOTS
+        yield calls
     finally:
         MOE_HELD_SLOTS = outer
+    calls[:] = _slot_counts(calls)
+
+
+def _slot_counts(offsets: List[torch.Tensor]) -> List[List[int]]:
+    """Each offsets tensor's differences, as ints, in one host read."""
+    if not offsets:
+        return []
+    flat = torch.cat([o.reshape(-1) for o in offsets]).tolist()
+    counts, at = [], 0
+    for o in offsets:
+        run = flat[at:at + o.numel()]
+        counts.append([b - a for a, b in zip(run, run[1:])])
+        at += o.numel()
+    return counts
 
 
 @contextlib.contextmanager
@@ -350,43 +373,32 @@ def held_moe_block(cfg, p: dict, x: torch.Tensor, rules: MeshRules,
                    ) -> Tuple[torch.Tensor, dict]:
     """x: (B, S, d) -> (y, {}): one card's part of DeepSeek-V3's MoE
     under expert parallelism.  Routes every token over all the experts
-    (:func:`published_router`), takes the (token, slot)s routed to the
-    experts held here (``cfg.held_experts()``), sorted by expert, and
-    computes each held expert's SwiGLU on exactly its tokens (one matmul
-    a weight: no capacity, no drop); sums them with their weights and the
-    shared expert's output in f32.  The experts held elsewhere add
-    nothing here: on one card there is no exchange.  Reads the held
-    experts' slot counts to the host (one sync a call)."""
+    (:func:`published_router`), then computes each held expert's
+    (``cfg.held_experts()``) SwiGLU on exactly the (token, slot)s routed
+    to it (no capacity, no drop) and sums them with their weights and the
+    shared expert's output in f32 (``kernels/moe_experts.py``: on the
+    card two grouped kernels over a slot layout built on the device; on
+    the CPU the plain loop over the held experts).  The experts held
+    elsewhere add nothing here: on one card there is no exchange.  Reads
+    nothing to the host."""
     if rules.mesh is not None:
         raise ValueError("the held-expert layer runs on one card (no mesh)")
+    if cfg.act != "silu":
+        raise ValueError(f"the held experts are SwiGLU, got act {cfg.act}")
     B, S, d = x.shape
-    N, K = B * S, cfg.top_k
+    N = B * S
     here = cfg.held_experts()
-    lo, held = here.start, len(here)
     xt = x.reshape(N, d)
     with span("blasx.moe.route"):
         weights, experts = published_router(cfg, p, xt)
     if _ROUTES is not None:
         _ROUTES.append(experts)
     with span("blasx.moe.experts"):
-        flat = experts.reshape(-1) - lo
-        local = torch.where((flat >= 0) & (flat < held), flat, held)
-        order = torch.argsort(local, stable=True)
-        counts = torch.bincount(local, minlength=held + 1)[:held].tolist()
-        act = ACT[cfg.act]
-        y = torch.zeros((N, d), dtype=wide(x).dtype, device=x.device)
-        start = 0
-        for e, c in enumerate(counts):
-            if c:
-                slots = order[start:start + c]
-                tokens = slots // K
-                xe = xt[tokens]
-                h = act(xe @ p["w_gate"][e]) * (xe @ p["w_up"][e])
-                y.index_add_(0, tokens, wide(h @ p["w_down"][e])
-                             * weights.reshape(-1)[slots, None])
-            start += c
+        y, offsets = moe_experts(xt, experts, weights, p["w_gate"],
+                                 p["w_up"], p["w_down"], here.start,
+                                 cfg.n_experts)
     if MOE_HELD_SLOTS is not None:
-        MOE_HELD_SLOTS.append(counts)
+        MOE_HELD_SLOTS.append(offsets)
     if cfg.n_shared_experts:
         with span("blasx.moe.shared"):
             y = y + _shared_expert(cfg, p, x, rules)
